@@ -3,21 +3,40 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``lammps_user_conp2_tpu_torch``: setup_conp ->
-build_engine -> init_state -> Engine.run) on the 7,296-atom synthetic
-capacitor ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` and exits
-non-zero if any phase fails:
+Drives the port's two main paths (``lammps_user_conp2_tpu_torch``:
+setup_conp -> build_engine -> init_state -> Engine.run) and exits non-zero
+if any phase fails.
+
+Mid-size path, the 7,296-atom synthetic capacitor
+``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
+pair sweep K4, electrode rows K5):
 
   1. versions, and the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ``csrc/`` (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card, float32, at
-     the cell's shapes: max|kernel - plain| / max|plain| <= 2e-5 per output,
-     all finite; median times of both (CUDA events, after warm-up);
-  4. the main path on the card: float64 setup, float32 run, 20 warm-up
-     and 200 timed steps from positions near the walls; every kernel of the
-     path must have launched; finite energy, neutral electrodes;
-  5. 5 steps on the card (float32) against 5 steps on the CPU (float64,
+  2. build the CUDA kernels from ``csrc/`` (nvcc, sm_90a, one process per
+     source);
+  3. K4 and K5 against their plain PyTorch versions on the card, float32,
+     at the cell's shapes: max|kernel - plain| / max|plain| <= 2e-5 per
+     output, all finite; median times of both (CUDA events);
+  4. the main path on the card: float64 setup, float32 run, 10 warm-up and
+     100 timed steps from positions near the walls; K4 and K5 must have
+     launched every step; finite energy, neutral electrodes;
+  5. 3 steps on the card (float32) against 3 steps on the CPU (float64,
      plain path) from the same positions.
+
+Production path, the 99,362-atom cell of ``tools/bench_large.py``
+(``step_breakdown_large.large_cell``: PPPM, INV, block Verlet list, tiled
+z-binned mesh):
+
+  6. float64 setup, float32 engine on the card;
+  7. K1 (block sweep, fused and unfused), K2a (spread) and K3 (gather)
+     against their plain versions at the cell's shapes, as in phase 3; K1's
+     fused correction also at ions 3 A from the walls, where |ecorr| > 1e-3;
+  8. the main path: 10 warm-up and 100 timed steps from positions near the
+     walls; K1, K2a and K3 must have launched every step and the Verlet
+     list must have been rebuilt in the timed window; finite energy,
+     neutral electrodes;
+  9. 2 steps on the card (float32) against 2 steps on the CPU (float64,
+     plain path, per-atom Verlet list) with phase 5's bounds.
 
 The line before the last is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}.  Needs no network and imports no jax.
@@ -36,6 +55,7 @@ import numpy as np
 import torch
 
 CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
+T_START = time.perf_counter()
 KERNEL_TOL = 2e-5
 OUT_DIR = "chiprun_out"
 
@@ -79,6 +99,21 @@ def compare(name, got, ref):
                                  f"{KERNEL_TOL}")
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, d)
     return worst_rel, worst_abs
+
+
+def agree(tag, s32, s64, ne):
+    """Phase 5/9 bounds between a card float32 and a CPU float64 state."""
+    qe32 = s32.q[:ne].double().cpu()
+    qe64 = s64.q[:ne]
+    dq = float((qe32 - qe64).abs().max())
+    qbound = 1e-4 * float(qe64.abs().max()) + 1e-6
+    dpe = abs(float(s32.energy) - float(s64.energy)) / abs(float(s64.energy))
+    df = float((s32.f.double().cpu() - s64.f).abs().max()) / float(
+        s64.f.abs().max())
+    print(f"{tag}: max|dq_ele| {dq:.3e} (bound {qbound:.3e}), pe rel "
+          f"{dpe:.3e}, f rel {df:.3e}")
+    if not (dq <= qbound and dpe <= 1e-4 and df <= 1e-3):
+        raise AssertionError(f"{tag}: outside the bounds")
 
 
 def main() -> int:
@@ -183,18 +218,18 @@ def main() -> int:
     k5.launches.reset()
     torch.cuda.synchronize()
     st = eng.init_state(x0=x_near)
-    st, _ = eng.run(st, 20, thermo_every=0)
+    st, _ = eng.run(st, 10, thermo_every=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, th = eng.run(st, 200, thermo_every=20)
+    st, th = eng.run(st, 100, thermo_every=20)
     torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) / 200 * 1e3
+    ms_step = (time.perf_counter() - t0) / 100 * 1e3
     launches = {"pair_forces_conp": k4.launches.count,
                 "b_realspace": k5.launches.count}
     print(f"phase 4: launches {launches}")
     for name, cnt in launches.items():
-        if cnt < 221:
-            raise AssertionError(f"phase 4: {name} launched {cnt} < 221 times")
+        if cnt < 111:
+            raise AssertionError(f"phase 4: {name} launched {cnt} < 111 times")
     if not math.isfinite(float(st.energy)):
         raise AssertionError("phase 4: energy is not finite")
     qsum = float(st.q[:conp.ne].double().sum())
@@ -212,41 +247,176 @@ def main() -> int:
     s64 = eng64.init_state(x0=x_near)
     ne = conp.ne
     t0 = time.perf_counter()
-    for i in range(5):
+    for i in range(3):
         s32 = eng.step(s32)
         s64 = eng64.step(s64)
-        qe32 = s32.q[:ne].double().cpu()
-        qe64 = s64.q[:ne]
-        dq = float((qe32 - qe64).abs().max())
-        qbound = 1e-4 * float(qe64.abs().max()) + 1e-6
-        dpe = abs(float(s32.energy) - float(s64.energy)) / abs(float(s64.energy))
-        df = float((s32.f.double().cpu() - s64.f).abs().max()) / float(
-            s64.f.abs().max())
-        print(f"phase 5: step {i + 1}: max|dq_ele| {dq:.3e} (bound "
-              f"{qbound:.3e}), pe rel {dpe:.3e}, f rel {df:.3e}")
-        if not (dq <= qbound and dpe <= 1e-4 and df <= 1e-3):
-            raise AssertionError(f"phase 5: step {i + 1} outside the bounds")
-    print(f"phase 5: 5 steps matched the float64 CPU run "
+        agree(f"phase 5: step {i + 1}", s32, s64, ne)
+    print(f"phase 5: 3 steps matched the float64 CPU run "
           f"({time.perf_counter() - t0:.1f} s)")
 
+    launches.update(production_path(card, dev, results))
     replaces = {
         "pair_forces_conp": "lammps_user_conp2_tpu/ops/pallas/pair_kernel.py:316",
-        "b_realspace": "lammps_user_conp2_tpu/ops/pallas/ele_rows_kernel.py:326"}
+        "b_realspace": "lammps_user_conp2_tpu/ops/pallas/ele_rows_kernel.py:326",
+        "block_pair_conp": "lammps_user_conp2_tpu/ops/pallas/block_pair.py:158",
+        "spread_mesh": "lammps_user_conp2_tpu/ops/pallas/pppm_spread.py:125",
+        "gather3": "lammps_user_conp2_tpu/ops/pallas/pppm_gather.py:100"}
     source = {
         "pair_forces_conp": "lammps_user_conp2_tpu_torch/csrc/pair_kernel.cu",
-        "b_realspace": "lammps_user_conp2_tpu_torch/csrc/ele_rows_kernel.cu"}
+        "b_realspace": "lammps_user_conp2_tpu_torch/csrc/ele_rows_kernel.cu",
+        "block_pair_conp": "lammps_user_conp2_tpu_torch/csrc/block_pair.cu",
+        "spread_mesh": "lammps_user_conp2_tpu_torch/csrc/pppm_spread.cu",
+        "gather3": "lammps_user_conp2_tpu_torch/csrc/pppm_gather.cu"}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
                     max_rel_err=results[name]["rel"],
                     ms=results[name]["ms"], plain_ms=results[name]["plain_ms"])
-               for name in ("pair_forces_conp", "b_realspace")]
+               for name in replaces]
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def production_path(card, dev, results):
+    """Phases 6-9 on the 100k cell; fills ``results`` for K1, K2a and K3
+    and returns their launch counts from the main-path run."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops import pppm
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+
+    # ---- phase 6: set-up
+    system, md, cfg = large_cell()
+    x_near = workloads.near_wall_positions(system)
+    t0 = time.perf_counter()
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    grid = eng.pppm_grid
+    geom = pppm._tile_geometry(grid, system.natoms)
+    print(f"phase 6: {system.natoms} atoms, Ne={conp.ne}, "
+          f"g_ewald={conp.ksp.g_ewald:.6f}, mesh {grid.shape}, {geom}, "
+          f"K={eng.ncfg.k_max}, U={eng.ncfg.u_max}, block={eng.ncfg.block}, "
+          f"mesh_persist={eng.mesh_persist}, {time.perf_counter() - t0:.2f} s")
+    if not (eng.ncfg.block == 8 and eng.mesh_persist and geom.z_span):
+        raise AssertionError("phase 6: not the block list on a persistent "
+                             "z-span mesh")
+
+    # ---- phase 7: K1, K2a, K3 against their plain versions
+    rng = np.random.default_rng(1)
+    q_np = system.q0.copy()
+    q_np[system.ele_mask] = 0.05 * rng.standard_normal(conp.ne)
+    q = torch.as_tensor(q_np, dtype=torch.float32, device=dev)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    bkw = dict(box=eng.ncfg.grid.box, periodic=eng.ncfg.grid.periodic,
+               cutoff=md.cutoff, g_ewald=conp.ksp.g_ewald,
+               qqr2e=system.units().qqr2e)
+    for margin, tag in ((5.0, ""), (3.0, " at margin 3 A")):
+        x = torch.as_tensor(workloads.near_wall_positions(system,
+                                                          margin=margin),
+                            dtype=torch.float32, device=dev)
+        nbr, tasg = eng.derived_state(x)
+        if bool(nbr.overflow) or bool(tasg.overflow):
+            raise AssertionError("phase 7: list or tile capacity overflow")
+        args = (x, q, eng.type_idx, nbr.bun, nbr.brows, eng.tables)
+        for name, cf in (("block_pair", None), ("block_pair_conp", fuse)):
+            kern = lambda: k1.block_pair(*args, conp_fuse=cf, **bkw)
+            plain = lambda: k1.block_pair_plain(*args, conp_fuse=cf, **bkw)
+            got = kern()
+            torch.cuda.synchronize()
+            rel, dabs = compare(name + tag, got, plain())
+            if cf is not None and margin == 3.0:
+                ecorr = 0.5 * float(got[3])
+                print(f"    block_pair_conp at margin 3 A: ecorr {ecorr:.4f}")
+                if not abs(ecorr) > 1e-3:
+                    raise AssertionError("phase 7: ecorr at margin 3 A is ~0")
+            if not tag:
+                results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                                     plain_ms=median_ms(plain, reps=5))
+        if tag:
+            break
+        q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+        slots = pppm.refresh_tile_slots(grid, tasg, x, q_elyte)
+        cfd = pppm._coeffs(grid, torch.float32, dev)
+        kern = lambda: k2.spread_mesh(slots.rows, cfd, geom)
+        plain = lambda: k2.spread_mesh_plain(slots.rows, cfd, geom)
+        got = kern()
+        torch.cuda.synchronize()
+        rel, dabs = compare("spread_mesh", (got,), (plain(),))
+        results["spread_mesh"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                                      plain_ms=median_ms(plain, reps=5))
+        rhok = pppm._spread_rhok_tiled(grid, x, q_elyte, slots)
+        _, uz = pppm.pppm_energy_u_zbin(grid, rhok, system.natoms)
+        up = pppm._wrap_pad_xy(uz, geom.hw + geom.dm).contiguous()
+        kern = lambda: k3.gather3(up, slots.rows, cfd, geom)
+        plain = lambda: k3.gather3_plain(up, slots.rows, cfd, geom)
+        got = kern()
+        torch.cuda.synchronize()
+        rel, dabs = compare("gather3", (got,), (plain(),))
+        results["gather3"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                                  plain_ms=median_ms(plain, reps=5))
+    for name in ("block_pair", "block_pair_conp", "spread_mesh", "gather3"):
+        r = results[name]
+        print(f"phase 7: {name:17s} rel err {r['rel']:.3e} (tol "
+              f"{KERNEL_TOL}), kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms  [{card}]")
+
+    # ---- phase 8: the main path on the card
+    counters = {"block_pair_conp": k1.launches, "spread_mesh": k2.launches,
+                "gather3": k3.launches}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    st = eng.init_state(x0=x_near)
+    st, _ = eng.run(st, 10, thermo_every=0)
+    torch.cuda.synchronize()
+    r0 = eng.rebuilds
+    t0 = time.perf_counter()
+    st, th = eng.run(st, 100, thermo_every=20)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / 100 * 1e3
+    rebuilds = eng.rebuilds - r0
+    launches = {name: c.count for name, c in counters.items()}
+    print(f"phase 8: launches {launches}")
+    for name, cnt in launches.items():
+        if cnt < 111:
+            raise AssertionError(f"phase 8: {name} launched {cnt} < 111 times")
+    if not math.isfinite(float(st.energy)):
+        raise AssertionError("phase 8: energy is not finite")
+    qsum = float(st.q[:conp.ne].double().sum())
+    if not abs(qsum) <= 1e-4:
+        raise AssertionError(f"phase 8: electrode charge sum {qsum:.3e}")
+    if rebuilds < 1:
+        raise AssertionError("phase 8: no list rebuild in the timed window")
+    print(f"phase 8: T={float(th['temp'][-1]):.2f} K, pe={float(st.energy):.6g}, "
+          f"qleft={float(th['qleft'][-1]):.6g}, sum q_ele={qsum:.3e}")
+    print(f"phase 8: {ms_step:.4f} ms/step ({1e3 / ms_step:.2f} steps/s), "
+          f"{rebuilds} list rebuilds in 100 steps, {system.natoms} atoms, "
+          f"float32  [{card}]")
+
+    # ---- phase 9: card (float32) against CPU (float64, plain path)
+    t0 = time.perf_counter()
+    conp64 = setup_conp(system, md, cfg)
+    eng64 = build_engine(system, md, conp64)
+    s32 = eng.init_state(x0=x_near)
+    s64 = eng64.init_state(x0=x_near)
+    agree("phase 9: step 0", s32, s64, conp.ne)
+    for i in range(2):
+        s32 = eng.step(s32)
+        s64 = eng64.step(s64)
+        agree(f"phase 9: step {i + 1}", s32, s64, conp.ne)
+    print(f"phase 9: 2 steps matched the float64 CPU run "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches
 
 
 if __name__ == "__main__":

@@ -40,4 +40,20 @@ __device__ __forceinline__ float min_image(float d, float len, float inv_len,
   return periodic ? d - len * rintf(d * inv_len) : d;
 }
 
+// minimum image and |d|^2 evaluated exactly as the plain PyTorch versions
+// evaluate them, op for op with round-to-nearest and no FMA contraction:
+// d - L * round(d / L) and ((dx*dx + dy*dy) + dz*dz).  A pair then lies
+// inside the cutoff in the kernel iff it does in the plain version, which
+// matters where a lattice spacing equals the cutoff.
+__device__ __forceinline__ float min_image_rn(float d, float len,
+                                              int periodic) {
+  return periodic ? __fsub_rn(d, __fmul_rn(len, rintf(__fdiv_rn(d, len))))
+                  : d;
+}
+
+__device__ __forceinline__ float rsq_rn(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
 }  // namespace conp2

@@ -3,7 +3,10 @@
 The inputs are what ``np.asarray`` gives for each field of the JAX
 package's objects (``System``, ``ConpContext``, ``MDState``), so a test can
 hand both packages the same setup or the same state and hold the per-step
-path apart from the setup.  Nothing here imports jax.
+path apart from the setup.  The context of a PPPM-mode solver carries over
+like any other (A^-1, elesetq, ...); the derived state (Verlet list, mesh
+tile assignment) is rebuilt from x by the port's engine.  Nothing here
+imports jax.
 """
 
 from __future__ import annotations
@@ -49,13 +52,17 @@ def context_from_numpy(fields: dict, *, device=None,
                              dtype=torch.int64, device=device))
 
 
-def state_from_numpy(fields: dict, *, device=None,
-                     dtype=torch.float64) -> MDState:
+def state_from_numpy(fields: dict, *, device=None, dtype=torch.float64,
+                     engine=None) -> MDState:
     """MDState from the JAX state's fields (x, v, q, f, step, nhc_xi,
-    nhc_vxi, scalar_out, energy; others ignored)."""
+    nhc_vxi, scalar_out, energy; others ignored).  With ``engine``, its
+    derived state (Verlet list, mesh tile assignment) is built at x."""
     f = lambda k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
                                device=device)
-    return MDState(x=f("x"), v=f("v"), q=f("q"), f=f("f"),
-                   step=int(np.asarray(fields["step"])), nhc_xi=f("nhc_xi"),
-                   nhc_vxi=f("nhc_vxi"), scalar_out=f("scalar_out"),
-                   energy=f("energy"))
+    st = MDState(x=f("x"), v=f("v"), q=f("q"), f=f("f"),
+                 step=int(np.asarray(fields["step"])), nhc_xi=f("nhc_xi"),
+                 nhc_vxi=f("nhc_vxi"), scalar_out=f("scalar_out"),
+                 energy=f("energy"))
+    if engine is not None:
+        st.nbr, st.tasg = engine.derived_state(st.x)
+    return st

@@ -7,8 +7,13 @@ Per-step math (fix_conp.cpp:543-573 pre_force; 1120-1161 update_charge):
 
 The setup (A, its inverse and projection, d, elesetq) runs once in float64
 on the CPU; the context is then cast to the run dtype and moved to the run
-device.  The CONQ/COND modes, the CG solvers and the PPPM b-vector are
-still to come: ``setup_conp`` raises NotImplementedError for them.
+device.  The k-space part of b is the factored Ewald sum (EWALD) or the
+mesh (PPPM: electrolyte spread, Poisson solve, readout on the electrodes'
+z planes); A is assembled from the exact Ewald sum in both, as the
+reference does (pppm_conp.cpp:91-101).  The real-space rows come from the
+Verlet list when the engine keeps one, else from the K5 sweep.  The
+CONQ/COND modes and the CG solvers are still to come: ``setup_conp``
+raises NotImplementedError for them.
 """
 
 from __future__ import annotations
@@ -22,10 +27,11 @@ from torch import nn
 
 from ..ops import ewald as ewald_ops
 from ..ops import ewald_factored as ewf
+from ..ops import pppm as pppm_ops
 from ..ops.erfc import ERFC_MAX
 from ..ops.kernels.ele_rows_kernel import b_realspace
 from ..ops.kernels.zorder import z_perm
-from ..ops.pppm import set_grid_and_gewald
+from ..ops.neighbors import b_realspace_from_list
 from ..utils.config import (ConpConfig, FFMode, KSpaceStyle, MDConfig, Mode,
                             Solver)
 from .electrodes import (ConpContext, ElectrodeKernels, assemble_amatrix,
@@ -38,15 +44,20 @@ class ConpSolver(nn.Module):
     Every tensor is a buffer, so ``.to(device)`` moves the whole solver."""
 
     def __init__(self, *, cfg: ConpConfig, ksp: ewald_ops.EwaldKSpace,
-                 kernels: ElectrodeKernels, fksp: ewf.FactoredKSpace,
-                 ctx: ConpContext, ele_idx: np.ndarray, elyte_mask: np.ndarray,
+                 kernels: ElectrodeKernels,
+                 fksp: Optional[ewf.FactoredKSpace], ctx: ConpContext,
+                 ele_idx: np.ndarray, elyte_mask: np.ndarray,
                  type_idx: np.ndarray, box, periodic, cut_coulsq: float,
-                 ee_diag: float, solve_dtype):
+                 ee_diag: float, solve_dtype, pppm_grid=None,
+                 ele_zplanes=None, ele_zpinv=None):
         super().__init__()
         self.cfg = cfg
         self.ksp = ksp
         self.kernels = kernels
-        self.fksp = fksp
+        self.fksp = fksp                       # factored Ewald (EWALD) or None
+        self.pppm_grid = pppm_grid             # PPPMGrid (PPPM) or None
+        self.ele_zplanes = ele_zplanes         # (P,) z nodes of the electrodes
+        self.ele_zpinv = ele_zpinv             # (nz,) node -> plane, -1 off
         self.ele_idx = ele_idx                 # (Ne,) host copy
         self.elyte_mask = elyte_mask           # (N,) host copy, bool
         self.type_idx = type_idx               # (N,) host copy
@@ -89,34 +100,64 @@ class ConpSolver(nn.Module):
             setattr(self, name, getattr(ctx, name).to(buf.device, buf.dtype))
 
     # ----------------------------------------------------------------- b
-    def elyte_kcache(self, x, q):
-        """(axis_tables, Sr_elyte, Si_elyte, zsort) at these positions: the
-        per-step phase tables and electrolyte structure factor, shared with
-        the force path, and the z ordering shared by both CUDA sweeps."""
+    def elyte_kcache(self, x, q, tasg=None):
+        """The electrolyte's k-space cache at these positions, shared with
+        the force path.  EWALD: (axis_tables, Sr_elyte, Si_elyte, zsort),
+        the per-step phase tables, the electrolyte structure factor and the
+        z ordering shared by both CUDA sweeps.  PPPM: (rhok_elyte, slots),
+        the electrolyte's half-spectrum density and the tile binning (slots
+        None on the dense mesh), refreshed under the persistent assignment
+        ``tasg`` when there is one (pppm_conp.cpp:428-450 reuse)."""
         q_elyte = torch.where(self.elyte_t, q, torch.zeros_like(q))
+        if self.pppm_grid is not None:
+            grid = self.pppm_grid
+            slots = None
+            if tasg is not None:
+                slots = pppm_ops.refresh_tile_slots(grid, tasg, x, q_elyte)
+            elif not pppm_ops._use_dense(grid, x.shape[0]):
+                slots = pppm_ops.tile_slots(grid, x, q_elyte)
+            return (pppm_ops.spread_rhok(grid, x, q_elyte, slots=slots),
+                    slots)
         tabs = ewf.axis_tables(self.fksp, x)
         sr, si = ewf.structure_factor_tab(tabs, q_elyte)
         return (tabs, sr, si, z_perm(x, self.box, self.periodic))
 
-    def b_vector_full(self, x, q):
+    def b_vector_full(self, x, q, nbr=None, ncfg=None, tasg=None):
         """Assemble b for the current electrolyte configuration.
 
         k-space: b_i -= sum_k 2 ug_k (c_i ReS + s_i ImS)   [km_ewald.cpp:789-825]
+                 or the mesh potential at the electrodes    [pppm_conp.cpp:269-316]
         real:    b_i -= sum_(elyte j in range) q_j (erfc(g r)/r + pot(r))
                                                             [fix_conp.cpp:1281-1365]
         slab:    b_i -= z_i * (4 pi / V) sum_elyte q_j z_j  [km_ewald.cpp:827-847]
-        Returns (b, kcache)."""
+        ``nbr``/``ncfg``: the engine's Verlet list, whose electrode rows
+        then give the real-space part.  Returns (b, kcache)."""
         ne = self.ne
         q_elyte = torch.where(self.elyte_t, q, torch.zeros_like(q))
-        kcache = self.elyte_kcache(x, q)
-        tabs, sr, si, zsort = kcache
-        (pr, pi), (zr, zi) = tabs
-        tabs_e = ((pr[:ne], pi[:ne]), (zr[:ne], zi[:ne]))
-        b = -ewf.potential_on_points_tab(tabs_e, sr, si, self.fksp.ug_t)
-        b = b + b_realspace(
-            x, q_elyte, self.ele_idx_t, self.elyte_f, self.eta_rows,
-            self.fo_rows, self.type_t, box=self.box, periodic=self.periodic,
-            cut_coulsq=self.cut_coulsq, g_ewald=self.ksp.g_ewald, zsort=zsort)
+        kcache = self.elyte_kcache(x, q, tasg)
+        zsort = None
+        if self.pppm_grid is not None:
+            # the electrodes sit on a few z planes: read u there with a
+            # small z-DFT matmul and P plane FFTs, no full inverse FFT
+            grid = self.pppm_grid
+            up = pppm_ops.u_on_zplanes(grid, kcache[0], self.ele_zplanes)
+            b = -pppm_ops.gather_zplanes(grid, up, x[:ne], self.ele_zpinv)
+        else:
+            tabs, sr, si, zsort = kcache
+            (pr, pi), (zr, zi) = tabs
+            tabs_e = ((pr[:ne], pi[:ne]), (zr[:ne], zi[:ne]))
+            b = -ewf.potential_on_points_tab(tabs_e, sr, si, self.fksp.ug_t)
+        if nbr is not None and ncfg is not None:
+            b = b + b_realspace_from_list(
+                ncfg, nbr, x, q_elyte, self.ele_idx_t, self.elyte_t,
+                self.type_t, self.kernels.potential, g_ewald=self.ksp.g_ewald,
+                cut_coulsq=self.cut_coulsq)
+        else:
+            b = b + b_realspace(
+                x, q_elyte, self.ele_idx_t, self.elyte_f, self.eta_rows,
+                self.fo_rows, self.type_t, box=self.box,
+                periodic=self.periodic, cut_coulsq=self.cut_coulsq,
+                g_ewald=self.ksp.g_ewald, zsort=zsort)
         if self.ksp.slabflag:
             slabcorr = (4.0 * math.pi / self.ksp.volume) * torch.sum(
                 q_elyte * x[:, 2])
@@ -124,11 +165,11 @@ class ConpSolver(nn.Module):
         return b, kcache
 
     # ------------------------------------------------------------- solve
-    def solve_full(self, x, q):
+    def solve_full(self, x, q, nbr=None, ncfg=None, tasg=None):
         """One charge update.  Returns (q_new, scalar, kcache): scalar is the
         CONP induced charge dV*totsetq + sum_left(A^-1 b)
         (fix_conp.cpp:1159)."""
-        b, kcache = self.b_vector_full(x, q)
+        b, kcache = self.b_vector_full(x, q, nbr, ncfg, tasg)
         eleallq = self.ainv @ b
         potdiff = float(self.cfg.target)
         left = self.elecheck_ele == 1
@@ -148,8 +189,6 @@ def _check_supported(cfg: ConpConfig, ele_idx: np.ndarray) -> None:
         missing.append(f"{cfg.solver.name} solver")
     if cfg.ff is not FFMode.NORMAL:
         missing.append(f"{cfg.ff.name} field mode")
-    if cfg.kspace is not KSpaceStyle.EWALD:
-        missing.append(f"{cfg.kspace.name} k-space for the charge solve")
     if cfg.nevery != 1:
         missing.append("nevery > 1 gating")
     if callable(cfg.target):
@@ -196,7 +235,7 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
     if g_ewald is None:
         # the reference decks use a pppm host kspace style and the fix takes
         # g_ewald from it (km_ewald.cpp:66): the LAMMPS pppm pipeline
-        g_ewald, _, _ = set_grid_and_gewald(
+        g_ewald, _, _ = pppm_ops.set_grid_and_gewald(
             box=box, accuracy_abs=acc_abs, natoms=natoms, q2=max(q2, 1e-10),
             cutoff=md.cutoff,
             slab_volfactor=md.slab if md.slab is not None else 1.0)
@@ -204,11 +243,28 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
         box=box, accuracy_abs=acc_abs, g_ewald=g_ewald, natoms=natoms,
         q2=max(q2, 1e-10), slabflag=slabflag,
         slab_volfactor=md.slab if slabflag else 1.0)
-    fksp = ewf.factorize(ksp, device=device, dtype=solve_dtype)
-    if fksp.nxy > ewf.KXY_CHUNK:
-        raise NotImplementedError(
-            f"not ported yet: chunked factored Ewald ({fksp.nxy} xy vectors "
-            f"> KXY_CHUNK={ewf.KXY_CHUNK})")
+    # the per-step k-space: the factored Ewald tables outside PPPM only
+    # (A is assembled from the exact Ewald sum either way)
+    fksp = pppm_grid = zp = zpinv = None
+    if cfg.kspace is KSpaceStyle.PPPM:
+        pppm_grid = pppm_ops.setup_pppm(
+            box=box, box_lo=tuple(system.box_lo), accuracy_abs=acc_abs,
+            natoms=natoms, q2=max(q2, 1e-10), cutoff=md.cutoff,
+            slabflag=slabflag, slab_volfactor=md.slab if slabflag else 1.0,
+            g_ewald=g_ewald, device=device)
+        pppm_grid = pppm_ops.with_tile_cap(pppm_grid, x0)
+        zp = pppm_ops.electrode_zplanes(pppm_grid, x0[ele_idx])
+        if len(zp) > max(pppm_grid.nz // 4, 16):
+            raise NotImplementedError(
+                f"not ported yet: PPPM without electrode z-planes (the "
+                f"electrodes touch {len(zp)} of {pppm_grid.nz} z planes)")
+        zpinv = pppm_ops.zplane_inverse(pppm_grid, zp)
+    else:
+        fksp = ewf.factorize(ksp, device=device, dtype=solve_dtype)
+        if fksp.nxy > ewf.KXY_CHUNK:
+            raise NotImplementedError(
+                f"not ported yet: chunked factored Ewald ({fksp.nxy} xy "
+                f"vectors > KXY_CHUNK={ewf.KXY_CHUNK})")
 
     kernels = make_kernels(cfg, system)
     cut_coulsq = min(md.cutoff ** 2, (ERFC_MAX / g_ewald) ** 2)
@@ -251,4 +307,5 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
         cfg=cfg, ksp=ksp, kernels=kernels, fksp=fksp, ctx=ctx,
         ele_idx=ele_idx, elyte_mask=~system.ele_mask, type_idx=system.type,
         box=box, periodic=system.periodic, cut_coulsq=cut_coulsq,
-        ee_diag=ee, solve_dtype=solve_dtype)
+        ee_diag=ee, solve_dtype=solve_dtype, pppm_grid=pppm_grid,
+        ele_zplanes=zp, ele_zpinv=zpinv)

@@ -1,19 +1,27 @@
 """The MD engine: velocity Verlet with the charge solve in pre-force position.
 
 Step order (LAMMPS Verlet::run, FixConp::pre_force fix_conp.cpp:543-573):
-  NHC half -> kick half -> drift -> charge solve -> forces
-  -> post-force CONP correction -> kick half -> NHC half
+  NHC half -> kick half -> drift -> [Verlet skin check, list and mesh-tile
+  rebuild] -> charge solve -> forces -> post-force CONP correction
+  -> kick half -> NHC half
 
 ``step`` is a plain function of tensors and ``run`` a Python loop of steps.
-The path is the JAX engine's mid-size path: factored Ewald with the
-per-step tables shared between the charge solve and the forces, the pair
-sweep (``ops/kernels/pair_kernel``) with the CONP Gaussian correction fused
-in, and the electrode b rows (``ops/kernels/ele_rows_kernel``).  On CUDA
-float32 both sweeps are CUDA kernels; on the CPU their plain versions.
+Two paths, chosen by ``build_engine`` as the JAX engine chooses them:
+
+* mid-size (N <= 8192 or a box under 4 cutoffs): the dense pair sweep (K4)
+  with the CONP Gaussian correction fused in, the electrode b rows (K5),
+  and the factored Ewald (or the dense PPPM mesh) for k-space;
+* large N: a Verlet list with skin, in block form with the block sweep (K1,
+  correction fused) where that CUDA kernel runs (CUDA float32), per-atom
+  rows elsewhere; the tiled z-binned PPPM mesh with the spread (K2a) and
+  the ad gather (K3); the electrode transforms on their z planes.
+
+On the CPU every kernel wrapper takes its plain version.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -23,8 +31,13 @@ from torch import nn
 
 from ..ops import ewald as ewald_ops
 from ..ops import ewald_factored as ewf
+from ..ops import pppm as pppm_ops
 from ..ops.bonded import bonded_forces
 from ..ops.kernels.pair_kernel import pair_forces
+from ..ops.neighbors import (block_pair_forces, build_neighbor_list,
+                             conp_correction_from_list, make_neighbor_config,
+                             max_union_count, needs_rebuild,
+                             nlist_pair_forces)
 from ..ops.pairs import PairTables, exclusions_tensors, make_pair_tables
 from ..utils.config import KSpaceStyle, MDConfig
 from .conp import ConpSolver
@@ -43,15 +56,22 @@ class Engine(nn.Module):
 
     def __init__(self, *, system: System, md: MDConfig,
                  conp: Optional[ConpSolver], integrator: Integrator,
-                 ksp_force: ewald_ops.EwaldKSpace, fksp: ewf.FactoredKSpace,
-                 dtype, device):
+                 ksp_force: ewald_ops.EwaldKSpace,
+                 fksp: Optional[ewf.FactoredKSpace], pppm_grid, ncfg,
+                 mesh_persist: bool, dtype, device):
         super().__init__()
         self.system = system
         self.md = md
         self.conp = conp
         self.integrator = integrator
         self.ksp_force = ksp_force
-        self.fksp = fksp
+        self.fksp = fksp                 # factored Ewald, or None under PPPM
+        self.pppm_grid = pppm_grid       # PPPMGrid, or None under EWALD
+        self.ncfg = ncfg                 # NeighborConfig, or None (dense)
+        # persistent mesh-tile binning rebuilt with the Verlet list: only on
+        # the tiled mesh, and only while skin/2 fits the tile drift margin
+        self.mesh_persist = mesh_persist
+        self.rebuilds = 0                # Verlet-list rebuilds in step()
         self.dtype = dtype
         self.units = system.units()
         f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -104,23 +124,93 @@ class Engine(nn.Module):
         return (self.excl_idx, self.excl_val) if self.has_excl else None
 
     # ------------------------------------------------------------- forces
-    def compute_forces(self, x, q, kcache=None):
-        """Returns (f, pe) for the current configuration.  ``kcache`` is the
-        charge solve's (axis_tables, Sr_elyte, Si_elyte, zsort) at the same
-        positions, or None."""
-        sys = self.system
+    def _pair(self, x, q, kcache, nbr):
+        """(f, evdwl, ecoul, fused_ecorr): the pair sweep; fused_ecorr is
+        the CONP correction energy when the sweep folded the correction
+        into f, else None."""
         u = self.units
-        box = self.ksp_force.box
-        zsort = kcache[3] if kcache is not None else None
+        g = self.ksp_force.g_ewald
         fuse = None
         if self.conp is not None:
             fuse = (self.ele_flag, self.elyte_flag, self.eta_tab, self.fo_tab)
+        if self.ncfg is not None and nbr is not None:
+            if self.ncfg.block:
+                # the correction rides the block sweep only where K1 runs
+                kfuse = fuse if x.is_cuda else None
+                out = block_pair_forces(
+                    self.ncfg, nbr, x, q, self.type_idx, self.tables,
+                    self.exclusions, g_ewald=g, qqr2e=u.qqr2e,
+                    conp_fuse=kfuse)
+                return out[0], out[1], out[2], (out[3] if kfuse else None)
+            f, ev, ec, _ = nlist_pair_forces(
+                self.ncfg, nbr, x, q, self.type_idx, self.tables,
+                self.exclusions, g_ewald=g, qqr2e=u.qqr2e)
+            return f, ev, ec, None
+        zsort = None
+        if kcache is not None and self.pppm_grid is None:
+            zsort = kcache[3]
         out = pair_forces(
-            x, q, self.type_idx, self.tables, self.exclusions, box=box,
-            periodic=sys.periodic, cutoff=self.md.cutoff,
-            g_ewald=self.ksp_force.g_ewald, qqr2e=u.qqr2e, zsort=zsort,
+            x, q, self.type_idx, self.tables, self.exclusions,
+            box=self.ksp_force.box, periodic=self.system.periodic,
+            cutoff=self.md.cutoff, g_ewald=g, qqr2e=u.qqr2e, zsort=zsort,
             conp_fuse=fuse)
-        f, evdwl, ecoul = out[:3]
+        return out[0], out[1], out[2], (out[3] if fuse is not None else None)
+
+    def _slots(self, x, q, tasg):
+        grid = self.pppm_grid
+        if pppm_ops._use_dense(grid, x.shape[0]):
+            return None
+        if tasg is not None:
+            return pppm_ops.refresh_tile_slots(grid, tasg, x, q)
+        return pppm_ops.tile_slots(grid, x, q)
+
+    def _pppm(self, x, q, kcache, tasg):
+        """(ek, fk) of the mesh, without the qqr2e prefactor: the
+        electrolyte density comes from the charge solve's cache, the
+        electrodes are added in k-space from their z planes
+        (pppm_conp.cpp:385-450), then the ad (or, on a dense mesh by
+        default, ik) force readout."""
+        grid = self.pppm_grid
+        n = x.shape[0]
+        tiled = not pppm_ops._use_dense(grid, n)
+        if self.conp is not None:
+            rhok_elyte, slots = kcache if kcache is not None else (None, None)
+            if rhok_elyte is None:
+                q_elyte = torch.where(self.elecheck != 0, torch.zeros_like(q),
+                                      q)
+                slots = self._slots(x, q_elyte, tasg)
+                rhok_elyte = pppm_ops.spread_rhok(grid, x, q_elyte, slots)
+            ne = self.conp.ne
+            rho_ep = pppm_ops.spread_zplanes(grid, x[:ne], q[:ne],
+                                             self.conp.ele_zpinv)
+            rhok = rhok_elyte + pppm_ops.rhok_from_zplanes(
+                grid, rho_ep, self.conp.ele_zplanes)
+        else:
+            slots = self._slots(x, q, tasg)
+            rhok = pppm_ops.spread_rhok(grid, x, q, slots)
+        diff = self.md.pppm_diff
+        if diff == "ad" or (diff == "auto" and tiled):
+            if tiled:
+                ek, uz = pppm_ops.pppm_energy_u_zbin(grid, rhok, n)
+                e3 = pppm_ops.gather3_ad_zbin(grid, uz, x, slots)
+            else:
+                ek, umesh = pppm_ops.pppm_energy_u_from_k(grid, rhok)
+                e3 = pppm_ops.gather3_ad(grid, umesh, x)
+        else:
+            ek, efield = pppm_ops.pppm_energy_efield_from_k(grid, rhok)
+            e3 = pppm_ops.gather3(grid, efield, x)
+        return ek, q[:, None] * e3
+
+    def compute_forces(self, x, q, kcache=None, nbr=None, tasg=None):
+        """Returns (f, pe) for the current configuration.  ``kcache`` is the
+        charge solve's k-space cache at the same positions (see
+        ``ConpSolver.elyte_kcache``) or None; ``nbr`` the Verlet list and
+        ``tasg`` the persistent mesh-tile assignment, when the engine keeps
+        them."""
+        sys = self.system
+        u = self.units
+        box = self.ksp_force.box
+        f, evdwl, ecoul, fused_ecorr = self._pair(x, q, kcache, nbr)
         pe = evdwl + ecoul
         if self.has_bonded:
             fba, eba = bonded_forces(
@@ -128,7 +218,9 @@ class Engine(nn.Module):
                 self.angle_coeffs, box=box, periodic=sys.periodic)
             f = f + fba
             pe = pe + eba
-        if kcache is not None:
+        if self.pppm_grid is not None:
+            ek, fk = self._pppm(x, q, kcache, tasg)
+        elif kcache is not None:
             tabs, sre, sie, _ = kcache
             ek, fk = ewf.energy_forces_cached(self.fksp, q, tabs, sre, sie,
                                               self.conp.ne)
@@ -149,35 +241,67 @@ class Engine(nn.Module):
             pe = pe + u.qqr2e * es
 
         if self.conp is not None:
-            # CONP post-force: the pair sweep already folded the Gaussian
-            # correction forces into f; add the correction energy and the
-            # ETA self energy qqr2e*eta*sum q^2/(sqrt2*sqrt(pi))
-            # == qqr2e/2 * sum(self_diag q^2)
+            # CONP post-force: the correction forces (folded into f by a
+            # fused sweep, else from the electrode rows of the list), the
+            # correction energy and the ETA self energy
+            # qqr2e*eta*sum q^2/(sqrt2*sqrt(pi)) == qqr2e/2 * sum(self_diag q^2)
+            ecorr = fused_ecorr
+            if ecorr is None:
+                fc, ecorr = conp_correction_from_list(
+                    self.ncfg, nbr, x, q, self.conp.ele_idx_t,
+                    self.conp.elyte_t, self.type_idx,
+                    self.conp.kernels.force, self.conp.kernels.potential,
+                    cutoff=self.md.cutoff, qqr2e=u.qqr2e)
+                f = f + fc
             qsq_ele = torch.sum(torch.where(
                 self.elecheck != 0, self.self_diag * q * q,
                 torch.zeros_like(q)))
-            pe = pe + u.qqr2e * 0.5 * qsq_ele + out[3]
+            pe = pe + u.qqr2e * 0.5 * qsq_ele + ecorr
         return f, pe
 
     # --------------------------------------------------------------- step
+    def derived_state(self, x):
+        """(nbr, tasg) built at positions x: the Verlet list and the
+        persistent mesh-tile assignment, each None when the engine keeps
+        none."""
+        nbr = tasg = None
+        if self.ncfg is not None:
+            nbr = build_neighbor_list(self.ncfg, x, self.tables, self.type_idx)
+        if self.mesh_persist:
+            tasg = pppm_ops.tile_assign(self.pppm_grid, x)
+        return nbr, tasg
+
     def step(self, state: MDState) -> MDState:
         itg = self.integrator
         v, xi, vxi = itg.thermostat_half(state.v, state.nhc_xi, state.nhc_vxi)
         v = itg.kick(v, state.f)
         x = itg.drift(state.x, v)
+        nbr, tasg = state.nbr, state.tasg
+        if self.ncfg is not None:
+            # Verlet skin check (LAMMPS Neighbor::check_distance): one host
+            # sync per step.  The mesh-tile assignment shares the trigger.
+            if bool(needs_rebuild(self.ncfg, nbr, x)):
+                nbr, tasg = self.derived_state(x)
+                self.rebuilds += 1
+                # sticky overflow: a rebuild from NaN-poisoned positions
+                # must not clear it, so run() can see the cause
+                nbr.overflow = nbr.overflow | state.nbr.overflow
         q, scalar, kcache = state.q, state.scalar_out, None
         if self.conp is not None:
-            q, scalar, kcache = self.conp.solve_full(x, q)
-        f, pe = self.compute_forces(x, q, kcache)
+            q, scalar, kcache = self.conp.solve_full(x, q, nbr, self.ncfg,
+                                                     tasg)
+        f, pe = self.compute_forces(x, q, kcache, nbr, tasg)
         v = itg.kick(v, f)
         v, xi, vxi = itg.thermostat_half(v, xi, vxi)
         return MDState(x=x, v=v, q=q, f=f, step=state.step + 1, nhc_xi=xi,
-                       nhc_vxi=vxi, scalar_out=scalar, energy=pe)
+                       nhc_vxi=vxi, scalar_out=scalar, energy=pe, nbr=nbr,
+                       tasg=tasg)
 
     # -------------------------------------------------------------- setup
     def init_state(self, x0=None, v0=None, q0=None) -> MDState:
-        """Zero the velocities of atoms no integrator moves, solve the
-        initial charges, compute the first forces."""
+        """Zero the velocities of atoms no integrator moves, build the list
+        and mesh tiles, solve the initial charges, compute the first
+        forces."""
         sys = self.system
         dev = self.type_idx.device
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
@@ -187,17 +311,28 @@ class Engine(nn.Module):
         q = t(sys.q0 if q0 is None else q0)
         mobile = self.integrator.mobile_mask[:, None]
         v = torch.where(mobile, v, torch.zeros_like(v))
-        scalar = torch.zeros((), dtype=self.dtype, device=dev)
-        kcache = None
-        if self.conp is not None:
-            q, scalar, kcache = self.conp.solve_full(x, q)
-        f, pe = self.compute_forces(x, q, kcache)
         ths = self.integrator.thermostats
         nt = max(len(ths), 1)
         tch = ths[0].tchain if len(ths) else 3
         zeros = torch.zeros((nt, tch), dtype=self.dtype, device=dev)
-        return MDState(x=x, v=v, q=q, f=f, step=0, nhc_xi=zeros,
-                       nhc_vxi=zeros.clone(), scalar_out=scalar, energy=pe)
+        st = MDState(x=x, v=v, q=q, f=torch.zeros_like(x), step=0,
+                     nhc_xi=zeros, nhc_vxi=zeros.clone(),
+                     scalar_out=torch.zeros((), dtype=self.dtype, device=dev),
+                     energy=torch.zeros((), dtype=self.dtype, device=dev))
+        return self._heal_state(st)
+
+    def _heal_state(self, state: MDState) -> MDState:
+        """Rebuild the derived state (list, mesh tiles, electrode charges,
+        forces) from x with the current capacities; positions, velocities
+        and thermostat state pass through."""
+        nbr, tasg = self.derived_state(state.x)
+        q, scalar, kcache = state.q, state.scalar_out, None
+        if self.conp is not None:
+            q, scalar, kcache = self.conp.solve_full(state.x, state.q, nbr,
+                                                     self.ncfg, tasg)
+        f, pe = self.compute_forces(state.x, q, kcache, nbr, tasg)
+        return dataclasses.replace(state, q=q, f=f, scalar_out=scalar,
+                                   energy=pe, nbr=nbr, tasg=tasg)
 
     # ---------------------------------------------------------------- run
     def thermo(self, state: MDState) -> dict:
@@ -225,24 +360,68 @@ class Engine(nn.Module):
                     qright=torch.sum(torch.where(self.right_mask, state.q, zq)),
                     dipole=dipole, f_e=state.scalar_out, pe=state.energy)
 
+    def _grow_neighbor_capacity(self) -> None:
+        """Double the cell capacity, K and U after a list overflow."""
+        g = self.ncfg.grid
+        self.ncfg = dataclasses.replace(
+            self.ncfg, grid=dataclasses.replace(g, cap=2 * g.cap),
+            k_max=2 * self.ncfg.k_max, u_max=2 * self.ncfg.u_max)
+
+    def _mesh_tiled(self) -> bool:
+        return (self.pppm_grid is not None
+                and not pppm_ops._use_dense(self.pppm_grid,
+                                            self.system.natoms))
+
+    def _grow_tile_capacity(self) -> None:
+        """Double the mesh tile slot capacity after an occupancy overflow
+        (the tiled spread/gather NaN-poison; no sticky flag reaches the
+        state, so run() retries a bounded number of times)."""
+        geom = pppm_ops._tile_geometry(self.pppm_grid, self.system.natoms)
+        self.pppm_grid = dataclasses.replace(
+            self.pppm_grid,
+            tile_cap=min(2 * geom.cap, self.system.natoms + 1))
+        if self.conp is not None and self.conp.pppm_grid is not None:
+            self.conp.pppm_grid = self.pppm_grid
+
     def run(self, state: MDState, nsteps: int, *, thermo_every: int = 1):
         """``nsteps`` steps; returns (final_state, thermo) where thermo maps
         each thermo key to a tensor of the rows taken every
-        ``thermo_every`` steps (None when thermo_every is 0)."""
-        rows = []
-        for i in range(nsteps):
-            state = self.step(state)
-            if thermo_every and (i + 1) % thermo_every == 0:
-                rows.append(self.thermo(state))
+        ``thermo_every`` steps (None when thermo_every is 0).
+
+        If the run ends NaN-poisoned through a list overflow (sticky
+        ``nbr.overflow``) or on the tiled mesh, the capacity is grown, the
+        derived state rebuilt from the entry state, and the whole run
+        repeated (at most 3 times), as the JAX engine does."""
+        def execute(st):
+            rows = []
+            for i in range(nsteps):
+                st = self.step(st)
+                if thermo_every and (i + 1) % thermo_every == 0:
+                    rows.append(self.thermo(st))
+            return st, rows
+
+        final, rows = execute(state)
+        for _ in range(3):
+            if math.isfinite(float(final.energy)):
+                break
+            if (self.ncfg is not None and state.nbr is not None
+                    and bool(final.nbr.overflow)):
+                self._grow_neighbor_capacity()
+            elif self._mesh_tiled():
+                self._grow_tile_capacity()
+            else:
+                break
+            state = self._heal_state(state)
+            final, rows = execute(state)
         if not thermo_every:
-            return state, None
+            return final, None
         th = {}
         for k in (rows[0] if rows else {}):
             if k == "step":
                 th[k] = torch.tensor([r[k] for r in rows])
             else:
                 th[k] = torch.stack([r[k] for r in rows])
-        return state, th
+        return final, th
 
 
 def _check_supported(system: System, md: MDConfig) -> None:
@@ -255,15 +434,8 @@ def _check_supported(system: System, md: MDConfig) -> None:
         missing.append("zmirror")
     if md.efield is not None or md.efield_feedback:
         missing.append("external / feedback efield")
-    if md.kspace_style is not KSpaceStyle.EWALD:
-        missing.append(f"{md.kspace_style.name} k-space")
-    if md.pair_path not in ("auto", "dense"):
+    if md.pair_path not in ("auto", "dense", "nlist", "block"):
         missing.append(f"pair_path={md.pair_path!r}")
-    big_n = (system.natoms > DENSE_MAX_ATOMS
-             and all(b >= 4.0 * md.cutoff for b in system.box))
-    if md.pair_path == "auto" and big_n:
-        missing.append(f"Verlet neighbor list (N = {system.natoms} > "
-                       f"{DENSE_MAX_ATOMS} in a box >= 4 cutoffs wide)")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
@@ -271,18 +443,28 @@ def _check_supported(system: System, md: MDConfig) -> None:
 def build_engine(system: System, md: MDConfig,
                  conp: Optional[ConpSolver] = None, *,
                  dtype=torch.float64, device=None) -> Engine:
-    """The engine for the mid-size path (dense pair sweep, factored Ewald,
-    INV solve); raises NotImplementedError for configurations that need a
-    part that is not ported yet."""
+    """The engine for ``md``: the pair path, the k-space and the
+    capacities chosen as the JAX package chooses them.  Raises
+    NotImplementedError for configurations that need a part that is not
+    ported yet."""
     _check_supported(system, md)
     u = system.units()
+    on_card = (device is not None and torch.device(device).type == "cuda"
+               and dtype == torch.float32)
+    pppm_grid = fksp = None
     if conp is not None:
         if conp.solve_dtype != dtype:
             raise NotImplementedError(
                 "not ported yet: mixed precision (solve dtype "
                 f"{conp.solve_dtype} != engine dtype {dtype})")
+        if (conp.pppm_grid is not None) != (md.kspace_style
+                                            is KSpaceStyle.PPPM):
+            raise NotImplementedError(
+                "not ported yet: a charge solve and forces in different "
+                "k-space styles")
         ksp = conp.ksp
         fksp = conp.fksp
+        pppm_grid = conp.pppm_grid
     else:
         q2 = float((system.q0 ** 2).sum()) * u.qqr2e
         acc_abs = md.kspace_accuracy * u.qqr2e
@@ -293,11 +475,55 @@ def build_engine(system: System, md: MDConfig,
             box=system.box, accuracy_abs=acc_abs, g_ewald=g,
             natoms=system.natoms, q2=max(q2, 1e-10),
             slabflag=slabflag, slab_volfactor=md.slab if slabflag else 1.0)
-        fksp = ewf.factorize(ksp, device=device, dtype=dtype)
-        if fksp.nxy > ewf.KXY_CHUNK:
-            raise NotImplementedError(
-                f"not ported yet: chunked factored Ewald ({fksp.nxy} xy "
-                f"vectors > KXY_CHUNK={ewf.KXY_CHUNK})")
+        if md.kspace_style is KSpaceStyle.PPPM:
+            pppm_grid = pppm_ops.with_tile_cap(pppm_ops.setup_pppm(
+                box=system.box, box_lo=tuple(system.box_lo),
+                accuracy_abs=acc_abs, natoms=system.natoms, q2=max(q2, 1e-10),
+                cutoff=md.cutoff, slabflag=slabflag,
+                slab_volfactor=md.slab if slabflag else 1.0,
+                g_ewald=ksp.g_ewald, device=device), system.x0)
+        else:
+            fksp = ewf.factorize(ksp, device=device, dtype=dtype)
+            if fksp.nxy > ewf.KXY_CHUNK:
+                raise NotImplementedError(
+                    f"not ported yet: chunked factored Ewald ({fksp.nxy} xy "
+                    f"vectors > KXY_CHUNK={ewf.KXY_CHUNK})")
+
+    # pair path: "auto" takes the Verlet list for big N in a box at least 4
+    # cutoffs wide, in block form exactly where the block CUDA kernel runs
+    big_n = (system.natoms > DENSE_MAX_ATOMS
+             and all(b >= 4.0 * md.cutoff for b in system.box))
+    want_block = md.pair_path == "block" or (md.pair_path == "auto" and big_n
+                                             and on_card)
+    want_nlist = (want_block or md.pair_path == "nlist"
+                  or (md.pair_path == "auto" and big_n))
+    ncfg = None
+    if want_nlist:
+        ncfg = make_neighbor_config(
+            system.box, tuple(system.box_lo), md.cutoff, system.natoms,
+            periodic=system.periodic, skin=md.neighbor_skin,
+            k_max=md.neighbor_kmax, x0=system.x0,
+            block=8 if want_block else 0, device=device)
+        if ncfg.block:
+            # U from the exact max union width at x0 (1.3x, lane-rounded)
+            base = dataclasses.replace(ncfg, block=0, u_max=0)
+            x0t = torch.as_tensor(system.x0, dtype=dtype, device=device)
+            nl0 = build_neighbor_list(
+                base, x0t, make_pair_tables(system.lj_eps, system.lj_sigma,
+                                            device=device, dtype=dtype),
+                torch.as_tensor(system.type, device=device))
+            ucnt = max_union_count(ncfg, x0t, nl0)
+            ncfg = dataclasses.replace(
+                ncfg, u_max=int(np.ceil(ucnt * 1.3 / 8.0) * 8) + 8)
+
+    # the persistent mesh-tile assignment stays exact iff skin/2 fits the
+    # tile drift margin on every axis (else per-step binning)
+    mesh_persist = False
+    if (pppm_grid is not None and ncfg is not None
+            and not pppm_ops._use_dense(pppm_grid, system.natoms)):
+        g = pppm_grid
+        min_cell = min(g.box[0] / g.nx, g.box[1] / g.ny, g.zprd_grid / g.nz)
+        mesh_persist = 0.5 * ncfg.skin <= pppm_ops.TILE_DM * min_cell
 
     thermos = [make_nhc_params(system.groups[tc.group], tc.t_start,
                                tc.t_stop, tc.damp, tchain=tc.tchain,
@@ -316,4 +542,5 @@ def build_engine(system: System, md: MDConfig,
         mobile_mask=torch.as_tensor(mobile, device=device),
         thermostats=thermos)
     return Engine(system=system, md=md, conp=conp, integrator=integrator,
-                  ksp_force=ksp, fksp=fksp, dtype=dtype, device=device)
+                  ksp_force=ksp, fksp=fksp, pppm_grid=pppm_grid, ncfg=ncfg,
+                  mesh_persist=mesh_persist, dtype=dtype, device=device)

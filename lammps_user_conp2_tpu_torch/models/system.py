@@ -1,4 +1,5 @@
-"""System (static topology/metadata) and MDState (dynamic tensors).
+"""System (static topology/metadata) and MDState (dynamic tensors and the
+derived per-step structures: the Verlet list and the mesh tile binning).
 
 Electrode membership is static, so every index map is a fixed host array
 computed once (the reference's per-reneighbor ele2tag cross-maps,
@@ -29,6 +30,8 @@ class MDState:
     nhc_vxi: torch.Tensor    # (n_thermostats, tchain) thermostat velocities
     scalar_out: torch.Tensor  # () the fix scalar f_e
     energy: torch.Tensor     # () potential energy of the current configuration
+    nbr: Optional[object] = None   # ops.neighbors.NeighborList (Verlet path)
+    tasg: Optional[object] = None  # ops.pppm.TileAssign (persistent mesh tiles)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+Each source is compiled with ``nvcc`` for ``sm_90a`` (one process per
+source, all started together), and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs
 at first use into ``_build/`` beside the package sources and is redone
 whenever a source (or the flags) change: the library's name carries a hash
@@ -24,8 +25,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 
 class LaunchCounter:
@@ -76,19 +78,30 @@ def load_library() -> ctypes.CDLL:
     BuildInfo.path = lib_path
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        cu = [p for p in _sources() if p.suffix == ".cu"]
+        tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
-            capture_output=True, text=True)
-        BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed:\n" + BuildInfo.log)
-        os.replace(tmp, lib_path)
+        try:
+            objs = [os.path.join(tmpdir, p.stem + ".o") for p in cu]
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", o,
+                 str(p)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for p, o in zip(cu, objs)]
+            logs = [pr.communicate()[0] for pr in procs]
+            BuildInfo.log = "".join(logs)
+            if any(pr.returncode != 0 for pr in procs):
+                raise RuntimeError("nvcc failed:\n" + BuildInfo.log)
+            tmp = os.path.join(tmpdir, "lib.so")
+            link = subprocess.run(
+                [_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                capture_output=True, text=True)
+            BuildInfo.log += link.stdout + link.stderr
+            if link.returncode != 0:
+                raise RuntimeError("nvcc link failed:\n" + BuildInfo.log)
+            os.replace(tmp, lib_path)
+        finally:
+            BuildInfo.seconds = time.perf_counter() - t0
+            shutil.rmtree(tmpdir, ignore_errors=True)
     lib = ctypes.CDLL(str(lib_path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.conp2_pair_forces_f32.argtypes = (
@@ -99,6 +112,13 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_b_realspace_f32.argtypes = (
         [P] * 9 + [I, I, I] + [F, F, F] + [I, I, I] + [F, F, F] + [P, P])
     lib.conp2_b_realspace_f32.restype = I
+    lib.conp2_block_pair_f32.argtypes = (
+        [P] * 9 + [I] * 5 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
+    lib.conp2_block_pair_f32.restype = I
+    lib.conp2_spread_mesh_f32.argtypes = [P, P] + [I] * 8 + [P, P]
+    lib.conp2_spread_mesh_f32.restype = I
+    lib.conp2_gather3_f32.argtypes = [P] * 3 + [I] * 8 + [P, P]
+    lib.conp2_gather3_f32.restype = I
     return lib
 
 

@@ -43,6 +43,30 @@ def _median_ms(fn, reps=50, warmup=5):
     return float(np.median(ts))
 
 
+def device_busy(prof, nsteps):
+    """(busy ms per step, {kernel name: (ms per step, launches per step)})
+    from a profile: busy time is the union of the device kernel
+    intervals."""
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    ivs = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, cur = 0.0, None
+    for s, e in ivs:
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    by_name = {}
+    for e in kern:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    return busy / nsteps / 1e3, {k: (t / nsteps / 1e3, c / nsteps)
+                                 for k, (t, c) in by_name.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200)
@@ -104,36 +128,20 @@ def main() -> int:
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out, "step_trace.json"))
-    # device kernels only: busy time is the union of their intervals
-    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    ivs = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur = 0.0, None
-    for s, e in ivs:
-        if cur is None or s > cur[1]:
-            if cur is not None:
-                busy += cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    if cur is not None:
-        busy += cur[1] - cur[0]
-    by_name = {}
-    for e in kern:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    rows = sorted(((t, k, c) for k, (t, c) in by_name.items()), reverse=True)
+    busy, by_name = device_busy(prof, nprof)
     with open(os.path.join(args.out, "step_profile.txt"), "w") as fh:
         fh.write(card + "\n")
         fh.write(prof.key_averages().table(sort_by="self_device_time_total",
                                            row_limit=40))
-    print(f"profiled {nprof} steps: {len(kern) / nprof:.0f} device kernels "
-          f"per step, busy {busy / nprof / 1e3:.4f} ms/step (union of kernel "
-          f"intervals; the host clock runs slower under the profiler)")
-    for us, key, cnt in rows[:15]:
-        print(f"  {us / nprof / 1e3:9.4f} ms/step  {cnt / nprof:6.1f}x  "
-              f"{key[:70]}")
-    res["device_busy_ms_per_step"] = busy / nprof / 1e3
-    res["device_busy_share_of_chained_step"] = busy / nprof / 1e3 / wall
+    nk = sum(c for _, c in by_name.values())
+    print(f"profiled {nprof} steps: {nk:.0f} device kernels per step, busy "
+          f"{busy:.4f} ms/step (union of kernel intervals; the host clock "
+          f"runs slower under the profiler)")
+    for key, (ms, cnt) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {ms:9.4f} ms/step  {cnt:6.1f}x  {key[:70]}")
+    res["device_busy_ms_per_step"] = busy
+    res["device_busy_share_of_chained_step"] = busy / wall
     print(json.dumps(dict(card=card, layers_ms=res, run_ms_per_step=wall)))
     return 0
 

@@ -79,24 +79,44 @@ def test_project_inverse_zneutr_matches():
     ids=["conq", "cg", "ffield", "pppm", "nevery", "matout", "mobile",
          "callable"])
 def test_setup_refuses_features_not_ported(change):
+    """PPPM itself is ported; what it still refuses is electrodes whose
+    stencils touch more than max(nz/4, 16) z planes (here spread through
+    the box), which would need the real-mesh tiled spread."""
     system, md, cfg = twl.synthetic(**S1)
     cfg = dataclasses.replace(cfg, **change)
+    x0 = None
+    if change.get("kspace") is KSpaceStyle.PPPM:
+        x0 = np.array(system.x0)
+        ele = system.ele_mask
+        x0[ele, 2] = np.linspace(1.0, system.box[2] - 1.0, int(ele.sum()))
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconp.setup_conp(system, md, cfg)
+        tconp.setup_conp(system, md, cfg, x0=x0)
 
 
 @pytest.mark.parametrize("change", [
     dict(shake=ShakeConfig("sol")), dict(efield=(0.0, 0.0, 0.1)),
-    dict(kspace_style=KSpaceStyle.PPPM), dict(pair_path="nlist")],
-    ids=["shake", "efield", "pppm", "nlist"])
+    dict(kspace_style=KSpaceStyle.PPPM), dict(pair_path="cell"),
+    dict(pair_path="tile")],
+    ids=["shake", "efield", "pppm", "cell", "tile"])
 def test_build_engine_refuses_features_not_ported(change):
+    """PPPM forces are ported, but not under a charge solve in another
+    k-space style (here Ewald); the cell and tile pair paths are left
+    out."""
     system, md, cfg = twl.synthetic(**S1)
+    conp = None
+    if "kspace_style" in change:
+        conp = tconp.setup_conp(system, md, cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_engine(system, dataclasses.replace(md, **change))
+        build_engine(system, dataclasses.replace(md, **change), conp)
 
 
 def test_build_engine_refuses_verlet_list_size():
+    """N > 8192 in a box at least 4 cutoffs wide is no longer refused: on
+    the CPU it takes the per-atom Verlet list (the block form is kept for
+    the CUDA float32 kernel), sized from x0."""
     system, md, _ = twl.synthetic(n_elyte=8200, nele_side=4, lz=40.0,
                                   lxy=40.0)
-    with pytest.raises(NotImplementedError, match="Verlet"):
-        build_engine(system, md)
+    eng = build_engine(system, dataclasses.replace(
+        md, kspace_style=KSpaceStyle.PPPM))
+    assert eng.ncfg is not None and eng.ncfg.block == 0
+    assert eng.ncfg.k_max > 0 and eng.pppm_grid is not None

@@ -1,15 +1,16 @@
 """CUDA kernels against their plain versions on the card (float32, S2 and
-the near-wall positions): max|kernel - plain| / max|plain| <= 2e-5 per
-output (tools/kernel_oracle.py's measure), a CUDA float64 tensor raises,
-and the engine's main path launches both kernels.  Needs a CUDA device:
-skipped on the CPU.  Run on the card with
-``python -m pytest tests/test_torch_gpu.py -q``."""
+S3 at the near-wall positions): max|kernel - plain| / max|plain| <= 2e-5
+per output (tools/kernel_oracle.py's measure), a CUDA float64 tensor
+raises, and the engines' main paths launch their kernels (K4 and K5 on
+the mid-size path; K1, K2a and K3 on the Verlet-list + tiled-PPPM path).
+Needs a CUDA device: skipped on the CPU.  Run on the card with
+``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
 import numpy as np
 import pytest
 import torch
 
-from torch_cells import S2, charges_with_electrodes, x_close, x_near
+from torch_cells import S2, S3, charges_with_electrodes, x_close, x_near
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-5
@@ -109,3 +110,81 @@ def test_kernels_periodic_z_on_card(cuda):
     b = k5.b_realspace(*args, **bkw)
     ref_b = k5.b_realspace_plain(*args, **bkw)
     assert float(ref_b.abs().max()) > 0.0 and _rel(b, ref_b) <= TOL
+
+
+def _tiled_cell(cuda, positions):
+    """S3 with PPPM, the block list and the tiled z-binned mesh forced."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops import pppm
+    from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+    system, md, cfg = workloads.synthetic(**S3)
+    md = dataclasses.replace(md, pair_path="block", pppm_diff="ad",
+                             kspace_style=KSpaceStyle.PPPM)
+    cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=cuda)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=cuda)
+    x = torch.as_tensor(positions(system), dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(charges_with_electrodes(system), dtype=torch.float32,
+                        device=cuda)
+    return system, md, conp, eng, x, q, pppm
+
+
+@pytest.mark.parametrize("positions", [x_near, x_close],
+                         ids=["x_near", "x_close"])
+def test_large_path_kernels_match_plain_on_card(cuda, positions, monkeypatch):
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+    system, md, conp, eng, x, q, pppm = _tiled_cell(cuda, positions)
+    nbr, tasg = eng.derived_state(x)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    args = (x, q, eng.type_idx, nbr.bun, nbr.brows, eng.tables)
+    # the periodic-z minimum image too: z shifted so pairs straddle the face
+    xs = x.clone()
+    xs[:, 2] = torch.remainder(xs[:, 2] + 0.5 * system.box[2] - 1.0,
+                               system.box[2]) - 0.3
+    kwp = dict(kw, periodic=(True, True, True))
+    for xx, kk in ((x, kw), (xs, kwp)):
+        pargs = (xx,) + args[1:]
+        for cf in (None, fuse):
+            got = k1.block_pair(*pargs, conp_fuse=cf, **kk)
+            ref = k1.block_pair_plain(*pargs, conp_fuse=cf, **kk)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+    grid = eng.pppm_grid
+    geom = P._tile_geometry(grid, system.natoms)
+    slots = P.refresh_tile_slots(grid, tasg, x, q)
+    cfd = P._coeffs(grid, torch.float32, cuda)
+    m = k2.spread_mesh(slots.rows, cfd, geom)
+    assert _rel(m, k2.spread_mesh_plain(slots.rows, cfd, geom)) <= TOL
+    _, uz = P.pppm_energy_u_zbin(grid, P._spread_rhok_tiled(
+        grid, x, q, slots), system.natoms)
+    up = P._wrap_pad_xy(uz, geom.hw + geom.dm).contiguous()
+    g3 = k3.gather3(up, slots.rows, cfd, geom)
+    assert _rel(g3, k3.gather3_plain(up, slots.rows, cfd, geom)) <= TOL
+    with pytest.raises(TypeError):
+        k3.gather3(up.double(), slots.rows.double(), cfd.double(), geom)
+
+
+def test_large_engine_launches_kernels(cuda, monkeypatch):
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+    system, md, conp, eng, x, q, pppm = _tiled_cell(cuda, x_near)
+    for k in (k1, k2, k3):
+        k.launches.reset()
+    st, _ = eng.run(eng.init_state(x0=x.cpu().numpy()), 3, thermo_every=0)
+    torch.cuda.synchronize()
+    assert (k1.launches.count, k2.launches.count, k3.launches.count) == (
+        4, 4, 4)
+    assert np.isfinite(float(st.energy))

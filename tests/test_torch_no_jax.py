@@ -1,7 +1,7 @@
 """The port runs without jax: in a fresh interpreter (this one has jax
-loaded by conftest), import the port, run S1 for 2 steps on the CPU, and
-check that neither jax nor the JAX package was imported and that no CUDA
-kernel was launched."""
+loaded by conftest), import the port, run S1 for 2 steps on the CPU, run
+the Verlet-list + PPPM path on S3 for 2 steps, and check that neither jax
+nor the JAX package was imported and that no CUDA kernel was launched."""
 
 import json
 import os
@@ -17,15 +17,28 @@ torch.set_num_threads(2)
 from lammps_user_conp2_tpu_torch import workloads
 from lammps_user_conp2_tpu_torch.models.conp import setup_conp
 from lammps_user_conp2_tpu_torch.models.md import build_engine
-from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel, pair_kernel
+from lammps_user_conp2_tpu_torch.ops.kernels import (
+    block_pair, ele_rows_kernel, pair_kernel, pppm_gather, pppm_spread)
+from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+import lammps_user_conp2_tpu_torch.interop
+import lammps_user_conp2_tpu_torch.step_breakdown
+import lammps_user_conp2_tpu_torch.step_breakdown_large
 system, md, cfg = workloads.synthetic(64, 4)
 eng = build_engine(system, md, setup_conp(system, md, cfg))
 st, th = eng.run(eng.init_state(x0=workloads.near_wall_positions(system)), 2)
+import dataclasses
+system, md, cfg = workloads.synthetic(512, 5, lz=36.0, lxy=20.0)
+md = dataclasses.replace(md, pair_path="nlist", kspace_style=KSpaceStyle.PPPM)
+cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM)
+big = build_engine(system, md, setup_conp(system, md, cfg))
+st2, th2 = big.run(big.init_state(x0=workloads.near_wall_positions(system)), 2)
+mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather)
 print(json.dumps(dict(
     jax=[m for m in sys.modules if m == "jax" or m.startswith("jax.")],
     ref=[m for m in sys.modules if m.split(".")[0] == "lammps_user_conp2_tpu"],
-    launches=[pair_kernel.launches.count, ele_rows_kernel.launches.count],
-    step=st.step, energy=float(st.energy), temp=float(th["temp"][-1]))))
+    launches=[m.launches.count for m in mods],
+    step=st.step, energy=float(st.energy), temp=float(th["temp"][-1]),
+    step2=st2.step, energy2=float(st2.energy), list2=big.ncfg is not None)))
 """
 
 
@@ -36,6 +49,7 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] == [] and out["ref"] == []
-    assert out["launches"] == [0, 0]
-    assert out["step"] == 2
+    assert out["launches"] == [0, 0, 0, 0, 0]
+    assert out["step"] == 2 and out["step2"] == 2 and out["list2"]
     assert out["temp"] > 0.0 and abs(out["energy"]) < 1e12
+    assert abs(out["energy2"]) < 1e12

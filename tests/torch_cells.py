@@ -1,7 +1,9 @@
 """Shared cells and inputs for the port's parity tests (test_torch_*.py).
 
 S1 is the 96-atom entry cell, S2 a 640-atom cell that spans five 128-atom
-z tiles.  ``x_near`` puts ions within the cutoff of both walls, where the
+z tiles, S3 the 562-atom cell whose box is four cutoffs wide (the JAX
+package's Verlet-list and tiled-PPPM engine tests), S4 a 712-atom cell
+whose exact Ewald sum has more than KXY_CHUNK xy vectors.  ``x_near`` puts ions within the cutoff of both walls, where the
 electrode rows and the Gaussian correction are nonzero.
 """
 
@@ -9,6 +11,18 @@ import numpy as np
 
 S1 = dict(n_elyte=64, nele_side=4)
 S2 = dict(n_elyte=512, nele_side=8, lz=60.0, lxy=24.0)
+S3 = dict(n_elyte=512, nele_side=5, lz=36.0, lxy=20.0)
+S4 = dict(n_elyte=512, nele_side=10, lz=36.0, lxy=80.0)
+
+
+def pppm_cell(wl, kspace_enum, cell=S3, **md_kw):
+    """(system, md, cfg) of ``wl.synthetic(**cell)`` with PPPM in both the
+    charge solve and the forces; ``md_kw`` replaces MDConfig fields."""
+    import dataclasses
+    system, md, cfg = wl.synthetic(**cell)
+    md = dataclasses.replace(md, kspace_style=kspace_enum.PPPM, **md_kw)
+    cfg = dataclasses.replace(cfg, kspace=kspace_enum.PPPM)
+    return system, md, cfg
 
 
 def x_near(system):
