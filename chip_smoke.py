@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths (``lammps_user_conp2_tpu_torch``:
+Drives the port's three main paths (``lammps_user_conp2_tpu_torch``:
 setup_conp -> build_engine -> init_state -> Engine.run) and exits non-zero
 if any phase fails.
 
@@ -38,8 +38,46 @@ z-binned mesh):
   9. 2 steps on the card (float32) against 2 steps on the CPU (float64,
      plain path, per-atom Verlet list) with phase 5's bounds.
 
-The line before the last is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}.  Needs no network and imports no jax.
+Ionic-liquid deck path, ``workloads.il_onelayer(0)`` on the 3,776-atom
+file of ``workloads.write_il_data`` (BMI-PF6 between graphene walls; the
+mid-size path with SHAKE/RATTLE, K7 and K8):
+
+ 10. write the data file into the output directory, float64 setup,
+     float32 engine on the card: no Verlet list, cluster tables on the
+     card;
+ 11. K7 (SHAKE) and K8 (RATTLE) against their plain versions, float32, at
+     the cell's shapes, from a drift step of the deck's velocities plus
+     noise with one cation across the periodic x face: max|kernel - plain|
+     / max|plain| <= 5e-5 on x, dv and v; the constraint residual after K7
+     no worse than after the plain version; median times.  K4 (with the
+     cations' special-bond exclusions, fused correction) and K5 against
+     their plain versions at this cell's shapes (2e-5);
+ 12. the main path: 11 warm-up and 100 timed steps; K4, K5, K7 and K8 must
+     have launched every step (111 times; K4 and K5 once more in
+     init_state); finite energy, neutral electrodes; the angles' 1-3
+     distances within ShakeConfig.tol (1e-4) and the bonds within twice
+     the residual of the float64 reference at the same step (IL_F64_BONDS);
+ 13. 11 steps on the card (float32) against 11 steps on the CPU (float64,
+     plain path): phase 5's bounds over the first 3, and at step 11, where
+     the cations have bent, each slot's residual within twice the CPU's.
+
+The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
+angle the three constraint directions of a straight cation are parallel,
+so SHAKE corrects along the axis only; the bend that the forces make stays,
+and with the 1-3 distance held the bent cation's bonds come out long, by
+about bend^2 / 2 in r^2.  It follows the bend, which the angle potential and
+the temperature bound (``shake_residual.py``;
+tests/test_torch_shake_residual.py holds both packages to it over 800
+steps).
+
+Every kernel's line carries its bound: the larger of the bytes it must
+move (its input tensors read once, its outputs written once) over 3.35
+TB/s and the operations this run's data needs (per-kernel counts below)
+over 67 TFLOP/s, float32 outside the tensor cores (H100 SXM, NVIDIA's
+data sheet); no single PyTorch call computes any of these functions, so
+``library_ms`` is null.  The line before the last is {"kernels": [...]},
+the last line {"ok": true, "device": {...}}.  Needs no network and imports
+no jax.
 """
 
 from __future__ import annotations
@@ -57,7 +95,27 @@ import torch
 CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
 T_START = time.perf_counter()
 KERNEL_TOL = 2e-5
+SHAKE_TOL = 5e-5          # tools/kernel_oracle.py:278-279
+# the bonds' residual max|r^2 - d^2|/d^2 at step 111 of il_onelayer(0) on
+# the default write_il_data file, CPU float64: ``python -m
+# lammps_user_conp2_tpu_torch.shake_residual --cell full --device cpu
+# --dtype float64 --steps 111``
+IL_F64_BONDS = 2.996e-3
 OUT_DIR = "chiprun_out"
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# operations per unit of work, for the bounds: an ordered pair inside the
+# cutoff (LJ and the A&S erfc Coulomb, force and energy, the fused
+# Gaussian correction); an electrode-electrolyte pair inside the Coulomb
+# cutoff of a b row; an atom's order-5 spread (weights by Horner, 125
+# products) and gather (weights and derivatives, three 125-term sums); one
+# SHAKE and one RATTLE slot update
+PAIR_FLOPS = 60
+B_ROW_FLOPS = 40
+SPREAD_FLOPS = 400
+GATHER_FLOPS = 1000
+SHAKE_SLOT_FLOPS = 45
+RATTLE_SLOT_FLOPS = 25
 
 
 def gpu_line() -> str:
@@ -83,9 +141,9 @@ def median_ms(fn, reps=20, warmup=3) -> float:
     return float(np.median(times))
 
 
-def compare(name, got, ref):
+def compare(name, got, ref, tol=KERNEL_TOL):
     """max|got - ref| / max|ref| over each output pair; raises if any output
-    is not finite or over KERNEL_TOL.  Returns (worst rel, worst abs)."""
+    is not finite or over ``tol``.  Returns (worst rel, worst abs)."""
     assert len(got) == len(ref), f"{name}: {len(got)} outputs != {len(ref)}"
     worst_rel = worst_abs = 0.0
     for k, (g, r) in enumerate(zip(got, ref)):
@@ -94,11 +152,44 @@ def compare(name, got, ref):
         d = float((g - r).abs().max())
         rel = d / max(float(r.abs().max()), 1e-30)
         print(f"    {name} output {k}: max abs err {d:.3e}, rel {rel:.3e}")
-        if not rel <= KERNEL_TOL:
+        if not rel <= tol:
             raise AssertionError(f"{name}: output {k} rel err {rel:.3e} > "
-                                 f"{KERNEL_TOL}")
+                                 f"{tol}")
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, d)
     return worst_rel, worst_abs
+
+
+def nbytes(*objs) -> int:
+    """Bytes of every tensor in objs (tuples and lists flattened)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+    return total
+
+
+def bound(inputs, outputs, flops) -> dict:
+    """bound_ms / bound_by for a kernel that reads ``inputs`` and writes
+    ``outputs`` once and does ``flops`` float32 operations."""
+    t_bytes = nbytes(inputs, outputs) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def pairs_within(xa, xb, box, periodic, rc2, same=False) -> int:
+    """Ordered pairs (a, b) with |mi(xa - xb)|^2 < rc2 (a != b if same)."""
+    n = 0
+    for i0 in range(0, xa.shape[0], 1024):
+        d = xa[i0:i0 + 1024, None, :] - xb[None, :, :]
+        for ax in range(3):
+            if periodic[ax]:
+                d[..., ax] -= box[ax] * torch.round(d[..., ax] / box[ax])
+        n += int(((d * d).sum(-1) < rc2).sum())
+    return n - (xa.shape[0] if same else 0)
 
 
 def agree(tag, s32, s64, ne):
@@ -183,6 +274,10 @@ def main() -> int:
             raise AssertionError("pair_forces_conp: ecorr is zero")
         results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
                              plain_ms=median_ms(plain))
+        results[name].update(bound(
+            (x, q, eng.type_idx, eng.tables, zsort, cf), got,
+            PAIR_FLOPS * pairs_within(x, x, system.box, system.periodic,
+                                      md.cutoff ** 2, same=True)))
     # at x_near the Gaussian correction (clamped at eta r = 5.8, r < 2.93 A)
     # is ~1e-14: hold the fused chain to its plain version where it is large
     x_close = torch.as_tensor(workloads.near_wall_positions(system, margin=3.0),
@@ -209,9 +304,14 @@ def main() -> int:
         raise AssertionError("b_realspace: all rows are zero")
     results["b_realspace"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
                                   plain_ms=median_ms(plain))
+    results["b_realspace"].update(bound(
+        (bargs, zsort), got, B_ROW_FLOPS * pairs_within(
+            x[:conp.ne], x[conp.ne:], system.box, system.periodic,
+            conp.cut_coulsq)))
     for name, r in results.items():
         print(f"phase 3: {name:17s} rel err {r['rel']:.3e} (tol {KERNEL_TOL}), "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms  [{card}]")
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})  [{card}]")
 
     # ---- phase 4: the main path on the card
     k4.launches.reset()
@@ -241,8 +341,10 @@ def main() -> int:
           f"{system.natoms} atoms, float32  [{card}]")
 
     # ---- phase 5: card (float32) against CPU (float64, plain path)
-    conp64 = setup_conp(system, md, cfg)
-    eng64 = build_engine(system, md, conp64)
+    conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
+                        device="cpu")
+    eng64 = build_engine(system, md, conp64, dtype=torch.float64,
+                         device="cpu")
     s32 = eng.init_state(x0=x_near)
     s64 = eng64.init_state(x0=x_near)
     ne = conp.ne
@@ -255,23 +357,31 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)")
 
     launches.update(production_path(card, dev, results))
+    launches.update(il_path(card, dev, results))
+    pallas = "lammps_user_conp2_tpu/ops/pallas/"
     replaces = {
-        "pair_forces_conp": "lammps_user_conp2_tpu/ops/pallas/pair_kernel.py:316",
-        "b_realspace": "lammps_user_conp2_tpu/ops/pallas/ele_rows_kernel.py:326",
-        "block_pair_conp": "lammps_user_conp2_tpu/ops/pallas/block_pair.py:158",
-        "spread_mesh": "lammps_user_conp2_tpu/ops/pallas/pppm_spread.py:125",
-        "gather3": "lammps_user_conp2_tpu/ops/pallas/pppm_gather.py:100"}
+        "pair_forces_conp": pallas + "pair_kernel.py:316",
+        "b_realspace": pallas + "ele_rows_kernel.py:326",
+        "block_pair_conp": pallas + "block_pair.py:158",
+        "spread_mesh": pallas + "pppm_spread.py:125",
+        "gather3": pallas + "pppm_gather.py:100",
+        "shake_positions": pallas + "shake_kernel.py:163",
+        "rattle_velocities": pallas + "shake_kernel.py:207"}
+    csrc = "lammps_user_conp2_tpu_torch/csrc/"
     source = {
-        "pair_forces_conp": "lammps_user_conp2_tpu_torch/csrc/pair_kernel.cu",
-        "b_realspace": "lammps_user_conp2_tpu_torch/csrc/ele_rows_kernel.cu",
-        "block_pair_conp": "lammps_user_conp2_tpu_torch/csrc/block_pair.cu",
-        "spread_mesh": "lammps_user_conp2_tpu_torch/csrc/pppm_spread.cu",
-        "gather3": "lammps_user_conp2_tpu_torch/csrc/pppm_gather.cu"}
+        "pair_forces_conp": csrc + "pair_kernel.cu",
+        "b_realspace": csrc + "ele_rows_kernel.cu",
+        "block_pair_conp": csrc + "block_pair.cu",
+        "spread_mesh": csrc + "pppm_spread.cu",
+        "gather3": csrc + "pppm_gather.cu",
+        "shake_positions": csrc + "shake_kernel.cu",
+        "rattle_velocities": csrc + "shake_kernel.cu"}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
                     max_rel_err=results[name]["rel"],
-                    ms=results[name]["ms"], plain_ms=results[name]["plain_ms"])
+                    **{k: results[name][k] for k in keys})
                for name in replaces]
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(card)
@@ -342,6 +452,17 @@ def production_path(card, dev, results):
             if not tag:
                 results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
                                      plain_ms=median_ms(plain, reps=5))
+                nb = nbr.idx
+                xj = x[nb.clamp(max=x.shape[0] - 1)]
+                d = xj - x[:, None, :]
+                for ax in range(3):
+                    if system.periodic[ax]:
+                        L = system.box[ax]
+                        d[..., ax] -= L * torch.round(d[..., ax] / L)
+                npairs = int((((d * d).sum(-1) < md.cutoff ** 2)
+                              & (nb < x.shape[0])).sum())
+                results[name].update(bound((args, cf), got,
+                                           PAIR_FLOPS * npairs))
         if tag:
             break
         q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
@@ -354,6 +475,8 @@ def production_path(card, dev, results):
         rel, dabs = compare("spread_mesh", (got,), (plain(),))
         results["spread_mesh"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
                                       plain_ms=median_ms(plain, reps=5))
+        results["spread_mesh"].update(bound(
+            (slots.rows, cfd), got, SPREAD_FLOPS * system.natoms))
         rhok = pppm._spread_rhok_tiled(grid, x, q_elyte, slots)
         _, uz = pppm.pppm_energy_u_zbin(grid, rhok, system.natoms)
         up = pppm._wrap_pad_xy(uz, geom.hw + geom.dm).contiguous()
@@ -364,11 +487,14 @@ def production_path(card, dev, results):
         rel, dabs = compare("gather3", (got,), (plain(),))
         results["gather3"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
                                   plain_ms=median_ms(plain, reps=5))
+        results["gather3"].update(bound(
+            (up, slots.rows, cfd), got, GATHER_FLOPS * system.natoms))
     for name in ("block_pair", "block_pair_conp", "spread_mesh", "gather3"):
         r = results[name]
         print(f"phase 7: {name:17s} rel err {r['rel']:.3e} (tol "
               f"{KERNEL_TOL}), kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms  [{card}]")
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})  [{card}]")
 
     # ---- phase 8: the main path on the card
     counters = {"block_pair_conp": k1.launches, "spread_mesh": k2.launches,
@@ -405,8 +531,10 @@ def production_path(card, dev, results):
 
     # ---- phase 9: card (float32) against CPU (float64, plain path)
     t0 = time.perf_counter()
-    conp64 = setup_conp(system, md, cfg)
-    eng64 = build_engine(system, md, conp64)
+    conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
+                        device="cpu")
+    eng64 = build_engine(system, md, conp64, dtype=torch.float64,
+                         device="cpu")
     s32 = eng.init_state(x0=x_near)
     s64 = eng64.init_state(x0=x_near)
     agree("phase 9: step 0", s32, s64, conp.ne)
@@ -417,6 +545,186 @@ def production_path(card, dev, results):
     print(f"phase 9: 2 steps matched the float64 CPU run "
           f"({time.perf_counter() - t0:.1f} s)")
     return launches
+
+
+def il_path(card, dev, results):
+    """Phases 10-13 on the 3,776-atom ionic-liquid cell; fills ``results``
+    for K7 and K8 and returns their launch counts from the main-path run
+    (where K4 and K5 must launch every step too)."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.models.shake import (build_constraints,
+                                                          constraint_residuals)
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+
+    # ---- phase 10: set-up
+    t0 = time.perf_counter()
+    path = workloads.write_il_data(os.path.join(OUT_DIR, "il_3776.data"))
+    t_write = time.perf_counter() - t0
+    system, md, cfg = workloads.il_onelayer(0, data_path=path)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    cons = eng.cons
+    m, kk = cons.atoms.shape
+    cc = cons.ci.shape[1]
+    print(f"phase 10: {system.natoms} atoms, Ne={conp.ne}, M={m}, K={kk}, "
+          f"C={cc}, g_ewald={conp.ksp.g_ewald:.6f}, K-vectors="
+          f"{conp.ksp.kcount}, nxy={conp.fksp.nxy}, box {system.box}, data "
+          f"file {t_write:.2f} s, set-up {time.perf_counter() - t0:.2f} s")
+    if not (eng.ncfg is None and eng.pppm_grid is None and cons is not None
+            and cons.atoms.device.type == dev.type):
+        raise AssertionError("phase 10: not the mid-size path with SHAKE "
+                             "tables on the card")
+
+    # ---- phase 11: K7 and K8 against their plain versions
+    rng = np.random.default_rng(11)
+    x_old = np.array(system.x0)
+    cats = np.flatnonzero(system.groups["bmi"]).reshape(-1, 3)
+    dx = x_old[cats[:, 2], 0] - x_old[cats[:, 0], 0]
+    dx -= system.box[0] * np.round(dx / system.box[0])
+    cat = cats[np.argmax(np.abs(dx))]       # the cation most along x
+    x_old[cat, 0] = (x_old[cat, 0] - x_old[cat[1], 0] + 0.2) % system.box[0]
+    v_np = system.v0 + rng.normal(0.0, 0.005, x_old.shape)
+    v_np[system.ele_mask] = 0.0
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    xo, xn = t(x_old), t(x_old + md.dt * v_np)
+    v = t(v_np + rng.normal(0.0, 0.005, x_old.shape))
+    kw = dict(box=system.box, periodic=system.periodic)
+    kern = lambda: k78.shake_positions(cons, xn, xo, md.dt, **kw)
+    plain = lambda: k78.shake_positions_plain(cons, xn, xo, md.dt, **kw)
+    x, dv = kern()
+    torch.cuda.synchronize()
+    px, pdv = plain()
+    rel, dabs = compare("shake_positions x", (x,), (px,), SHAKE_TOL)
+    dv_err = float((dv - pdv).abs().max())
+    dv_rel = dv_err / float(pdv.abs().max())
+    cons64 = build_constraints(system, md.shake, dtype=torch.float64,
+                               device=dev)
+    _, dv64 = k78.shake_positions_plain(cons64, xn.double(), xo.double(),
+                                        md.dt, **kw)
+    gap = float((pdv.double() - dv64).abs().max()) / float(dv64.abs().max())
+    print(f"    shake_positions dv: max abs err {dv_err:.3e}, rel "
+          f"{dv_rel:.3e}; the plain version's own f32-vs-f64 gap {gap:.3e}")
+    if not dv_rel <= max(SHAKE_TOL, gap):
+        raise AssertionError(f"phase 11: dv rel err {dv_rel:.3e}")
+    res_k = constraint_residuals(cons, x, **kw)
+    res_p = constraint_residuals(cons, px, **kw)
+    print(f"    residual per slot after K7 {['%.3e' % r for r in res_k]}, "
+          f"after the plain version {['%.3e' % r for r in res_p]}")
+    if not max(res_k) <= max(res_p) + 1e-6:
+        raise AssertionError("phase 11: K7 leaves a larger residual")
+    work = m * k78.ITERS * cc
+    results["shake_positions"] = dict(
+        rel=max(rel, dv_rel), abs=max(dabs, dv_err), ms=median_ms(kern),
+        plain_ms=median_ms(plain, reps=5))
+    results["shake_positions"].update(bound(
+        (xn, xo, cons.atoms, cons.amask, cons.ci, cons.cj, cons.invm,
+         cons.dist2, cons.cmask), (x, dv), SHAKE_SLOT_FLOPS * work))
+    kern = lambda: k78.rattle_velocities(cons, x, v, **kw)
+    plain = lambda: k78.rattle_velocities_plain(cons, x, v, **kw)
+    got = kern()
+    torch.cuda.synchronize()
+    rel, dabs = compare("rattle_velocities v", (got,), (plain(),), SHAKE_TOL)
+    results["rattle_velocities"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                                        plain_ms=median_ms(plain, reps=5))
+    results["rattle_velocities"].update(bound(
+        (x, v, cons.atoms, cons.amask, cons.ci, cons.cj, cons.invm,
+         cons.cmask), got, RATTLE_SLOT_FLOPS * work))
+    # K4 (exclusions applied per pair) and K5 at this cell's shapes
+    q_np = system.q0.copy()
+    q_np[system.ele_mask] = 0.05 * rng.standard_normal(conp.ne)
+    q = t(q_np)
+    x0 = t(system.x0)
+    pkw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+               g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    got = k4.pair_forces(x0, q, eng.type_idx, eng.tables, eng.exclusions,
+                         conp_fuse=fuse, **pkw)
+    torch.cuda.synchronize()
+    compare("pair_forces_conp with exclusions", got, k4.pair_forces_plain(
+        x0, q, eng.type_idx, eng.tables, eng.exclusions, conp_fuse=fuse,
+        **pkw))
+    q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+    bargs = (x0, q_elyte, conp.ele_idx_t, conp.elyte_f, conp.eta_rows,
+             conp.fo_rows, conp.type_t)
+    bkw = dict(box=system.box, periodic=system.periodic,
+               cut_coulsq=conp.cut_coulsq, g_ewald=conp.ksp.g_ewald)
+    got = k5.b_realspace(*bargs, **bkw)
+    torch.cuda.synchronize()
+    compare("b_realspace", (got,), (k5.b_realspace_plain(*bargs, **bkw),))
+    for name in ("shake_positions", "rattle_velocities"):
+        r = results[name]
+        print(f"phase 11: {name:17s} rel err {r['rel']:.3e} (tol "
+              f"{SHAKE_TOL}), kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})  [{card}]")
+
+    # ---- phase 12: the main path on the card
+    counters = {"pair_forces_conp": k4.launches, "b_realspace": k5.launches,
+                "shake_positions": k78.shake_launches,
+                "rattle_velocities": k78.rattle_launches}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    st = eng.init_state()
+    st, _ = eng.run(st, 11, thermo_every=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, th = eng.run(st, 100, thermo_every=20)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / 100 * 1e3
+    launches = {name: c.count for name, c in counters.items()}
+    print(f"phase 12: launches in 111 steps {launches}")
+    for name, cnt in launches.items():
+        if cnt < 111:
+            raise AssertionError(f"phase 12: {name} launched {cnt} < 111 "
+                                 "times")
+    if not math.isfinite(float(st.energy)):
+        raise AssertionError("phase 12: energy is not finite")
+    qsum = float(st.q[:conp.ne].double().sum())
+    if not abs(qsum) <= 1e-4:
+        raise AssertionError(f"phase 12: electrode charge sum {qsum:.3e}")
+    res = constraint_residuals(cons, st.x, **kw)
+    print(f"phase 12: constraint residual per slot (bond 1, bond 2, 1-3) "
+          f"{['%.3e' % r for r in res]}")
+    if not (res[-1] <= md.shake.tol and max(res) <= 2.0 * IL_F64_BONDS):
+        raise AssertionError("phase 12: constraints outside their bounds "
+                             f"(1-3 <= {md.shake.tol}, bonds <= "
+                             f"{2.0 * IL_F64_BONDS:.3e})")
+    print(f"phase 12: T={float(th['temp'][-1]):.2f} K, tempsl="
+          f"{float(th['tempsl'][-1]):.2f} K, pe={float(st.energy):.6g}, "
+          f"qleft={float(th['qleft'][-1]):.6g}, sum q_ele={qsum:.3e}")
+    print(f"phase 12: {ms_step:.4f} ms/step ({1e3 / ms_step:.1f} steps/s), "
+          f"{system.natoms} atoms, float32  [{card}]")
+
+    # ---- phase 13: card (float32) against CPU (float64, plain path)
+    t0 = time.perf_counter()
+    conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
+                        device="cpu")
+    eng64 = build_engine(system, md, conp64, dtype=torch.float64,
+                         device="cpu")
+    s32 = eng.init_state()
+    s64 = eng64.init_state()
+    for i in range(11):
+        s32 = eng.step(s32)
+        s64 = eng64.step(s64)
+        if i < 3:
+            agree(f"phase 13: step {i + 1}", s32, s64, conp.ne)
+    r32 = constraint_residuals(cons, s32.x, **kw)
+    r64 = constraint_residuals(eng64.cons, s64.x, **kw)
+    dx = float((s32.x.double().cpu() - s64.x).abs().max())
+    print(f"phase 13: after 11 steps max|dx| {dx:.3e} A, residual per slot "
+          f"card {['%.3e' % r for r in r32]}, CPU float64 "
+          f"{['%.3e' % r for r in r64]}")
+    if not all(a <= 2.0 * b + 1e-5 for a, b in zip(r32, r64)):
+        raise AssertionError("phase 13: the card's residual is larger")
+    print(f"phase 13: 11 steps matched the float64 CPU run "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {k: launches[k] for k in ("shake_positions", "rattle_velocities")}
 
 
 if __name__ == "__main__":

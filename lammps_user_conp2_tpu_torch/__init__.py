@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of the constant-potential MD engine.
 
 The JAX package ``lammps_user_conp2_tpu`` is the reference; this package
-reproduces its mid-size main path (factored Ewald, INV charge solve, dense
-pair sweep with the CONP Gaussian correction) in PyTorch, with the two
-per-pair sweeps written as CUDA kernels for Hopper (``csrc/``).  On a CPU
-tensor every kernel wrapper takes its plain PyTorch version instead.
+reproduces its mid-size path (factored Ewald, INV charge solve, dense pair
+sweep with the CONP Gaussian correction), its 100k-atom path (Verlet
+block list, tiled PPPM) and the ionic-liquid decks (SHAKE/RATTLE) in
+PyTorch, with the TPU kernels of those paths written as CUDA kernels for
+Hopper (``csrc/``).  The entry points run on the card unless the caller
+passes ``device="cpu"``; on a CPU tensor every kernel wrapper takes its
+plain PyTorch version instead.
 
 Importing this package never imports jax.
 """

@@ -24,6 +24,14 @@
 // second kernel.  There are no pad atoms: the ragged last tile is cut by
 // index, never by a sentinel coordinate.  LJ and Gaussian coefficients are
 // read from the (T+1)^2 type tables in shared memory.
+//
+// Special-bond exclusions (bonded systems) are applied per pair, as the
+// plain version applies them: each row holds its (at most MAX_EXCL) listed
+// partners and factors in registers, and a listed pair gets s * LJ and the
+// Coulomb term minus (1 - s) * qq/r.  Sweeping the excluded pairs at s = 1
+// and subtracting them afterwards (the TPU kernel's way) cancels
+// catastrophically in float32: a cation's bonded sites sit 1.8 A apart,
+// where LJ is ~1e4 kcal/mol per pair.
 #include <cstdint>
 
 #include "common.cuh"
@@ -33,6 +41,7 @@ namespace conp2 {
 constexpr int PAIR_TB = 64;       // rows per block == column tile width
 constexpr int MAX_NT1 = 16;       // type tables up to 16 x 16
 constexpr int REDUCE_TB = 256;
+constexpr int MAX_EXCL = 16;      // listed special partners per atom
 
 struct PairArgs {
   const float* x;          // (n, 3) original order
@@ -44,6 +53,9 @@ struct PairArgs {
   const float* zs;         // (n,) sorted wrapped z keys
   const float* lj;         // (4, nt1, nt1) lj1..lj4
   const float* gtab;       // (2, nt1, nt1) eta, fo (fused correction only)
+  const int64_t* exi;      // (n, m) special partners, padded with n
+  const float* exv;        // (n, m) their factors s
+  int m;                   // 0: no exclusions
   int n, nt1;
   float bx, by, bz, ibx, iby, ibz;
   int px, py, pz;
@@ -52,11 +64,12 @@ struct PairArgs {
   float* partials;         // (gridDim.x, 3) per-block energy sums
 };
 
-template <bool FUSE>
+template <bool FUSE, bool EXCL>
 __global__ void __launch_bounds__(PAIR_TB) pair_kernel(PairArgs a) {
   __shared__ float s_tab[6 * MAX_NT1 * MAX_NT1];
   __shared__ float sx[PAIR_TB], sy[PAIR_TB], sz[PAIR_TB], sq[PAIR_TB];
   __shared__ int st[PAIR_TB];
+  __shared__ int64_t sa[PAIR_TB];
   __shared__ float se[PAIR_TB], sl[PAIR_TB];
   __shared__ float sred[3][PAIR_TB];
 
@@ -88,6 +101,16 @@ __global__ void __launch_bounds__(PAIR_TB) pair_kernel(PairArgs a) {
       li = a.ely_f[ai];
     }
   }
+  int64_t exj[MAX_EXCL];
+  float exs[MAX_EXCL];
+  if (EXCL) {
+#pragma unroll
+    for (int k = 0; k < MAX_EXCL; ++k) {
+      const bool on = row_ok && k < a.m;
+      exj[k] = on ? a.exi[ai * a.m + k] : -1;
+      exs[k] = on ? a.exv[ai * a.m + k] : 1.0f;
+    }
+  }
   const float zr_lo = a.zs[r0];
   const float zr_hi = a.zs[r1 - 1];
   __syncthreads();                      // type tables staged
@@ -115,6 +138,7 @@ __global__ void __launch_bounds__(PAIR_TB) pair_kernel(PairArgs a) {
       sz[tid] = a.x[3 * aj + 2];
       sq[tid] = a.q[aj];
       st[tid] = static_cast<int>(a.type[aj]);
+      if (EXCL) sa[tid] = aj;
       if (FUSE) {
         se[tid] = a.ele_f[aj];
         sl[tid] = a.ely_f[aj];
@@ -136,15 +160,32 @@ __global__ void __launch_bounds__(PAIR_TB) pair_kernel(PairArgs a) {
       const float r6inv = r2inv * r2inv * r2inv;
       const float l1 = trow[tj], l2 = trow[tsz + tj];
       const float l3 = trow[2 * tsz + tj], l4 = trow[3 * tsz + tj];
-      const float flj = r6inv * (l1 * r6inv - l2) * r2inv;
-      ev += r6inv * (l3 * r6inv - l4);
       const float grij = a.g * rsq * rinv;             // g * r
       const float expm2 = expf(-grij * grij);
       const float erfc = as_poly(grij) * expm2;
       const float qq = qi * sq[c];
       const float pref = a.qqr2e * rinv * qq;
-      ec += pref * erfc;
-      float fpair = flj + pref * (erfc + EWALD_F * grij * expm2) * r2inv;
+      float fpair;
+      if (EXCL) {
+        float sij = 1.0f;
+#pragma unroll
+        for (int k = 0; k < MAX_EXCL; ++k) {
+          if (exj[k] == sa[c]) sij = exs[k];
+        }
+        float flj = 0.0f;
+        if (sij > 0.0f) {
+          flj = sij * r6inv * (l1 * r6inv - l2) * r2inv;
+          ev += sij * r6inv * (l3 * r6inv - l4);
+        }
+        const float dcoul = (1.0f - sij) * pref;
+        ec += pref * erfc - dcoul;
+        fpair = flj + (pref * (erfc + EWALD_F * grij * expm2) - dcoul) * r2inv;
+      } else {
+        const float flj = r6inv * (l1 * r6inv - l2) * r2inv;
+        ev += r6inv * (l3 * r6inv - l4);
+        ec += pref * erfc;
+        fpair = flj + pref * (erfc + EWALD_F * grij * expm2) * r2inv;
+      }
       if (FUSE && ((ei > 0.f && sl[c] > 0.f) || (li > 0.f && se[c] > 0.f))) {
         // CONP Gaussian correction (fix_conp.cpp:1467-1573)
         const float et = trow[4 * tsz + tj];
@@ -221,28 +262,36 @@ int conp2_pair_tile_rows() { return conp2::PAIR_TB; }
 
 // f_out (n, 3) and energies (3) = (evdwl, ecoul, ecorr) in float32;
 // ele_f == NULL selects the sweep without the CONP correction (ely_f and
-// gtab are then ignored and ecorr is 0).  Returns cudaGetLastError().
+// gtab are then ignored and ecorr is 0); m == 0 selects the sweep without
+// special-bond exclusions (exi, exv ignored).  Returns cudaGetLastError().
 int conp2_pair_forces_f32(const float* x, const float* q, const int64_t* type,
                           const float* ele_f, const float* ely_f,
                           const int64_t* perm, const float* zs,
-                          const float* lj, const float* gtab, int n, int nt1,
-                          float bx, float by, float bz, int px, int py, int pz,
-                          float cutsq, float zcut, float g_ewald, float qqr2e,
-                          float* f_out, float* partials, float* energies,
-                          void* stream) {
-  if (n <= 0 || nt1 <= 0 || nt1 > conp2::MAX_NT1) {
+                          const float* lj, const float* gtab,
+                          const int64_t* exi, const float* exv, int m, int n,
+                          int nt1, float bx, float by, float bz, int px,
+                          int py, int pz, float cutsq, float zcut,
+                          float g_ewald, float qqr2e, float* f_out,
+                          float* partials, float* energies, void* stream) {
+  if (n <= 0 || nt1 <= 0 || nt1 > conp2::MAX_NT1 || m < 0 ||
+      m > conp2::MAX_EXCL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  conp2::PairArgs a{x, q, type, ele_f, ely_f, perm, zs, lj, gtab, n, nt1,
-                    bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz,
+  conp2::PairArgs a{x, q, type, ele_f, ely_f, perm, zs, lj, gtab, exi, exv,
+                    m, n, nt1, bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz,
                     px, py, pz, cutsq, zcut, g_ewald, qqr2e,
                     f_out, partials};
   const int nblocks = (n + conp2::PAIR_TB - 1) / conp2::PAIR_TB;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ele_f != nullptr) {
-    conp2::pair_kernel<true><<<nblocks, conp2::PAIR_TB, 0, s>>>(a);
+  const bool fuse = ele_f != nullptr;
+  if (fuse && m > 0) {
+    conp2::pair_kernel<true, true><<<nblocks, conp2::PAIR_TB, 0, s>>>(a);
+  } else if (fuse) {
+    conp2::pair_kernel<true, false><<<nblocks, conp2::PAIR_TB, 0, s>>>(a);
+  } else if (m > 0) {
+    conp2::pair_kernel<false, true><<<nblocks, conp2::PAIR_TB, 0, s>>>(a);
   } else {
-    conp2::pair_kernel<false><<<nblocks, conp2::PAIR_TB, 0, s>>>(a);
+    conp2::pair_kernel<false, false><<<nblocks, conp2::PAIR_TB, 0, s>>>(a);
   }
   conp2::reduce_energies<<<1, conp2::REDUCE_TB, 0, s>>>(partials, nblocks,
                                                         energies);

@@ -18,6 +18,7 @@ import torch
 
 from .models.electrodes import ConpContext
 from .models.system import MDState, System
+from .utils.device import DEFAULT_DTYPE, resolve_device
 
 
 def system_from_numpy(fields: dict) -> System:
@@ -38,9 +39,11 @@ def system_from_numpy(fields: dict) -> System:
 
 
 def context_from_numpy(fields: dict, *, device=None,
-                       dtype=torch.float64) -> ConpContext:
+                       dtype=DEFAULT_DTYPE) -> ConpContext:
     """ConpContext of the INV solve from the JAX context's fields (ainv, d,
-    elesetq, totsetq, eleinitq, elecheck_ele, ele_idx; others ignored)."""
+    elesetq, totsetq, eleinitq, elecheck_ele, ele_idx; others ignored), on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
     f = lambda k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
                                device=device)
     return ConpContext(
@@ -52,11 +55,13 @@ def context_from_numpy(fields: dict, *, device=None,
                              dtype=torch.int64, device=device))
 
 
-def state_from_numpy(fields: dict, *, device=None, dtype=torch.float64,
+def state_from_numpy(fields: dict, *, device=None, dtype=DEFAULT_DTYPE,
                      engine=None) -> MDState:
     """MDState from the JAX state's fields (x, v, q, f, step, nhc_xi,
-    nhc_vxi, scalar_out, energy; others ignored).  With ``engine``, its
-    derived state (Verlet list, mesh tile assignment) is built at x."""
+    nhc_vxi, scalar_out, energy; others ignored), on ``device`` (None: the
+    card).  With ``engine``, its derived state (Verlet list, mesh tile
+    assignment) is built at x."""
+    device = resolve_device(device)
     f = lambda k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
                                device=device)
     st = MDState(x=f("x"), v=f("v"), q=f("q"), f=f("f"),

@@ -34,6 +34,7 @@ from ..ops.kernels.zorder import z_perm
 from ..ops.neighbors import b_realspace_from_list
 from ..utils.config import (ConpConfig, FFMode, KSpaceStyle, MDConfig, Mode,
                             Solver)
+from ..utils.device import DEFAULT_DTYPE, resolve_device
 from .electrodes import (ConpContext, ElectrodeKernels, assemble_amatrix,
                          build_d_vector, make_kernels, project_inverse)
 from .system import System
@@ -209,12 +210,14 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
                x0: Optional[np.ndarray] = None,
                q0: Optional[np.ndarray] = None,
                g_ewald: Optional[float] = None,
-               solve_dtype=torch.float64, device=None) -> ConpSolver:
+               solve_dtype=DEFAULT_DTYPE, device=None) -> ConpSolver:
     """One-time setup: k-space tables, A assembly, inverse + projection,
     d vector, elesetq (linalg_init/linalg_setup, fix_conp.cpp:393-464).
 
     The linear algebra runs in float64 on the CPU; the context is then cast
-    to ``solve_dtype`` and placed on ``device``."""
+    to ``solve_dtype`` and placed on ``device`` (None: the card; raises
+    when no CUDA device is visible)."""
+    device = resolve_device(device)
     units = system.units()
     x0 = system.x0 if x0 is None else np.asarray(x0)
     q0 = system.q0 if q0 is None else np.asarray(q0)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
 from ..utils.units import Units
 
 
@@ -26,7 +27,7 @@ class NHCParams(nn.Module):
                  t_stop: float, damp: float, tchain: int):
         super().__init__()
         self.register_buffer("group_mask", group_mask)   # (N,) bool
-        self.dof = dof            # 3*Ng - 3
+        self.dof = dof            # 3*Ng - 3 - constraints inside the group
         self.t_start = t_start
         self.t_stop = t_stop
         self.damp = damp          # fs
@@ -123,7 +124,11 @@ class Integrator(nn.Module):
 
 
 def make_nhc_params(group_mask: np.ndarray, t_start, t_stop, damp, *,
-                    tchain: int = 3, device=None) -> NHCParams:
-    dof = 3 * int(group_mask.sum()) - 3
-    return NHCParams(torch.as_tensor(group_mask, device=device), float(dof),
-                     float(t_start), float(t_stop), float(damp), tchain)
+                    nconstraints: int = 0, tchain: int = 3,
+                    device=None) -> NHCParams:
+    """One thermostat on ``group_mask`` with 3 Ng - 3 - nconstraints degrees
+    of freedom, its mask on ``device`` (None: the card)."""
+    dof = 3 * int(group_mask.sum()) - 3 - nconstraints
+    return NHCParams(torch.as_tensor(group_mask, device=resolve_device(device)),
+                     float(dof), float(t_start), float(t_stop), float(damp),
+                     tchain)

@@ -105,7 +105,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.conp2_pair_forces_f32.argtypes = (
-        [P] * 9 + [I, I] + [F, F, F] + [I, I, I] + [F, F, F, F] + [P, P, P, P])
+        [P] * 11 + [I, I, I] + [F, F, F] + [I, I, I] + [F, F, F, F]
+        + [P, P, P, P])
     lib.conp2_pair_forces_f32.restype = I
     lib.conp2_pair_tile_rows.argtypes = []
     lib.conp2_pair_tile_rows.restype = I
@@ -119,6 +120,12 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_spread_mesh_f32.restype = I
     lib.conp2_gather3_f32.argtypes = [P] * 3 + [I] * 8 + [P, P]
     lib.conp2_gather3_f32.restype = I
+    lib.conp2_shake_positions_f32.argtypes = (
+        [P] * 9 + [I] * 3 + [F] + [F] * 3 + [I] * 3 + [P] * 3)
+    lib.conp2_shake_positions_f32.restype = I
+    lib.conp2_rattle_velocities_f32.argtypes = (
+        [P] * 8 + [I] * 3 + [F] * 3 + [I] * 3 + [P] * 2)
+    lib.conp2_rattle_velocities_f32.restype = I
     return lib
 
 

@@ -8,9 +8,9 @@ the JAX package's ``pair_forces_pallas``, except that atom types index the
 
 The kernel has no fixed capacity (it walks every column tile and culls by
 z), so nothing can overflow and nothing is regrown.  Special-bond
-exclusions are corrected outside the kernel, as in the JAX package: the
-kernel computes the uniform s=1 sweep and ``exclusion_correction`` adds
-the exact difference for the listed pairs.
+exclusions are applied per pair inside the kernel, as the plain version
+applies them (the JAX package sweeps at s = 1 and corrects afterwards,
+which cancels catastrophically in float32 at bonded distances).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..pairs import (PairTables, conp_correction_forces, dense_pair_forces,
-                     exclusion_correction, gauss_table_kernels)
+                     gauss_table_kernels)
 from . import build
 from .zorder import Z_MARGIN, z_perm
 
@@ -48,7 +48,8 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
     """LJ + erfc Coulomb forces and energies over all pairs in range.
 
     ``zsort``: (perm, z_sorted) from ``zorder.z_perm`` at these positions
-    (computed here when None).  ``conp_fuse``: optional (ele_flag,
+    (computed here when None).  ``exclusions``: (excl_idx (N, m) int64,
+    excl_val (N, m)) with m <= 16, or None.  ``conp_fuse``: optional (ele_flag,
     elyte_flag, eta_tab, fo_tab) -- per-atom 0/1 float flags (N,) and the
     (T+1, T+1) Gaussian width / overlap tables; the forces then include the
     CONP Gaussian correction and a fourth value ``ecorr`` is returned.
@@ -82,6 +83,15 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
             raise ValueError("pair_forces: conp_fuse flags must be (N,) and "
                              "tables (T+1, T+1)")
         ptrs = [ele_f.data_ptr(), ely_f.data_ptr(), gtab.data_ptr()]
+    exi = exv = None
+    m = 0
+    if exclusions is not None:
+        exi, exv = exclusions
+        m = exi.shape[1]
+        build.check_cuda("pair_forces", torch.int64, exi)
+        build.check_cuda("pair_forces", torch.float32, exv)
+        if exi.shape != (n, m) or exv.shape != (n, m) or m > 16:
+            raise ValueError("pair_forces: exclusions must be (N, m), m <= 16")
     lib = build.load_library()
     nblocks = -(-n // lib.conp2_pair_tile_rows())
     f = torch.empty((n, 3), dtype=x.dtype, device=x.device)
@@ -89,7 +99,9 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
     energies = torch.empty((3,), dtype=x.dtype, device=x.device)
     status = lib.conp2_pair_forces_f32(
         x.data_ptr(), q.data_ptr(), type_idx.data_ptr(), ptrs[0], ptrs[1],
-        perm.data_ptr(), zs.data_ptr(), lj.data_ptr(), ptrs[2], n, nt1,
+        perm.data_ptr(), zs.data_ptr(), lj.data_ptr(), ptrs[2],
+        None if exi is None else exi.data_ptr(),
+        None if exv is None else exv.data_ptr(), m, n, nt1,
         *[float(b) for b in box], *[int(bool(p)) for p in periodic],
         float(cutoff) ** 2, float(cutoff) + Z_MARGIN, float(g_ewald),
         float(qqr2e), f.data_ptr(), partials.data_ptr(), energies.data_ptr(),
@@ -97,11 +109,6 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
     build.check_status("pair_forces", status)
     launches.count += 1
     ev, ec = energies[0], energies[1]
-    if exclusions is not None:
-        df, dev, dec = exclusion_correction(x, q, type_idx, tables, exclusions,
-                                            box=box, periodic=periodic,
-                                            cutoff=cutoff, qqr2e=qqr2e)
-        f, ev, ec = f + df, ev + dev, ec + dec
     if conp_fuse is not None:
         return f, ev, ec, energies[2]
     return f, ev, ec

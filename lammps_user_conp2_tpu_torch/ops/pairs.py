@@ -193,40 +193,6 @@ def gauss_table_kernels(eta_ij: torch.Tensor, fo_ij: torch.Tensor):
     return potential, force
 
 
-def exclusion_correction(x, q, type_idx, tables: PairTables, exclusions, *,
-                         box, periodic, cutoff, qqr2e):
-    """Exact algebraic difference between the special-bond factor s and the
-    uniform s=1 sweep for the listed pairs (the JAX pair kernel's
-    correction pass, ops/pallas/pair_kernel.py:441-477).
-    Returns (df (N,3), devdwl, decoul)."""
-    exi, exv = exclusions
-    n = x.shape[0]
-    dtype = x.dtype
-    sval = exv.to(dtype)                              # (n, m)
-    valid = exi < n
-    cols = torch.where(valid, exi, torch.zeros_like(exi)).long()
-    dx = min_image(x[:, None, :] - x[cols], box, periodic)   # (n, m, 3)
-    rsq = torch.sum(dx * dx, dim=2)
-    valid = valid & (rsq < cutoff ** 2)
-    rsq_safe = torch.where(valid, rsq, torch.ones_like(rsq))
-    rinv = torch.rsqrt(rsq_safe)
-    r2inv = rinv * rinv
-    r6inv = r2inv ** 3
-    tij = (type_idx[:, None], type_idx[cols])
-    l1, l2 = tables.lj1[tij], tables.lj2[tij]
-    l3, l4 = tables.lj3[tij], tables.lj4[tij]
-    ds = sval - 1.0
-    pref = (qqr2e * rinv) * q[:, None] * q[cols]
-    zero = torch.zeros_like(rsq)
-    dfpair = torch.where(valid, ds * r6inv * (l1 * r6inv - l2) * r2inv
-                         + ds * pref * r2inv, zero)
-    df = torch.sum(dfpair[..., None] * dx, dim=1)
-    dev = 0.5 * torch.sum(torch.where(valid, ds * r6inv * (l3 * r6inv - l4),
-                                      zero))
-    dec = 0.5 * torch.sum(torch.where(valid, ds * pref, zero))
-    return df, dev, dec
-
-
 def exclusions_tensors(excl, *, device=None, dtype=torch.float64
                        ) -> Optional[tuple]:
     """(excl_idx, excl_val) as tensors, or None when no pair is listed."""

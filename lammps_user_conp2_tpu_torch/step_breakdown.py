@@ -1,13 +1,18 @@
 """Per-layer time of one MD step of the port on a CUDA device.
 
     python -m lammps_user_conp2_tpu_torch.step_breakdown [--steps 200]
+        [--cell mid|il]
 
-Builds the slice cell (``workloads.synthetic(6144, 24, lz=60, lxy=50)``,
-float64 setup, float32 run) and times, with CUDA events and the median over
-repeats: the whole step; the b-vector assembly (phase tables, electrolyte
-structure factor, k-space readout, the real-space rows kernel, slab term);
-the INV solve (A^-1 b and the charge update); the pair sweep kernel with the
-fused CONP correction; the factored-Ewald forces.  Then a torch.profiler
+Builds a mid-size cell (float64 setup, float32 run): ``mid``, the
+7,296-atom ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` from
+``near_wall_positions``, or ``il``, ``workloads.il_onelayer(0)`` on the
+3,776-atom file of ``workloads.write_il_data`` (written to ``--out``).
+Times, with CUDA events and the median over repeats: the whole step; the
+b-vector assembly (phase tables, electrolyte structure factor, k-space
+readout, the real-space rows kernel, slab term); the INV solve (A^-1 b and
+the charge update); the pair sweep kernel with the fused CONP correction;
+the factored-Ewald forces; on ``il`` the SHAKE (K7) and RATTLE (K8)
+wrappers.  Then a torch.profiler
 trace of a short window gives the device-busy share of the step and the
 device time by kernel name; the table and the Chrome trace go to
 ``chiprun_out/``.  Fails when no CUDA device is visible.
@@ -71,6 +76,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--cell", choices=("mid", "il"), default="mid")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_breakdown: no CUDA device visible")
@@ -79,15 +85,23 @@ def main() -> int:
     from .models.md import build_engine
     from .ops import ewald_factored as ewf
     from .ops.kernels.pair_kernel import pair_forces
+    from .ops.kernels.shake_kernel import rattle_velocities, shake_positions
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda:0")
-    system, md, cfg = workloads.synthetic(**CELL)
+    if args.cell == "il":
+        os.makedirs(args.out, exist_ok=True)
+        system, md, cfg = workloads.il_onelayer(0, data_path=(
+            workloads.write_il_data(os.path.join(args.out, "il_3776.data"))))
+        x0 = None
+    else:
+        system, md, cfg = workloads.synthetic(**CELL)
+        x0 = workloads.near_wall_positions(system)
     conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
     eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
-    st = eng.init_state(x0=workloads.near_wall_positions(system))
+    st = eng.init_state(x0=x0)
     st, _ = eng.run(st, 20, thermo_every=0)
     x, q = st.x, st.q
     u = system.units()
@@ -109,6 +123,13 @@ def main() -> int:
         "compute_forces (all)": lambda: eng.compute_forces(x, q, kcache),
         "solve_full (all)": lambda: conp.solve_full(x, q),
     }
+    if eng.cons is not None:
+        kw = dict(box=system.box, periodic=system.periodic)
+        xd = x + md.dt * st.v
+        layers["shake K7"] = lambda: shake_positions(eng.cons, xd, x, md.dt,
+                                                     **kw)
+        layers["rattle K8"] = lambda: rattle_velocities(eng.cons, x, st.v,
+                                                        **kw)
     res = {name: _median_ms(fn) for name, fn in layers.items()}
     for name, ms in res.items():
         print(f"{name:40s} {ms:9.4f} ms  [{card}]")
@@ -142,7 +163,8 @@ def main() -> int:
         print(f"  {ms:9.4f} ms/step  {cnt:6.1f}x  {key[:70]}")
     res["device_busy_ms_per_step"] = busy
     res["device_busy_share_of_chained_step"] = busy / wall
-    print(json.dumps(dict(card=card, layers_ms=res, run_ms_per_step=wall)))
+    print(json.dumps(dict(card=card, cell=args.cell, natoms=system.natoms,
+                          layers_ms=res, run_ms_per_step=wall)))
     return 0
 
 

@@ -1,18 +1,39 @@
 """Workloads: (System, MDConfig, ConpConfig) ready for
 ``setup_conp`` / ``build_engine``.
 
-Only the self-contained synthetic capacitor is ported; the reference decks
-(dilute, il_onelayer, ...) need the data-file parser, which is still to
-come.
+* ``synthetic``: the self-contained parallel-plate capacitor of LJ ions.
+* ``il_onelayer`` / ``il_twolayer``: the ionic-liquid reference decks
+  (BMI-PF6 between graphene electrodes, SHAKE on the cation) for their
+  trials 0 and 1, read from a LAMMPS data file: ``data_path``, or the
+  deck's ``data`` under ``REF_TESTS``.  The other trials raise
+  NotImplementedError naming the part they still need.
+* ``write_il_data``: a synthetic data file with the il decks' counts and
+  ids, for the tests and the card runs while the decks' own data files are
+  not in the repository.
 """
 
 from __future__ import annotations
 
+import math
+import os
+from pathlib import Path
+from typing import Optional
+
 import numpy as np
 
-from .models.system import build_system
-from .utils.config import ConpConfig, FFMode, MDConfig, Mode, ThermostatConfig
+from .models.system import build_system, electrodes_first
+from .utils import data_io
+from .utils.config import (ConpConfig, FFMode, MDConfig, Mode, ShakeConfig,
+                           ThermostatConfig)
 from .utils.data_io import LammpsData
+from .utils.units import get_units
+
+# the reference decks' directory (one subdirectory per deck, each with its
+# ``data`` file); CONP_REF_TESTS points the port and the JAX package at the
+# same place
+REF_TESTS = os.environ.get(
+    "CONP_REF_TESTS",
+    str(Path(__file__).resolve().parents[1] / "reference" / "tests"))
 
 
 def synthetic(n_elyte: int = 64, nele_side: int = 4, *, lz: float = 30.0,
@@ -91,3 +112,271 @@ def near_wall_positions(system, *, margin: float = 5.0, jitter: float = 0.05,
     rng = np.random.default_rng(seed)
     x[ely] += jitter * rng.standard_normal((int(ely.sum()), 3))
     return x
+
+
+# --------------------------------------------------------------------------
+# the ionic-liquid decks
+# --------------------------------------------------------------------------
+
+def _refuse_trial(deck: str, n: int, missing: list) -> None:
+    if missing:
+        raise NotImplementedError(f"not ported yet: {deck} trial {n} needs "
+                                  + ", ".join(missing))
+
+
+def _il_deck(data_path, deck: str):
+    """(System, MDConfig) shared by the il decks' trials 0 and 1: BMI-PF6
+    (types 1-3 the cation sites, 4 the anion) between the electrodes (type
+    5; mol 641 left, 642 right), boundary p p f, one 500 K NHC on ``sol``
+    (the doubled-cell trials' two thermostats come with NOSLAB), SHAKE on
+    the cation's two bonds and its angle."""
+    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/{deck}/data")
+    groups = {
+        "sol": np.isin(data.type, [1, 2, 3, 4]),
+        "bmi": np.isin(data.type, [1, 2, 3]),
+        "ele": data.type == 5,
+    }
+    system = build_system(
+        data, units="real", periodic=(True, True, False), mix="arithmetic",
+        ele_left=[641], ele_right=[642], groups=groups)
+    system = electrodes_first(system)
+    md = MDConfig(
+        units="real", dt=2.0, cutoff=16.0, kspace_accuracy=1e-7, slab=3.0,
+        thermostats=(ThermostatConfig("sol", 500.0, 500.0, 100.0),),
+        shake=ShakeConfig(group="bmi", btypes=(1, 2), atypes=(1,)),
+    )
+    return system, md
+
+
+def il_onelayer(n: int = 0, *, data_path: Optional[str] = None):
+    """tests/il_onelayer/input: BMI-PF6 and single-layer graphene, 3,776
+    atoms.  Trials 0 (conp slab) and 1 (+etypes, the same step on the dense
+    pair path); CONP at 2 V, EWALD, ETA."""
+    if n not in range(8):
+        raise ValueError(f"il_onelayer has trials 0-7, not {n}")
+    _refuse_trial("il_onelayer", n, (
+        (["CONQ mode", "PPPM in the charge solve"] if n == 2 else [])
+        + (["FFIELD field mode with an external efield"]
+           if n in (3, 4, 7) else [])
+        + (["EHGO pair mode", "a callable target"] if n == 4 else [])
+        + (["NOSLAB doubled cell (replicate, change_box, z-mirror)"]
+           if n in (5, 6) else [])))
+    system, md = _il_deck(data_path, "il_onelayer")
+    cfg = ConpConfig(mode=Mode.CONP, nevery=1, eta=1.979, target=2.0,
+                     ff=FFMode.NORMAL)
+    return system, md, cfg
+
+
+def il_twolayer(n: int = 0, *, data_path: Optional[str] = None):
+    """tests/il_twolayer/input: the BASELINE.md north-star workload.
+    Trials 0 and 1 (conp slab); CONP at 2 V, EWALD, ETA."""
+    if n not in range(6):
+        raise ValueError(f"il_twolayer has trials 0-5, not {n}")
+    _refuse_trial("il_twolayer", n, (
+        (["FFIELD field mode with an external efield"]
+         if n in (2, 5) else [])
+        + (["NOSLAB doubled cell (replicate, change_box, z-mirror)"]
+           if n in (3, 4) else [])))
+    system, md = _il_deck(data_path, "il_twolayer")
+    cfg = ConpConfig(mode=Mode.CONP, nevery=1, eta=1.979, target=2.0,
+                     ff=FFMode.NORMAL)
+    return system, md, cfg
+
+
+# --------------------------------------------------------------------------
+# the synthetic ionic-liquid cell
+# --------------------------------------------------------------------------
+
+# Coarse-grained BMIm-PF6 after Roy & Maroncelli (J. Phys. Chem. B 114,
+# 2010): per site (mass g/mol, eps kcal/mol, sigma A, charge e).  Cation
+# sites 1 = methyl, 2 = imidazolium ring (the middle site), 3 = butyl; 4 =
+# PF6.  The masses and charges (+0.78 e per ion pair, scaled) are the
+# model's; eps is its kJ/mol value over 4.184.  Type 5 is graphene carbon
+# with Steele's graphite LJ (12.011 g/mol, 0.0556 kcal/mol, 3.40 A).  The
+# file lists every pair (PairIJ Coeffs) mixed as ``pair_modify mix
+# arithmetic`` mixes them, except carbon-carbon, which is off: the walls are
+# frozen, and their mutual LJ (~2e6 kcal/mol at 1.42 A bonds) would only
+# bury the potential energy.
+IL_SITES = {
+    1: (15.04, 0.36 / 4.184, 3.41, 0.1578),
+    2: (67.07, 2.56 / 4.184, 4.38, 0.4374),
+    3: (57.12, 1.83 / 4.184, 5.04, 0.1848),
+    4: (144.96, 4.71 / 4.184, 5.06, -0.78),
+    5: (12.011, 0.0556, 3.40, 0.0),
+}
+# the rigid linear cation of this fixture: methyl-ring and ring-butyl bond
+# lengths (A) and the 180-degree angle; the force constants (kcal/mol/A^2,
+# kcal/mol/rad^2) only matter off the constraints
+IL_BONDS = ((500.0, 1.80), (500.0, 2.50))
+IL_ANGLE = (100.0, 180.0)
+GRAPHENE_CELL = (2.46, 4.26)          # rectangular 4-atom cell (A)
+GRAPHENE_SITES = ((0.0, 0.0), (0.5, 1.0 / 6.0), (0.5, 0.5), (0.0, 2.0 / 3.0))
+SHEET_GAP = 3.35                      # graphite interlayer spacing (A)
+WALL_OFFSET = 1.0                     # outer sheets to the box faces (A)
+LIQUID_DENSITY = 1.3                  # g/cm^3
+CARBON_SKIN = 1.7                     # half the carbon sigma at each wall (A)
+ION_MARGIN = 4.0                      # ion centres to the inner sheets (A)
+IL_TEMP = 500.0
+AVOGADRO = 6.02214076e23
+
+
+def _min_dist(points, others, lxy):
+    """(T,) min over each candidate's points (T, P, 3) of the x/y
+    minimum-image distance to ``others`` (Q, 3) (inf when Q = 0)."""
+    if not len(others):
+        return np.full(points.shape[0], np.inf)
+    d = points[:, :, None, :] - others[None, None, :, :]
+    for ax in (0, 1):
+        d[..., ax] -= lxy[ax] * np.round(d[..., ax] / lxy[ax])
+    return np.sqrt((d * d).sum(-1)).min(axis=(1, 2))
+
+
+def write_il_data(path, *, n_pairs: int = 320, sheets: int = 3,
+                  nx: int = 13, ny: int = 8, seed: int = 0) -> str:
+    """Write a LAMMPS data file (atom style full) of BMI-PF6 between two
+    graphene electrodes, in the il decks' types and ids, that
+    ``il_onelayer`` and ``il_twolayer`` read; returns ``path``.
+
+    Types 1-3 are the cation sites (bond type 1 between sites 1-2, type 2
+    between 2-3, angle type 1 at 180 degrees; the positions satisfy the
+    three constraints), 4 the anion, 5 the electrodes.  Ion molecules are
+    1 ... 2 n_pairs (cations first), the left electrode mol 641 and the
+    right 642.  Each wall has ``sheets`` graphene sheets of 4 nx ny atoms
+    (AB-stacked, 3.35 A apart), lateral box 2.46 nx x 4.26 ny A.  The gap
+    between the inner sheets holds the liquid at 1.3 g/cm^3 (its volume
+    counted 1.7 A off each wall).  Pair coefficients as PairIJ Coeffs, the
+    carbon-carbon LJ off.  Ion centres sit on a lattice at least 4 A
+    from the inner sheets, species on alternate sites; each cation takes the
+    one of 32 random orientations that keeps its sites farthest from every
+    site placed so far.  Velocities are Maxwell-Boltzmann at 500 K over the
+    ions' rigid-body degrees of freedom (centre of mass, and the cation's two
+    rotations), with the electrolyte's net momentum removed; the electrodes
+    are at rest.  Everything random comes from numpy ``default_rng(seed)``.
+
+    The default is the size of the decks: 320 ion pairs and 3 sheets of 416
+    atoms per wall, 3,776 atoms."""
+    rng = np.random.default_rng(seed)
+    units = get_units("real")
+    lx, ly = nx * GRAPHENE_CELL[0], ny * GRAPHENE_CELL[1]
+    area = lx * ly
+    mass_pair = sum(IL_SITES[t][0] for t in (1, 2, 3, 4))
+    vol = n_pairs * mass_pair / AVOGADRO / LIQUID_DENSITY * 1e24   # A^3
+    gap = vol / area + 2 * CARBON_SKIN
+    z_inner_left = WALL_OFFSET + (sheets - 1) * SHEET_GAP
+    z_inner_right = z_inner_left + gap
+    lz = z_inner_right + (sheets - 1) * SHEET_GAP + WALL_OFFSET
+
+    # electrodes: sheet s of each wall, outer sheet first
+    sheet = np.array([[(i + fx) * GRAPHENE_CELL[0], (j + fy) * GRAPHENE_CELL[1]]
+                      for i in range(nx) for j in range(ny)
+                      for fx, fy in GRAPHENE_SITES])
+    walls = []
+    for zs in ([WALL_OFFSET + s * SHEET_GAP for s in range(sheets)],
+               [z_inner_right + s * SHEET_GAP for s in range(sheets)]):
+        for s, z in enumerate(zs):
+            shift = (0.0, GRAPHENE_CELL[1] / 3.0) if s % 2 else (0.0, 0.0)
+            xy = (sheet + shift) % (lx, ly)
+            walls.append(np.column_stack([xy, np.full(len(xy), z)]))
+    nwall = sheets * len(sheet)
+    ele_x = np.concatenate(walls)
+
+    # ion centres: a lattice over the gap, species on alternate sites
+    n_ions = 2 * n_pairs
+    z0, z1 = z_inner_left + ION_MARGIN, z_inner_right - ION_MARGIN
+    a0 = (area * (z1 - z0) / n_ions) ** (1.0 / 3.0)
+    nlx, nly = max(1, round(lx / a0)), max(1, round(ly / a0))
+    nlz = -(-n_ions // (nlx * nly))
+    ijk = np.array([(i, j, k) for i in range(nlx) for j in range(nly)
+                    for k in range(nlz)])
+    ijk = ijk[np.sort(rng.permutation(len(ijk))[:n_ions])]
+    centres = np.column_stack([
+        (ijk[:, 0] + 0.5) * lx / nlx, (ijk[:, 1] + 0.5) * ly / nly,
+        z0 + (ijk[:, 2] + 0.5) * (z1 - z0) / nlz])
+    even = np.flatnonzero(ijk.sum(1) % 2 == 0)
+    odd = np.flatnonzero(ijk.sum(1) % 2 == 1)
+    order = np.concatenate([rng.permutation(even), rng.permutation(odd)])
+    cat_c, an_c = centres[order[:n_pairs]], centres[order[n_pairs:]]
+
+    # cations: sites along a unit vector, centred on the lattice point
+    r12, r23 = IL_BONDS[0][1], IL_BONDS[1][1]
+    offs = np.array([0.0, r12, r12 + r23]) - 0.5 * (r12 + r23)
+    fixed = np.concatenate([ele_x, an_c])
+    cat_x = np.zeros((n_pairs, 3, 3))
+    axes = np.zeros((n_pairs, 3))
+    reach = 0.5 * (r12 + r23) + 6.0       # sites that can be nearest
+    for c in range(n_pairs):
+        u = rng.standard_normal((32, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        cand = cat_c[c] + u[:, None, :] * offs[None, :, None]      # (32, 3, 3)
+        others = np.concatenate([fixed, np.delete(cat_c, c, axis=0),
+                                 cat_x[:c].reshape(-1, 3)])
+        others = others[np.abs(others[:, 2] - cat_c[c, 2]) < reach]
+        best = int(np.argmax(_min_dist(cand, others, (lx, ly))))
+        cat_x[c], axes[c] = cand[best], u[best]
+    cat_x[:, :, :2] %= (lx, ly)           # wrap into the box in x and y
+
+    # rigid-body Maxwell-Boltzmann velocities (A/fs)
+    kt = units.boltz * IL_TEMP
+    m_cat = np.array([IL_SITES[t][0] for t in (1, 2, 3)])
+    m_an = IL_SITES[4][0]
+    sig = lambda m: np.sqrt(kt / (m * units.mvv2e))
+    com_off = offs - (m_cat * offs).sum() / m_cat.sum()        # along u
+    inertia = (m_cat * com_off ** 2).sum()
+    cat_v = np.zeros((n_pairs, 3, 3))
+    for c in range(n_pairs):
+        u = axes[c]
+        v_com = sig(m_cat.sum()) * rng.standard_normal(3)
+        w = sig(inertia) * rng.standard_normal(3)
+        w -= np.dot(w, u) * u                   # no spin about the axis
+        cat_v[c] = v_com + np.cross(w, u)[None, :] * com_off[:, None]
+    an_v = sig(m_an) * rng.standard_normal((n_pairs, 3))
+    p_tot = (m_cat[None, :, None] * cat_v).sum((0, 1)) + m_an * an_v.sum(0)
+    v_drift = p_tot / (n_pairs * mass_pair)
+    cat_v -= v_drift
+    an_v -= v_drift
+
+    # atoms in file order: cations, anions, left wall, right wall
+    x = np.concatenate([cat_x.reshape(-1, 3), an_c, ele_x])
+    v = np.concatenate([cat_v.reshape(-1, 3), an_v, np.zeros_like(ele_x)])
+    typ = np.concatenate([np.tile([1, 2, 3], n_pairs), np.full(n_pairs, 4),
+                          np.full(2 * nwall, 5)])
+    mol = np.concatenate([np.repeat(np.arange(1, n_pairs + 1), 3),
+                          np.arange(n_pairs + 1, 2 * n_pairs + 1),
+                          np.full(nwall, 641), np.full(nwall, 642)])
+    q = np.array([IL_SITES[t][3] for t in typ])
+    natoms = len(x)
+    f = lambda val: f"{float(val):.17g}"
+    lines = [
+        f"BMI-PF6 between graphene electrodes, {natoms} atoms "
+        f"(lammps_user_conp2_tpu_torch.workloads.write_il_data, seed {seed})",
+        "", f"{natoms} atoms", "5 atom types", f"{2 * n_pairs} bonds",
+        "2 bond types", f"{n_pairs} angles", "1 angle types", "",
+        f"0.0 {f(lx)} xlo xhi", f"0.0 {f(ly)} ylo yhi",
+        f"0.0 {f(lz)} zlo zhi", "", "Masses", ""]
+    lines += [f"{t} {f(IL_SITES[t][0])}" for t in range(1, 6)]
+    lines += ["", "PairIJ Coeffs # lj/cut/coul/long", ""]
+    for a in range(1, 6):
+        for b in range(a, 6):
+            eps = 0.0 if a == b == 5 else math.sqrt(IL_SITES[a][1]
+                                                    * IL_SITES[b][1])
+            sig = 0.5 * (IL_SITES[a][2] + IL_SITES[b][2])
+            lines.append(f"{a} {b} {f(eps)} {f(sig)}")
+    lines += ["", "Bond Coeffs # harmonic", ""]
+    lines += [f"{b + 1} {f(k)} {f(r0)}" for b, (k, r0) in enumerate(IL_BONDS)]
+    lines += ["", "Angle Coeffs # harmonic", "",
+              f"1 {f(IL_ANGLE[0])} {f(IL_ANGLE[1])}", "", "Atoms # full", ""]
+    lines += [f"{i + 1} {mol[i]} {typ[i]} {f(q[i])} {f(x[i, 0])} "
+              f"{f(x[i, 1])} {f(x[i, 2])}" for i in range(natoms)]
+    lines += ["", "Velocities", ""]
+    lines += [f"{i + 1} {f(v[i, 0])} {f(v[i, 1])} {f(v[i, 2])}"
+              for i in range(natoms)]
+    lines += ["", "Bonds", ""]
+    for c in range(n_pairs):
+        a = 3 * c + 1
+        lines += [f"{2 * c + 1} 1 {a} {a + 1}", f"{2 * c + 2} 2 {a + 1} {a + 2}"]
+    lines += ["", "Angles", ""]
+    lines += [f"{c + 1} 1 {3 * c + 1} {3 * c + 2} {3 * c + 3}"
+              for c in range(n_pairs)]
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text("\n".join(lines) + "\n")
+    return str(path)

@@ -20,8 +20,8 @@ from lammps_user_conp2_tpu_torch.models import electrodes as tel
 from lammps_user_conp2_tpu_torch.models.md import build_engine
 from lammps_user_conp2_tpu_torch.utils.config import (ConpConfig, FFMode,
                                                       KSpaceStyle, Mode,
-                                                      ShakeConfig, Solver)
-from torch_cells import S1, S2, rel_err
+                                                      Solver, ZMirrorConfig)
+from torch_cells import CPU64, S1, S2, SOLVE64, rel_err
 
 torch.set_num_threads(2)
 
@@ -31,7 +31,7 @@ def test_setup_matches(cell):
     js, jmd, jcfg = jwl.synthetic(**cell)
     ts, tmd, tcfg = twl.synthetic(**cell)
     j = jconp.setup_conp(js, jmd, jcfg)
-    t = tconp.setup_conp(ts, tmd, tcfg)
+    t = tconp.setup_conp(ts, tmd, tcfg, **SOLVE64)
     assert t.ksp.g_ewald == pytest.approx(j.ksp.g_ewald, rel=1e-14)
     assert t.cut_coulsq == j.cut_coulsq and t.ne == len(j.ele_idx)
     np.testing.assert_array_equal(t.ele_idx, j.ele_idx)
@@ -90,24 +90,25 @@ def test_setup_refuses_features_not_ported(change):
         ele = system.ele_mask
         x0[ele, 2] = np.linspace(1.0, system.box[2] - 1.0, int(ele.sum()))
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconp.setup_conp(system, md, cfg, x0=x0)
+        tconp.setup_conp(system, md, cfg, x0=x0, **SOLVE64)
 
 
 @pytest.mark.parametrize("change", [
-    dict(shake=ShakeConfig("sol")), dict(efield=(0.0, 0.0, 0.1)),
+    dict(zmirror=ZMirrorConfig("sol", "sol")), dict(efield=(0.0, 0.0, 0.1)),
     dict(kspace_style=KSpaceStyle.PPPM), dict(pair_path="cell"),
     dict(pair_path="tile")],
-    ids=["shake", "efield", "pppm", "cell", "tile"])
+    ids=["zmirror", "efield", "pppm", "cell", "tile"])
 def test_build_engine_refuses_features_not_ported(change):
     """PPPM forces are ported, but not under a charge solve in another
     k-space style (here Ewald); the cell and tile pair paths are left
-    out."""
+    out; SHAKE/RATTLE is ported (test_torch_shake.py), zmirror is not."""
     system, md, cfg = twl.synthetic(**S1)
     conp = None
     if "kspace_style" in change:
-        conp = tconp.setup_conp(system, md, cfg)
+        conp = tconp.setup_conp(system, md, cfg, **SOLVE64)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_engine(system, dataclasses.replace(md, **change), conp)
+        build_engine(system, dataclasses.replace(md, **change), conp,
+                     **CPU64)
 
 
 def test_build_engine_refuses_verlet_list_size():
@@ -117,6 +118,6 @@ def test_build_engine_refuses_verlet_list_size():
     system, md, _ = twl.synthetic(n_elyte=8200, nele_side=4, lz=40.0,
                                   lxy=40.0)
     eng = build_engine(system, dataclasses.replace(
-        md, kspace_style=KSpaceStyle.PPPM))
+        md, kspace_style=KSpaceStyle.PPPM), **CPU64)
     assert eng.ncfg is not None and eng.ncfg.block == 0
     assert eng.ncfg.k_max > 0 and eng.pppm_grid is not None

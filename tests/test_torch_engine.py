@@ -18,7 +18,7 @@ from lammps_user_conp2_tpu_torch import interop
 from lammps_user_conp2_tpu_torch import workloads as twl
 from lammps_user_conp2_tpu_torch.models.conp import setup_conp as tsetup
 from lammps_user_conp2_tpu_torch.models.md import build_engine as tbuild
-from torch_cells import S2, x_near
+from torch_cells import CPU64, S2, SOLVE64, x_near
 
 torch.set_num_threads(2)
 
@@ -30,7 +30,7 @@ def engines():
     js, jmd, jcfg = jwl.synthetic(**S2)
     ts, tmd, tcfg = twl.synthetic(**S2)
     jeng = jbuild(js, jmd, jsetup(js, jmd, jcfg))
-    teng = tbuild(ts, tmd, tsetup(ts, tmd, tcfg))
+    teng = tbuild(ts, tmd, tsetup(ts, tmd, tcfg, **SOLVE64), **CPU64)
     return jeng, teng, x_near(ts)
 
 
@@ -83,11 +83,11 @@ def test_one_step_from_jax_state_and_context(engines):
     jstates, _ = _jax_steps(jeng, x0)
     js0, js1 = jstates[-2], jstates[-1]
     jctx = {k: np.asarray(v) for k, v in jeng.conp.ctx._asdict().items()}
-    teng.conp.load_context(interop.context_from_numpy(jctx))
+    teng.conp.load_context(interop.context_from_numpy(jctx, **CPU64))
     try:
         fields = {k: np.asarray(v) for k, v in js0._asdict().items()
                   if v is not None}
-        out = teng.step(interop.state_from_numpy(fields))
+        out = teng.step(interop.state_from_numpy(fields, **CPU64))
         np.testing.assert_allclose(out.x.numpy(), np.asarray(js1.x), rtol=0,
                                    atol=1e-11)
         np.testing.assert_allclose(out.v.numpy(), np.asarray(js1.v),
@@ -103,7 +103,7 @@ def test_one_step_from_jax_state_and_context(engines):
     finally:
         # leave the module-scoped engine with its own context
         ts, tmd, tcfg = twl.synthetic(**S2)
-        teng.conp.load_context(tsetup(ts, tmd, tcfg).ctx)
+        teng.conp.load_context(tsetup(ts, tmd, tcfg, **SOLVE64).ctx)
 
 
 def test_engine_without_conp_matches():
@@ -112,7 +112,7 @@ def test_engine_without_conp_matches():
     js, jmd, _ = jwl.synthetic(**S2)
     ts, tmd, _ = twl.synthetic(**S2)
     jeng = jbuild(js, jmd, None)
-    teng = tbuild(ts, tmd, None)
+    teng = tbuild(ts, tmd, None, **CPU64)
     x0 = x_near(ts)
     jst = jeng.init_state(x0=x0)
     tst = teng.init_state(x0=x0)

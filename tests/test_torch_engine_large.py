@@ -34,7 +34,8 @@ from lammps_user_conp2_tpu_torch.models.md import build_engine as tbuild
 from lammps_user_conp2_tpu_torch.ops import ewald_factored as ewf
 from lammps_user_conp2_tpu_torch.ops import pppm as TP
 from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle as TK
-from torch_cells import S3, S4, pppm_cell, rel_err, x_near
+from torch_cells import (CPU64, S3, S4, SOLVE64, pppm_cell, rel_err,
+                         x_near)
 
 torch.set_num_threads(2)
 NSTEPS = 20
@@ -44,7 +45,7 @@ def _engines(pair_path, **md_kw):
     js, jmd, jcfg = pppm_cell(jwl, JK, pair_path=pair_path, **md_kw)
     ts, tmd, tcfg = pppm_cell(twl, TK, pair_path=pair_path, **md_kw)
     jeng = jbuild(js, jmd, jsetup(js, jmd, jcfg))
-    teng = tbuild(ts, tmd, tsetup(ts, tmd, tcfg))
+    teng = tbuild(ts, tmd, tsetup(ts, tmd, tcfg, **SOLVE64), **CPU64)
     return jeng, teng, x_near(ts)
 
 
@@ -90,11 +91,12 @@ def test_one_step_from_jax_state_and_context(engines):
     js1, _ = jeng.run(jst, 1, thermo_every=1)
     saved = teng.conp.ctx
     jctx = {k: np.asarray(v) for k, v in jeng.conp.ctx._asdict().items()}
-    teng.conp.load_context(interop.context_from_numpy(jctx))
+    teng.conp.load_context(interop.context_from_numpy(jctx, **CPU64))
     try:
         fields = {k: np.asarray(v) for k, v in jst._asdict().items()
                   if v is not None and k not in ("nbr", "tasg")}
-        out = teng.step(interop.state_from_numpy(fields, engine=teng))
+        out = teng.step(interop.state_from_numpy(fields, engine=teng,
+                                                 **CPU64))
         np.testing.assert_allclose(out.x.numpy(), np.asarray(js1.x), rtol=0,
                                    atol=1e-11)
         np.testing.assert_allclose(out.q.numpy(), np.asarray(js1.q), rtol=0,
@@ -116,8 +118,9 @@ def test_f32_forced_tiled_forces_match(monkeypatch):
     tcfg = dataclasses.replace(tcfg, target=0.0)
     jeng = jbuild(js, jmd, jsetup(js, jmd, jcfg, solve_dtype=jnp.float32),
                   dtype=jnp.float32)
-    teng = tbuild(ts, tmd, tsetup(ts, tmd, tcfg, solve_dtype=torch.float32),
-                  dtype=torch.float32)
+    teng = tbuild(ts, tmd, tsetup(ts, tmd, tcfg, solve_dtype=torch.float32,
+                                  device="cpu"),
+                  dtype=torch.float32, device="cpu")
     assert teng.mesh_persist and jeng.mesh_persist
     # init_state = one charge solve + one force evaluation at x0
     jst = jeng.init_state()
@@ -140,14 +143,14 @@ def test_overflow_recovery_matches_ample_run(kind, monkeypatch):
     monkeypatch.setattr(TP, "_use_dense", lambda grid, n: kind == "list")
     ts, tmd, tcfg = pppm_cell(twl, TK, pair_path="nlist", pppm_diff="ad")
     x0 = x_near(ts)
-    ok = tbuild(ts, tmd, tsetup(ts, tmd, tcfg))
+    ok = tbuild(ts, tmd, tsetup(ts, tmd, tcfg, **SOLVE64), **CPU64)
     f_ok, th_ok = ok.run(ok.init_state(x0=x0), 5, thermo_every=5)
     if kind == "list":
         small = tbuild(ts, dataclasses.replace(tmd, neighbor_kmax=24),
-                       tsetup(ts, tmd, tcfg))
+                       tsetup(ts, tmd, tcfg, **SOLVE64), **CPU64)
         assert small.ncfg.k_max == 24
     else:
-        small = tbuild(ts, tmd, tsetup(ts, tmd, tcfg))
+        small = tbuild(ts, tmd, tsetup(ts, tmd, tcfg, **SOLVE64), **CPU64)
         occ = TP.tile_occupancy(small.pppm_grid, torch.as_tensor(x0))
         small.pppm_grid = dataclasses.replace(small.pppm_grid,
                                               tile_cap=occ // 2)
@@ -171,7 +174,7 @@ def test_pppm_setup_above_kxy_chunk():
     has more than KXY_CHUNK xy vectors sets up, and A^-1 matches."""
     js, jmd, jcfg = pppm_cell(jwl, JK, cell=S4)
     ts, tmd, tcfg = pppm_cell(twl, TK, cell=S4)
-    tc = tsetup(ts, tmd, tcfg)
+    tc = tsetup(ts, tmd, tcfg, **SOLVE64)
     assert tc.fksp is None and tc.pppm_grid is not None
     # the exact Ewald of this cell is above the factored path's bound
     assert ewf.factorize(tc.ksp).nxy > ewf.KXY_CHUNK
@@ -183,4 +186,4 @@ def test_pppm_setup_above_kxy_chunk():
                                rtol=1e-8, atol=1e-14)
     with pytest.raises(NotImplementedError, match="KXY_CHUNK"):
         tsetup(ts, dataclasses.replace(tmd, kspace_style=TK.EWALD),
-               dataclasses.replace(tcfg, kspace=TK.EWALD))
+               dataclasses.replace(tcfg, kspace=TK.EWALD), **SOLVE64)

@@ -1,19 +1,23 @@
 """CUDA kernels against their plain versions on the card (float32, S2 and
 S3 at the near-wall positions): max|kernel - plain| / max|plain| <= 2e-5
-per output (tools/kernel_oracle.py's measure), a CUDA float64 tensor
-raises, and the engines' main paths launch their kernels (K4 and K5 on
-the mid-size path; K1, K2a and K3 on the Verlet-list + tiled-PPPM path).
-Needs a CUDA device: skipped on the CPU.  Run on the card with
+per output (tools/kernel_oracle.py's measure; 5e-5 for SHAKE/RATTLE on
+the test-size ionic-liquid cell, also across the periodic x face), a CUDA
+float64 tensor raises, and the engines' main paths launch their kernels
+(K4 and K5 on the mid-size path; K1, K2a and K3 on the Verlet-list +
+tiled-PPPM path; K7 and K8 on the ionic-liquid deck).  Needs a CUDA
+device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
 import numpy as np
 import pytest
 import torch
 
-from torch_cells import S2, S3, charges_with_electrodes, x_close, x_near
+from torch_cells import (S2, S3, charges_with_electrodes, il_small,
+                         il_small_file, x_close, x_near)
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-5
+SHAKE_TOL = 5e-5
 
 
 @pytest.fixture
@@ -187,4 +191,76 @@ def test_large_engine_launches_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (k1.launches.count, k2.launches.count, k3.launches.count) == (
         4, 4, 4)
+    assert np.isfinite(float(st.energy))
+
+
+def _il_cell(cuda, directory):
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    system, md, cfg = il_small(workloads, il_small_file(directory))
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=cuda)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=cuda)
+    return system, md, eng
+
+
+@pytest.mark.parametrize("straddle", [False, True],
+                         ids=["interior", "straddles_x"])
+def test_shake_kernels_match_plain_on_card(cuda, tmp_path, straddle):
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k
+    system, md, eng = _il_cell(cuda, tmp_path)
+    rng = np.random.default_rng(5)
+    x_old = np.array(system.x0)
+    if straddle:    # every cation shifted so its middle site sits at x=0.2
+        cats = np.flatnonzero(system.groups["bmi"]).reshape(-1, 3)
+        for c in cats:
+            x_old[c, 0] = (x_old[c, 0] - x_old[c[1], 0] + 0.2) % system.box[0]
+    x_new = x_old + md.dt * (system.v0 + rng.normal(0.0, 0.005,
+                                                    x_old.shape))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    kw = dict(box=system.box, periodic=system.periodic)
+    x, dv = k.shake_positions(eng.cons, t(x_new), t(x_old), md.dt, **kw)
+    px, pdv = k.shake_positions_plain(eng.cons, t(x_new), t(x_old), md.dt,
+                                      **kw)
+    torch.cuda.synchronize()
+    assert _rel(x, px) <= SHAKE_TOL and _rel(dv, pdv) <= SHAKE_TOL
+    v = t(system.v0 + rng.normal(0.0, 0.005, x_old.shape))
+    vk = k.rattle_velocities(eng.cons, x, v, **kw)
+    assert _rel(vk, k.rattle_velocities_plain(eng.cons, x, v, **kw)) <= (
+        SHAKE_TOL)
+    with pytest.raises(TypeError):
+        k.shake_positions(eng.cons, t(x_new).double(), t(x_old).double(),
+                          md.dt, **kw)
+
+
+def test_pair_kernel_with_exclusions_on_card(cuda, tmp_path):
+    """K4 applies the cations' special-bond exclusions per pair, as the
+    plain version does (fused and unfused), on the ionic-liquid cell."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    system, md, eng = _il_cell(cuda, tmp_path)
+    assert eng.exclusions is not None
+    x = torch.as_tensor(system.x0, dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(charges_with_electrodes(system), dtype=torch.float32,
+                        device=cuda)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              g_ewald=eng.conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    for cf in (None, fuse):
+        got = k4.pair_forces(x, q, eng.type_idx, eng.tables, eng.exclusions,
+                             conp_fuse=cf, **kw)
+        ref = k4.pair_forces_plain(x, q, eng.type_idx, eng.tables,
+                                   eng.exclusions, conp_fuse=cf, **kw)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+
+
+def test_il_engine_launches_shake_kernels(cuda, tmp_path):
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k
+    system, md, eng = _il_cell(cuda, tmp_path)
+    k.shake_launches.reset()
+    k.rattle_launches.reset()
+    st, _ = eng.run(eng.init_state(), 3, thermo_every=0)
+    torch.cuda.synchronize()
+    assert (k.shake_launches.count, k.rattle_launches.count) == (3, 3)
     assert np.isfinite(float(st.energy))

@@ -1,7 +1,9 @@
 """The port runs without jax: in a fresh interpreter (this one has jax
 loaded by conftest), import the port, run S1 for 2 steps on the CPU, run
-the Verlet-list + PPPM path on S3 for 2 steps, and check that neither jax
-nor the JAX package was imported and that no CUDA kernel was launched."""
+the Verlet-list + PPPM path on S3 for 2 steps, write the test-size
+ionic-liquid data file and run il_onelayer (SHAKE/RATTLE) on it for 2
+steps, and check that neither jax nor the JAX package was imported and
+that no CUDA kernel was launched."""
 
 import json
 import os
@@ -11,34 +13,46 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import json, sys
+import json, sys, tempfile
 import torch
 torch.set_num_threads(2)
 from lammps_user_conp2_tpu_torch import workloads
 from lammps_user_conp2_tpu_torch.models.conp import setup_conp
 from lammps_user_conp2_tpu_torch.models.md import build_engine
 from lammps_user_conp2_tpu_torch.ops.kernels import (
-    block_pair, ele_rows_kernel, pair_kernel, pppm_gather, pppm_spread)
+    block_pair, ele_rows_kernel, pair_kernel, pppm_gather, pppm_spread,
+    shake_kernel)
 from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
 import lammps_user_conp2_tpu_torch.interop
+import lammps_user_conp2_tpu_torch.shake_residual
 import lammps_user_conp2_tpu_torch.step_breakdown
 import lammps_user_conp2_tpu_torch.step_breakdown_large
+S64 = dict(solve_dtype=torch.float64, device="cpu")
+C64 = dict(dtype=torch.float64, device="cpu")
 system, md, cfg = workloads.synthetic(64, 4)
-eng = build_engine(system, md, setup_conp(system, md, cfg))
+eng = build_engine(system, md, setup_conp(system, md, cfg, **S64), **C64)
 st, th = eng.run(eng.init_state(x0=workloads.near_wall_positions(system)), 2)
 import dataclasses
 system, md, cfg = workloads.synthetic(512, 5, lz=36.0, lxy=20.0)
 md = dataclasses.replace(md, pair_path="nlist", kspace_style=KSpaceStyle.PPPM)
 cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM)
-big = build_engine(system, md, setup_conp(system, md, cfg))
+big = build_engine(system, md, setup_conp(system, md, cfg, **S64), **C64)
 st2, th2 = big.run(big.init_state(x0=workloads.near_wall_positions(system)), 2)
+path = workloads.write_il_data(tempfile.mkdtemp() + "/il.data", n_pairs=40,
+                               sheets=1, nx=6, ny=4)
+system, md, cfg = workloads.il_onelayer(0, data_path=path)
+md = dataclasses.replace(md, cutoff=7.0, kspace_accuracy=1e-5)
+il = build_engine(system, md, setup_conp(system, md, cfg, **S64), **C64)
+st3, th3 = il.run(il.init_state(), 2)
 mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather)
 print(json.dumps(dict(
     jax=[m for m in sys.modules if m == "jax" or m.startswith("jax.")],
     ref=[m for m in sys.modules if m.split(".")[0] == "lammps_user_conp2_tpu"],
-    launches=[m.launches.count for m in mods],
+    launches=[m.launches.count for m in mods] + [
+        shake_kernel.shake_launches.count, shake_kernel.rattle_launches.count],
     step=st.step, energy=float(st.energy), temp=float(th["temp"][-1]),
-    step2=st2.step, energy2=float(st2.energy), list2=big.ncfg is not None)))
+    step2=st2.step, energy2=float(st2.energy), list2=big.ncfg is not None,
+    step3=st3.step, temp3=float(th3["tempsl"][-1]), shake3=il.cons is not None)))
 """
 
 
@@ -49,7 +63,8 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax"] == [] and out["ref"] == []
-    assert out["launches"] == [0, 0, 0, 0, 0]
+    assert out["launches"] == [0, 0, 0, 0, 0, 0, 0]
     assert out["step"] == 2 and out["step2"] == 2 and out["list2"]
+    assert out["step3"] == 2 and out["shake3"] and out["temp3"] > 0.0
     assert out["temp"] > 0.0 and abs(out["energy"]) < 1e12
     assert abs(out["energy2"]) < 1e12

@@ -5,20 +5,34 @@ z tiles, S3 the 562-atom cell whose box is four cutoffs wide (the JAX
 package's Verlet-list and tiled-PPPM engine tests), S4 a 712-atom cell
 whose exact Ewald sum has more than KXY_CHUNK xy vectors.  ``x_near`` puts ions within the cutoff of both walls, where the
 electrode rows and the Gaussian correction are nonzero.
+
+IL_SMALL is the ionic-liquid cell of ``workloads.write_il_data`` at the
+test size: 40 ion pairs between one 96-atom graphene sheet per wall, 352
+atoms, 40 SHAKE clusters; ``il_small`` reads it through a package's deck
+function with the cutoff and the k-space accuracy cut (IL_SMALL_MD) so that
+the 14.76 A box holds two cutoffs.
 """
 
+import dataclasses
+
 import numpy as np
+import torch
 
 S1 = dict(n_elyte=64, nele_side=4)
 S2 = dict(n_elyte=512, nele_side=8, lz=60.0, lxy=24.0)
 S3 = dict(n_elyte=512, nele_side=5, lz=36.0, lxy=20.0)
 S4 = dict(n_elyte=512, nele_side=10, lz=36.0, lxy=80.0)
 
+# the port's entry points run on the card by default: the CPU tests ask
+# for the CPU, in float64 (SOLVE64 for setup_conp, CPU64 for build_engine
+# and the interop functions)
+SOLVE64 = dict(solve_dtype=torch.float64, device="cpu")
+CPU64 = dict(dtype=torch.float64, device="cpu")
+
 
 def pppm_cell(wl, kspace_enum, cell=S3, **md_kw):
     """(system, md, cfg) of ``wl.synthetic(**cell)`` with PPPM in both the
     charge solve and the forces; ``md_kw`` replaces MDConfig fields."""
-    import dataclasses
     system, md, cfg = wl.synthetic(**cell)
     md = dataclasses.replace(md, kspace_style=kspace_enum.PPPM, **md_kw)
     cfg = dataclasses.replace(cfg, kspace=kspace_enum.PPPM)
@@ -50,3 +64,21 @@ def rel_err(a, b):
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+# the test-size fixture and its cuts, shared with shake_residual --cell small
+from lammps_user_conp2_tpu_torch.shake_residual import (  # noqa: E402
+    SMALL as IL_SMALL, SMALL_MD as IL_SMALL_MD)
+
+
+def il_small_file(directory):
+    """Write the test-size ionic-liquid data file into ``directory``."""
+    from lammps_user_conp2_tpu_torch.workloads import write_il_data
+    return write_il_data(f"{directory}/il_small.data", **IL_SMALL)
+
+
+def il_small(wl, path, deck="il_onelayer", n=0):
+    """(system, md, cfg) of ``wl.<deck>(n)`` on the file at ``path``, with
+    IL_SMALL_MD in the MDConfig."""
+    system, md, cfg = getattr(wl, deck)(n, data_path=str(path))
+    return system, dataclasses.replace(md, **IL_SMALL_MD), cfg
