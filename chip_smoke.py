@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths (``lammps_user_conp2_tpu_torch``:
+Drives the port's six main paths (``lammps_user_conp2_tpu_torch``:
 setup_conp -> build_engine -> init_state -> Engine.run) and exits non-zero
 if any phase fails.
 
@@ -61,6 +61,56 @@ mid-size path with SHAKE/RATTLE, K7 and K8):
      plain path): phase 5's bounds over the first 3, and at step 11, where
      the cations have bent, each slot's residual within twice the CPU's.
 
+Bonded block cell, ``workloads.il_onelayer(0)`` on the 8,772-atom file of
+``write_il_data(n_pairs=1329, sheets=1, nx=27, ny=16)`` (the decks'
+density over a 66.4 x 68.2 A face, Ne = 3,456; more than 8,192 atoms in a
+box four cutoffs wide, so ``pair_path="auto"`` takes the block Verlet list
+on the card): K1 with the cations' special-bond exclusions applied per
+pair, with SHAKE/RATTLE; the factored Ewald stays under KXY_CHUNK (409 xy
+vectors):
+
+ 14. write the data file, set-up: the block list (B = 8) and exclusions;
+ 15. K1 with exclusions, fused and unfused, against its plain version
+     (2e-5), timed: K1's line in the kernels list comes from here;
+ 16. the main path: 11 warm-up and 100 timed steps; K1, K7 and K8 launched
+     every step; finite energy, neutral electrodes;
+ 17. 3 steps on the card (float32) against 3 steps on the CPU (float64,
+     per-atom Verlet list) with phase 5's bounds.
+
+Unfused ionic-liquid cell, the phase-10 deck with
+``MDConfig(use_pallas_pair=False)``: the plain dense pair sweep and the
+CONP correction swept on its own (K6), as a user who asks for the unfused
+path gets it:
+
+ 18. set-up; K6 against its plain version at this cell's shapes (2e-5 on
+     the forces and ecorr): at x0, where the ions sit beyond the clamped
+     Gaussian and every term is 0, and with the ions' z mapped to 1 A off
+     the inner sheets, where ecorr is not; timed there;
+ 19. the main path: 11 warm-up and 100 timed steps; K5, K6, K7 and K8
+     launched every step, K4 never;
+ 20. 3 steps on the card against 3 on the CPU (float64) with phase 5's
+     bounds, from up to 8 anions next to each wall (5 A apart in x and y)
+     moved 2 A off its inner sheet (``workloads.near_sheet_positions``),
+     so that the engine's own
+     K6 call sees nonzero terms: the correction energy the engine computed
+     at step 0 is nonzero and within 1e-3 of the CPU's.
+
+Full-mesh production cell, ``synthetic(98304, 40, lz=240, lxy=120)`` with
+PPPM, INV and ``ConpConfig(mobile_electrodes=True)`` (101,504 atoms, 40 x
+40 sites per wall, Ne = 3,200): mobile (as rough or porous) electrodes are
+not read through z planes, so the electrodes are re-spread onto the full
+mesh every step through ``spread()``, which Ne (nx ny + nz) above 32 M
+sends down the tiled path (K2b and the overlap-add), and the b vector is
+read through the full inverse FFT and the tiled gather:
+
+ 21. set-up (the mesh, Ne (nx ny + nz), the electrode tile geometry); K2b
+     against its plain version at the electrode spread's shapes (2e-5),
+     timed;
+ 22. the main path: 10 warm-up and 100 timed steps from positions near the
+     walls; K1, K2a, K2b and K3 launched every step, >= 1 list rebuild;
+ 23. 2 steps on the card against 2 on the CPU (float64) with phase 9's
+     bounds.
+
 The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
 angle the three constraint directions of a straight cation are parallel,
 so SHAKE corrects along the axis only; the bend that the forces make stays,
@@ -109,13 +159,16 @@ F32_FLOP_PER_S = 67e12
 # Gaussian correction); an electrode-electrolyte pair inside the Coulomb
 # cutoff of a b row; an atom's order-5 spread (weights by Horner, 125
 # products) and gather (weights and derivatives, three 125-term sums); one
-# SHAKE and one RATTLE slot update
+# SHAKE and one RATTLE slot update; an (electrode, electrolyte) pair of the
+# separate correction sweep, counted once (K6 evaluates each pair twice, once
+# per side, but the function needs it once: the reaction is its negative)
 PAIR_FLOPS = 60
 B_ROW_FLOPS = 40
 SPREAD_FLOPS = 400
 GATHER_FLOPS = 1000
 SHAKE_SLOT_FLOPS = 45
 RATTLE_SLOT_FLOPS = 25
+CORR_PAIR_FLOPS = 45
 
 
 def gpu_line() -> str:
@@ -308,63 +361,30 @@ def main() -> int:
         (bargs, zsort), got, B_ROW_FLOPS * pairs_within(
             x[:conp.ne], x[conp.ne:], system.box, system.periodic,
             conp.cut_coulsq)))
-    for name, r in results.items():
-        print(f"phase 3: {name:17s} rel err {r['rel']:.3e} (tol {KERNEL_TOL}), "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.6f} ms ({r['bound_by']})  [{card}]")
+    report("phase 3", results, tuple(results), card)
 
     # ---- phase 4: the main path on the card
-    k4.launches.reset()
-    k5.launches.reset()
-    torch.cuda.synchronize()
-    st = eng.init_state(x0=x_near)
-    st, _ = eng.run(st, 10, thermo_every=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, th = eng.run(st, 100, thermo_every=20)
-    torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) / 100 * 1e3
-    launches = {"pair_forces_conp": k4.launches.count,
-                "b_realspace": k5.launches.count}
-    print(f"phase 4: launches {launches}")
-    for name, cnt in launches.items():
-        if cnt < 111:
-            raise AssertionError(f"phase 4: {name} launched {cnt} < 111 times")
-    if not math.isfinite(float(st.energy)):
-        raise AssertionError("phase 4: energy is not finite")
-    qsum = float(st.q[:conp.ne].double().sum())
-    if not abs(qsum) <= 1e-4:
-        raise AssertionError(f"phase 4: electrode charge sum {qsum:.3e}")
-    print(f"phase 4: T={float(th['temp'][-1]):.2f} K, pe={float(st.energy):.6g}, "
-          f"qleft={float(th['qleft'][-1]):.6g}, sum q_ele={qsum:.3e}")
-    print(f"phase 4: {ms_step:.4f} ms/step ({1e3 / ms_step:.1f} steps/s), "
-          f"{system.natoms} atoms, float32  [{card}]")
+    counters = {"pair_forces_conp": k4.launches, "b_realspace": k5.launches}
+    _, _, _, launches = main_run("phase 4", eng, dict(x0=x_near), 10, 100,
+                                 counters, conp.ne, card)
 
     # ---- phase 5: card (float32) against CPU (float64, plain path)
-    conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
-                        device="cpu")
-    eng64 = build_engine(system, md, conp64, dtype=torch.float64,
-                         device="cpu")
-    s32 = eng.init_state(x0=x_near)
-    s64 = eng64.init_state(x0=x_near)
-    ne = conp.ne
-    t0 = time.perf_counter()
-    for i in range(3):
-        s32 = eng.step(s32)
-        s64 = eng64.step(s64)
-        agree(f"phase 5: step {i + 1}", s32, s64, ne)
-    print(f"phase 5: 3 steps matched the float64 CPU run "
-          f"({time.perf_counter() - t0:.1f} s)")
+    card_vs_cpu("phase 5", eng, system, md, cfg, 3, x0=x_near)
 
     launches.update(production_path(card, dev, results))
     launches.update(il_path(card, dev, results))
+    launches.update(bonded_path(card, dev, results))
+    launches.update(unfused_path(card, dev, results))
+    launches.update(fullmesh_path(card, dev, results))
     pallas = "lammps_user_conp2_tpu/ops/pallas/"
     replaces = {
         "pair_forces_conp": pallas + "pair_kernel.py:316",
         "b_realspace": pallas + "ele_rows_kernel.py:326",
         "block_pair_conp": pallas + "block_pair.py:158",
         "spread_mesh": pallas + "pppm_spread.py:125",
+        "spread_tiles": pallas + "pppm_spread.py:170",
         "gather3": pallas + "pppm_gather.py:100",
+        "conp_correction": pallas + "ele_rows_kernel.py:280",
         "shake_positions": pallas + "shake_kernel.py:163",
         "rattle_velocities": pallas + "shake_kernel.py:207"}
     csrc = "lammps_user_conp2_tpu_torch/csrc/"
@@ -373,7 +393,9 @@ def main() -> int:
         "b_realspace": csrc + "ele_rows_kernel.cu",
         "block_pair_conp": csrc + "block_pair.cu",
         "spread_mesh": csrc + "pppm_spread.cu",
+        "spread_tiles": csrc + "pppm_spread.cu",
         "gather3": csrc + "pppm_gather.cu",
+        "conp_correction": csrc + "ele_rows_kernel.cu",
         "shake_positions": csrc + "shake_kernel.cu",
         "rattle_velocities": csrc + "shake_kernel.cu"}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -450,6 +472,9 @@ def production_path(card, dev, results):
                 if not abs(ecorr) > 1e-3:
                     raise AssertionError("phase 7: ecorr at margin 3 A is ~0")
             if not tag:
+                # K1's kernels line is measured with exclusions on the
+                # bonded block cell (phase 15); these are this cell's
+                name = name + "_100k"
                 results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
                                      plain_ms=median_ms(plain, reps=5))
                 nb = nbr.idx
@@ -489,62 +514,23 @@ def production_path(card, dev, results):
                                   plain_ms=median_ms(plain, reps=5))
         results["gather3"].update(bound(
             (up, slots.rows, cfd), got, GATHER_FLOPS * system.natoms))
-    for name in ("block_pair", "block_pair_conp", "spread_mesh", "gather3"):
-        r = results[name]
-        print(f"phase 7: {name:17s} rel err {r['rel']:.3e} (tol "
-              f"{KERNEL_TOL}), kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})  [{card}]")
+    report("phase 7", results, ("block_pair_100k", "block_pair_conp_100k",
+                                "spread_mesh", "gather3"), card)
 
     # ---- phase 8: the main path on the card
-    counters = {"block_pair_conp": k1.launches, "spread_mesh": k2.launches,
+    counters = {"block_pair_100k": k1.launches, "spread_mesh": k2.launches,
                 "gather3": k3.launches}
-    for c in counters.values():
-        c.reset()
-    torch.cuda.synchronize()
-    st = eng.init_state(x0=x_near)
-    st, _ = eng.run(st, 10, thermo_every=0)
-    torch.cuda.synchronize()
     r0 = eng.rebuilds
-    t0 = time.perf_counter()
-    st, th = eng.run(st, 100, thermo_every=20)
-    torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) / 100 * 1e3
+    _, _, _, launches = main_run("phase 8", eng, dict(x0=x_near), 10, 100,
+                                 counters, conp.ne, card)
     rebuilds = eng.rebuilds - r0
-    launches = {name: c.count for name, c in counters.items()}
-    print(f"phase 8: launches {launches}")
-    for name, cnt in launches.items():
-        if cnt < 111:
-            raise AssertionError(f"phase 8: {name} launched {cnt} < 111 times")
-    if not math.isfinite(float(st.energy)):
-        raise AssertionError("phase 8: energy is not finite")
-    qsum = float(st.q[:conp.ne].double().sum())
-    if not abs(qsum) <= 1e-4:
-        raise AssertionError(f"phase 8: electrode charge sum {qsum:.3e}")
+    print(f"phase 8: {rebuilds} list rebuilds in 110 steps")
     if rebuilds < 1:
-        raise AssertionError("phase 8: no list rebuild in the timed window")
-    print(f"phase 8: T={float(th['temp'][-1]):.2f} K, pe={float(st.energy):.6g}, "
-          f"qleft={float(th['qleft'][-1]):.6g}, sum q_ele={qsum:.3e}")
-    print(f"phase 8: {ms_step:.4f} ms/step ({1e3 / ms_step:.2f} steps/s), "
-          f"{rebuilds} list rebuilds in 100 steps, {system.natoms} atoms, "
-          f"float32  [{card}]")
+        raise AssertionError("phase 8: no list rebuild")
 
     # ---- phase 9: card (float32) against CPU (float64, plain path)
-    t0 = time.perf_counter()
-    conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
-                        device="cpu")
-    eng64 = build_engine(system, md, conp64, dtype=torch.float64,
-                         device="cpu")
-    s32 = eng.init_state(x0=x_near)
-    s64 = eng64.init_state(x0=x_near)
-    agree("phase 9: step 0", s32, s64, conp.ne)
-    for i in range(2):
-        s32 = eng.step(s32)
-        s64 = eng64.step(s64)
-        agree(f"phase 9: step {i + 1}", s32, s64, conp.ne)
-    print(f"phase 9: 2 steps matched the float64 CPU run "
-          f"({time.perf_counter() - t0:.1f} s)")
-    return launches
+    card_vs_cpu("phase 9", eng, system, md, cfg, 2, x0=x_near)
+    return {k: launches[k] for k in ("spread_mesh", "gather3")}
 
 
 def il_path(card, dev, results):
@@ -656,38 +642,15 @@ def il_path(card, dev, results):
     got = k5.b_realspace(*bargs, **bkw)
     torch.cuda.synchronize()
     compare("b_realspace", (got,), (k5.b_realspace_plain(*bargs, **bkw),))
-    for name in ("shake_positions", "rattle_velocities"):
-        r = results[name]
-        print(f"phase 11: {name:17s} rel err {r['rel']:.3e} (tol "
-              f"{SHAKE_TOL}), kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})  [{card}]")
+    report("phase 11", results, ("shake_positions", "rattle_velocities"),
+           card, SHAKE_TOL)
 
     # ---- phase 12: the main path on the card
     counters = {"pair_forces_conp": k4.launches, "b_realspace": k5.launches,
                 "shake_positions": k78.shake_launches,
                 "rattle_velocities": k78.rattle_launches}
-    for c in counters.values():
-        c.reset()
-    torch.cuda.synchronize()
-    st = eng.init_state()
-    st, _ = eng.run(st, 11, thermo_every=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, th = eng.run(st, 100, thermo_every=20)
-    torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) / 100 * 1e3
-    launches = {name: c.count for name, c in counters.items()}
-    print(f"phase 12: launches in 111 steps {launches}")
-    for name, cnt in launches.items():
-        if cnt < 111:
-            raise AssertionError(f"phase 12: {name} launched {cnt} < 111 "
-                                 "times")
-    if not math.isfinite(float(st.energy)):
-        raise AssertionError("phase 12: energy is not finite")
-    qsum = float(st.q[:conp.ne].double().sum())
-    if not abs(qsum) <= 1e-4:
-        raise AssertionError(f"phase 12: electrode charge sum {qsum:.3e}")
+    st, _, _, launches = main_run("phase 12", eng, {}, 11, 100, counters,
+                                  conp.ne, card)
     res = constraint_residuals(cons, st.x, **kw)
     print(f"phase 12: constraint residual per slot (bond 1, bond 2, 1-3) "
           f"{['%.3e' % r for r in res]}")
@@ -695,11 +658,6 @@ def il_path(card, dev, results):
         raise AssertionError("phase 12: constraints outside their bounds "
                              f"(1-3 <= {md.shake.tol}, bonds <= "
                              f"{2.0 * IL_F64_BONDS:.3e})")
-    print(f"phase 12: T={float(th['temp'][-1]):.2f} K, tempsl="
-          f"{float(th['tempsl'][-1]):.2f} K, pe={float(st.energy):.6g}, "
-          f"qleft={float(th['qleft'][-1]):.6g}, sum q_ele={qsum:.3e}")
-    print(f"phase 12: {ms_step:.4f} ms/step ({1e3 / ms_step:.1f} steps/s), "
-          f"{system.natoms} atoms, float32  [{card}]")
 
     # ---- phase 13: card (float32) against CPU (float64, plain path)
     t0 = time.perf_counter()
@@ -725,6 +683,323 @@ def il_path(card, dev, results):
     print(f"phase 13: 11 steps matched the float64 CPU run "
           f"({time.perf_counter() - t0:.1f} s)")
     return {k: launches[k] for k in ("shake_positions", "rattle_velocities")}
+
+
+def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):
+    """``warm`` then ``timed`` steps of ``eng.run`` from ``eng.init_state(
+    **st)``, with the launch counters set to 0 just before: each kernel in
+    ``counters`` must have launched every step (>= 111 times: 111 steps, or
+    110 and the one in init_state), each named in ``never`` not at all;
+    finite energy, neutral electrodes.  Returns (state, thermo, ms/step,
+    launches of the first kind)."""
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    st = eng.init_state(**st)
+    st, _ = eng.run(st, warm, thermo_every=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, th = eng.run(st, timed, thermo_every=20)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / timed * 1e3
+    launches = {name: c.count for name, c in counters.items()}
+    print(f"{tag}: launches in {warm + timed} steps {launches}")
+    for name, cnt in launches.items():
+        if (cnt != 0) if name in never else (cnt < 111):
+            raise AssertionError(f"{tag}: {name} launched {cnt} times")
+    for name in never:
+        launches.pop(name)
+    if not math.isfinite(float(st.energy)):
+        raise AssertionError(f"{tag}: energy is not finite")
+    qsum = float(st.q[:ne].double().sum())
+    if not abs(qsum) <= 1e-4:
+        raise AssertionError(f"{tag}: electrode charge sum {qsum:.3e}")
+    print(f"{tag}: T={float(th['temp'][-1]):.2f} K, pe={float(st.energy):.6g}, "
+          f"qleft={float(th['qleft'][-1]):.6g}, sum q_ele={qsum:.3e}")
+    print(f"{tag}: {ms_step:.4f} ms/step ({1e3 / ms_step:.2f} steps/s), "
+          f"{eng.system.natoms} atoms, float32  [{card}]")
+    return st, th, ms_step, launches
+
+
+def card_vs_cpu(tag, eng, system, md, cfg, nsteps, x0=None):
+    """``nsteps`` steps on the card (float32) against the CPU (float64)
+    from the same positions, each held to phase 5's bounds."""
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    t0 = time.perf_counter()
+    conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
+                        device="cpu")
+    eng64 = build_engine(system, md, conp64, dtype=torch.float64,
+                         device="cpu")
+    s32 = eng.init_state(x0=x0)
+    s64 = eng64.init_state(x0=x0)
+    agree(f"{tag}: step 0", s32, s64, conp64.ne)
+    for i in range(nsteps):
+        s32 = eng.step(s32)
+        s64 = eng64.step(s64)
+        agree(f"{tag}: step {i + 1}", s32, s64, conp64.ne)
+    print(f"{tag}: {nsteps} steps matched the float64 CPU run "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def report(tag, results, names, card, tol=KERNEL_TOL):
+    """One line per kernel: error against its plain version, both times and
+    the bound, beside the card's name and power limit."""
+    for name in names:
+        r = results[name]
+        print(f"{tag}: {name:20s} rel err {r['rel']:.3e} (tol {tol}), kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})  [{card}]")
+
+
+def bonded_path(card, dev, results):
+    """Phases 14-17 on the 8,772-atom bonded block cell; fills ``results``
+    for K1 (with exclusions) and returns its launch count from the main
+    path, where K7 and K8 must launch every step too."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+
+    # ---- phase 14: set-up
+    t0 = time.perf_counter()
+    path = workloads.write_il_data(os.path.join(OUT_DIR, "il_8772.data"),
+                                   n_pairs=1329, sheets=1, nx=27, ny=16)
+    system, md, cfg = workloads.il_onelayer(0, data_path=path)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    ncfg = eng.ncfg
+    print(f"phase 14: {system.natoms} atoms, Ne={conp.ne}, box {system.box}, "
+          f"g_ewald={conp.ksp.g_ewald:.6f}, K-vectors={conp.ksp.kcount}, "
+          f"nxy={conp.fksp.nxy}, K={ncfg.k_max}, U={ncfg.u_max}, "
+          f"exclusions {tuple(eng.excl_idx.shape)}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (ncfg.block == 8 and eng.exclusions is not None
+            and eng.cons is not None):
+        raise AssertionError("phase 14: not the block list with exclusions "
+                             "and SHAKE")
+
+    # ---- phase 15: K1 with exclusions against its plain version
+    rng = np.random.default_rng(14)
+    q_np = system.q0.copy()
+    q_np[system.ele_mask] = 0.05 * rng.standard_normal(conp.ne)
+    q = torch.as_tensor(q_np, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(system.x0, dtype=torch.float32, device=dev)
+    nbr, _ = eng.derived_state(x)
+    if bool(nbr.overflow):
+        raise AssertionError("phase 15: list capacity overflow")
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    bkw = dict(box=ncfg.grid.box, periodic=ncfg.grid.periodic,
+               cutoff=md.cutoff, g_ewald=conp.ksp.g_ewald,
+               qqr2e=system.units().qqr2e, exclusions=eng.exclusions)
+    args = (x, q, eng.type_idx, nbr.bun, nbr.brows, eng.tables)
+    for name, cf in (("block_pair", None), ("block_pair_conp", fuse)):
+        kern = lambda: k1.block_pair(*args, conp_fuse=cf, **bkw)
+        plain = lambda: k1.block_pair_plain(*args, conp_fuse=cf, **bkw)
+        got = kern()
+        torch.cuda.synchronize()
+        rel, dabs = compare(name + " with exclusions", got, plain())
+        results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                             plain_ms=median_ms(plain, reps=5))
+        nb = nbr.idx
+        d = x[nb.clamp(max=x.shape[0] - 1)] - x[:, None, :]
+        for ax in range(3):
+            if system.periodic[ax]:
+                L = system.box[ax]
+                d[..., ax] -= L * torch.round(d[..., ax] / L)
+        npairs = int((((d * d).sum(-1) < md.cutoff ** 2)
+                      & (nb < x.shape[0])).sum())
+        results[name].update(bound((args, cf, eng.exclusions), got,
+                                   PAIR_FLOPS * npairs))
+    report("phase 15", results, ("block_pair", "block_pair_conp"), card)
+
+    # ---- phase 16: the main path
+    counters = {"block_pair_conp": k1.launches,
+                "shake_positions": k78.shake_launches,
+                "rattle_velocities": k78.rattle_launches}
+    _, _, _, launches = main_run("phase 16", eng, {}, 11, 100, counters,
+                                 conp.ne, card)
+
+    # ---- phase 17: card (float32) against CPU (float64)
+    card_vs_cpu("phase 17", eng, system, md, cfg, 3)
+    return {"block_pair_conp": launches["block_pair_conp"]}
+
+
+def unfused_path(card, dev, results):
+    """Phases 18-20 on the 3,776-atom ionic-liquid cell with
+    use_pallas_pair=False; fills ``results`` for K6 and returns its launch
+    count (K5, K7 and K8 launch every step too, K4 never)."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models import md as md_mod
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+    from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
+
+    # ---- phase 18: set-up and K6 against its plain version
+    t0 = time.perf_counter()
+    path = workloads.write_il_data(os.path.join(OUT_DIR, "il_3776.data"))
+    system, md, cfg = workloads.il_onelayer(0, data_path=path)
+    md = dataclasses.replace(md, use_pallas_pair=False)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 18: {system.natoms} atoms, Ne={conp.ne}, use_pallas_pair="
+          f"{md.use_pallas_pair}, {time.perf_counter() - t0:.2f} s")
+    if eng.ncfg is not None:
+        raise AssertionError("phase 18: not the dense path")
+    rng = np.random.default_rng(18)
+    q_np = system.q0.copy()
+    q_np[system.ele_mask] = 0.05 * rng.standard_normal(conp.ne)
+    q = torch.as_tensor(q_np, dtype=torch.float32, device=dev)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              qqr2e=system.units().qqr2e)
+    ele = system.ele_mask
+    z = np.asarray(system.x0)[:, 2]
+    zl = z[ele & (z < 0.5 * system.box[2])].max()
+    zr = z[ele & (z > 0.5 * system.box[2])].min()
+    x_close = np.array(system.x0)
+    zi = z[~ele]
+    x_close[~ele, 2] = (zl + 1.0 + (zi - zi.min()) / (zi.max() - zi.min())
+                        * (zr - zl - 2.0))
+    # at x0 the ions sit >= 4 A from the inner sheets, beyond the clamped
+    # Gaussian (eta r < 5.8, r < 2.93 A): every term is 0 there.  The
+    # kernel's line is measured 1 A off the sheets, where it is not.
+    for tag, xx in (("at x0", system.x0), ("1 A off the sheets", x_close)):
+        x = torch.as_tensor(xx, dtype=torch.float32, device=dev)
+        zsort = z_perm(x, system.box, system.periodic)
+        args = (x, q, eng.type_idx, conp.ele_idx_t, eng.ele_flag,
+                eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+        kern = lambda: k56.conp_correction(*args, zsort=zsort, **kw)
+        plain = lambda: k56.conp_correction_plain(*args, **kw)
+        got = kern()
+        torch.cuda.synchronize()
+        rel, dabs = compare("conp_correction " + tag, got, plain())
+        print(f"    conp_correction {tag}: ecorr {float(got[1]):.4f}")
+    if not abs(float(got[1])) > 1e-3:
+        raise AssertionError("phase 18: ecorr off the sheets is ~0")
+    results["conp_correction"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                                      plain_ms=median_ms(plain, reps=5))
+    results["conp_correction"].update(bound(
+        (args, zsort), got, CORR_PAIR_FLOPS * pairs_within(
+            x[:conp.ne], x[conp.ne:], system.box, system.periodic,
+            md.cutoff ** 2)))
+    report("phase 18", results, ("conp_correction",), card)
+
+    # ---- phase 19: the main path
+    counters = {"pair_forces": k4.launches, "b_realspace": k56.launches,
+                "conp_correction": k56.corr_launches,
+                "shake_positions": k78.shake_launches,
+                "rattle_velocities": k78.rattle_launches}
+    _, _, _, launches = main_run("phase 19", eng, {}, 11, 100, counters,
+                                 conp.ne, card, never=("pair_forces",))
+
+    # ---- phase 20: card (float32) against CPU (float64), from anions 2 A
+    # off the inner sheets: the engine's own K6 call sees nonzero terms
+    # there (at x0 every term is 0), with the solver's z order and flags
+    seen = {torch.float32: [], torch.float64: []}
+    real = md_mod.conp_correction
+
+    def spy(xx, *a, **k):
+        out = real(xx, *a, **k)
+        seen[xx.dtype].append(float(out[1]))
+        return out
+
+    md_mod.conp_correction = spy
+    try:
+        card_vs_cpu("phase 20", eng, system, md, cfg, 3,
+                    x0=workloads.near_sheet_positions(system, gap=2.0))
+    finally:
+        md_mod.conp_correction = real
+    e32, e64 = seen[torch.float32], seen[torch.float64]
+    print(f"phase 20: engine ecorr per step, card {['%.4e' % e for e in e32]}"
+          f", CPU float64 {['%.4e' % e for e in e64]}")
+    if not (len(e32) == len(e64) == 4 and abs(e64[0]) > 0.0
+            and abs(e32[0] - e64[0]) <= 1e-3 * abs(e64[0])):
+        raise AssertionError("phase 20: the engine's correction energy at "
+                             "step 0 is 0 or off the CPU's by more than 1e-3")
+    return {"conp_correction": launches["conp_correction"]}
+
+
+def fullmesh_path(card, dev, results):
+    """Phases 21-23 on the 101,504-atom cell with mobile electrodes; fills
+    ``results`` for K2b and returns its launch count (K1, K2a and K3 launch
+    every step too)."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops import pppm
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+
+    # ---- phase 21: set-up and K2b against its plain version
+    t0 = time.perf_counter()
+    system, md, cfg = workloads.synthetic(98304, 40, lz=240.0, lxy=120.0)
+    md = dataclasses.replace(md, kspace_style=KSpaceStyle.PPPM)
+    cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM,
+                              mobile_electrodes=True)
+    x_near = workloads.near_wall_positions(system)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    grid = eng.pppm_grid
+    ne = conp.ne
+    geom = pppm._tile_geometry(grid, ne)
+    work = ne * (grid.nx * grid.ny + grid.nz)
+    print(f"phase 21: {system.natoms} atoms, Ne={ne}, mesh {grid.shape}, "
+          f"Ne (nx ny + nz) = {work}, electrode tiles T={geom.t_tiles}, "
+          f"cap={geom.cap}, block={eng.ncfg.block}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (conp.ele_zplanes is None and not pppm._use_dense(grid, ne)
+            and eng.ncfg.block == 8):
+        raise AssertionError("phase 21: the electrodes are not on the tiled "
+                             "full-mesh path")
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(x_near[:ne], dtype=torch.float32, device=dev)
+    q = torch.as_tensor(0.05 * rng.standard_normal(ne), dtype=torch.float32,
+                        device=dev)
+    slots = pppm.tile_slots(grid, x, q)
+    if bool(slots.overflow):
+        raise AssertionError("phase 21: electrode tile overflow")
+    cfd = pppm._coeffs(grid, torch.float32, dev)
+    kern = lambda: k2.spread_tiles(slots.rows, cfd, geom)
+    plain = lambda: k2.tile_patches_plain(slots.rows, cfd, geom)
+    got = kern()
+    torch.cuda.synchronize()
+    rel, dabs = compare("spread_tiles", (got,), (plain(),))
+    results["spread_tiles"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                                   plain_ms=median_ms(plain, reps=5))
+    # K2b reads every slot's charge and the other rows of the charged slots
+    # only: almost every slot of the grid's all-atom tile_cap is empty here
+    charged = slots.rows[:, 6] != 0
+    staged = slots.rows[:, :6].transpose(1, 2)[charged]      # (n, 6)
+    results["spread_tiles"].update(bound(
+        (slots.rows[:, 6], staged, cfd), got,
+        SPREAD_FLOPS * staged.shape[0]))
+    report("phase 21", results, ("spread_tiles",), card)
+
+    # ---- phase 22: the main path
+    counters = {"block_pair": k1.launches, "spread_mesh": k2.launches,
+                "spread_tiles": k2.tiles_launches, "gather3": k3.launches}
+    r0 = eng.rebuilds
+    _, _, _, launches = main_run("phase 22", eng, dict(x0=x_near), 10, 100,
+                                 counters, ne, card)
+    rebuilds = eng.rebuilds - r0
+    print(f"phase 22: {rebuilds} list rebuilds in 110 steps")
+    if rebuilds < 1:
+        raise AssertionError("phase 22: no list rebuild")
+
+    # ---- phase 23: card (float32) against CPU (float64)
+    card_vs_cpu("phase 23", eng, system, md, cfg, 2, x0=x_near)
+    return {"spread_tiles": launches["spread_tiles"]}
 
 
 if __name__ == "__main__":

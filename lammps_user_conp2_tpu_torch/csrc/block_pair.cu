@@ -25,6 +25,14 @@
 // pair (a CTA-uniform gate: cell-sorted electrodes sit in few blocks).
 // Energies are summed per CTA in a fixed order and then over CTAs by a
 // one-block second kernel: raw sums over ordered pairs (the caller halves).
+//
+// Special-bond exclusions (bonded systems) are applied per pair, as in the
+// pair kernel (pair_kernel.cu) and the plain version: each warp keeps its
+// block atom's (at most BP_MAX_EXCL) listed partners and factors in
+// registers and checks every union member against them; a listed pair gets
+// s * LJ and the Coulomb term minus (1 - s) * qq/r.  Sweeping the excluded
+// pairs at s = 1 and subtracting them afterwards (the TPU kernel's way)
+// cancels catastrophically in float32 at bonded distances.
 #include <cstdint>
 
 #include "common.cuh"
@@ -35,6 +43,7 @@ constexpr int BP_B = 8;           // block atoms (one warp each)
 constexpr int BP_TB = 32 * BP_B;  // threads per CTA
 constexpr int BP_MAX_NT1 = 16;    // type tables up to 16 x 16
 constexpr int BP_REDUCE_TB = 256;
+constexpr int BP_MAX_EXCL = 16;   // listed special partners per atom
 
 struct BlockArgs {
   const float* x;          // (n, 3)
@@ -46,6 +55,9 @@ struct BlockArgs {
   const int64_t* rows;     // (nb, B) block atom ids, pad n
   const float* lj;         // (4, nt1, nt1)
   const float* gtab;       // (2, nt1, nt1) eta, fo (fused correction only)
+  const int64_t* exi;      // (n, m) special partners, padded with n
+  const float* exv;        // (n, m) their factors s
+  int m;                   // 0: no exclusions
   int n, nb, usz, nt1;
   float bx, by, bz;
   int px, py, pz;
@@ -54,12 +66,7 @@ struct BlockArgs {
   float* partials;         // (nb, 3) per-CTA energy sums
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <bool FUSE>
+template <bool FUSE, bool EXCL>
 __global__ void __launch_bounds__(BP_TB) block_pair_kernel(BlockArgs a) {
   __shared__ float s_tab[6 * BP_MAX_NT1 * BP_MAX_NT1];
   __shared__ float s_red[BP_B][3];
@@ -118,6 +125,16 @@ __global__ void __launch_bounds__(BP_TB) block_pair_kernel(BlockArgs a) {
     ti = static_cast<int>(a.type[ai]);
     if (FUSE) fli = a.ele_f[ai] - a.ely_f[ai];
   }
+  int exj[BP_MAX_EXCL];
+  float exs[BP_MAX_EXCL];
+  if (EXCL) {
+#pragma unroll
+    for (int k = 0; k < BP_MAX_EXCL; ++k) {
+      const bool on = row_ok && k < a.m;
+      exj[k] = on ? static_cast<int>(a.exi[ai * a.m + k]) : -1;
+      exs[k] = on ? a.exv[ai * a.m + k] : 1.0f;
+    }
+  }
   bool corr = false;
   if (FUSE) {
     // CTA-uniform gate: some (electrode, electrolyte) pair is possible
@@ -148,15 +165,32 @@ __global__ void __launch_bounds__(BP_TB) block_pair_kernel(BlockArgs a) {
       const float r6inv = r2inv * r2inv * r2inv;
       const float l1 = trow[tj], l2 = trow[tsz + tj];
       const float l3 = trow[2 * tsz + tj], l4 = trow[3 * tsz + tj];
-      const float flj = r6inv * (l1 * r6inv - l2) * r2inv;
-      ev += r6inv * (l3 * r6inv - l4);
       const float grij = a.g * rsq * rinv;             // g * r
       const float expm2 = expf(-grij * grij);
       const float erfc = as_poly(grij) * expm2;
       const float qq = qi * uq[k];
       const float pref = a.qqr2e * rinv * qq;
-      ec += pref * erfc;
-      float fpair = flj + pref * (erfc + EWALD_F * grij * expm2) * r2inv;
+      float fpair;
+      if (EXCL) {
+        float sij = 1.0f;
+#pragma unroll
+        for (int e = 0; e < BP_MAX_EXCL; ++e) {
+          if (exj[e] == j) sij = exs[e];
+        }
+        float flj = 0.0f;
+        if (sij > 0.0f) {
+          flj = sij * r6inv * (l1 * r6inv - l2) * r2inv;
+          ev += sij * r6inv * (l3 * r6inv - l4);
+        }
+        const float dcoul = (1.0f - sij) * pref;
+        ec += pref * erfc - dcoul;
+        fpair = flj + (pref * (erfc + EWALD_F * grij * expm2) - dcoul) * r2inv;
+      } else {
+        const float flj = r6inv * (l1 * r6inv - l2) * r2inv;
+        ev += r6inv * (l3 * r6inv - l4);
+        ec += pref * erfc;
+        fpair = flj + pref * (erfc + EWALD_F * grij * expm2) * r2inv;
+      }
       if (FUSE && corr && fli * uf[k] < 0.f) {
         // CONP Gaussian correction (fix_conp.cpp:1368-1444)
         const float et = trow[4 * tsz + tj];
@@ -225,45 +259,54 @@ block_pair_reduce(const float* partials, int nb, float* sums) {
   if (tid < 3) sums[tid] = s[tid][0];
 }
 
+template <bool FUSE, bool EXCL>
+cudaError_t launch_block_pair(const BlockArgs& a, size_t smem,
+                              cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      block_pair_kernel<FUSE, EXCL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  block_pair_kernel<FUSE, EXCL><<<a.nb, BP_TB, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace conp2
 
 extern "C" {
 
 // f_out (nb*B, 3) in slot order and sums (3) = raw (elj, ecoul, ecorr) over
 // ordered pairs, float32.  ele_f == NULL selects the sweep without the CONP
-// correction (ecorr is then 0).  Returns cudaGetLastError().
+// correction (ecorr is then 0); m == 0 the sweep without special-bond
+// exclusions (exi, exv ignored).  Returns cudaGetLastError().
 int conp2_block_pair_f32(const float* x, const float* q, const int64_t* type,
                          const float* ele_f, const float* ely_f,
                          const int64_t* un, const int64_t* rows,
-                         const float* lj, const float* gtab, int n, int nb,
-                         int bsz, int usz, int nt1, float bx, float by,
-                         float bz, int px, int py, int pz, float cutsq,
-                         float g_ewald, float qqr2e, float* f_out,
+                         const float* lj, const float* gtab,
+                         const int64_t* exi, const float* exv, int m, int n,
+                         int nb, int bsz, int usz, int nt1, float bx,
+                         float by, float bz, int px, int py, int pz,
+                         float cutsq, float g_ewald, float qqr2e, float* f_out,
                          float* partials, float* sums, void* stream) {
   if (n <= 0 || nb <= 0 || usz <= 0 || bsz != conp2::BP_B || nt1 <= 0 ||
-      nt1 > conp2::BP_MAX_NT1) {
+      nt1 > conp2::BP_MAX_NT1 || m < 0 || m > conp2::BP_MAX_EXCL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  conp2::BlockArgs a{x, q, type, ele_f, ely_f, un, rows, lj, gtab, n, nb, usz,
-                     nt1, bx, by, bz, px, py, pz, cutsq, g_ewald, qqr2e,
-                     f_out, partials};
+  conp2::BlockArgs a{x, q, type, ele_f, ely_f, un, rows, lj, gtab, exi, exv,
+                     m, n, nb, usz, nt1, bx, by, bz, px, py, pz, cutsq,
+                     g_ewald, qqr2e, f_out, partials};
   const size_t smem = static_cast<size_t>(usz) * 7 * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fuse = ele_f != nullptr;
   cudaError_t err;
-  if (ele_f != nullptr) {
-    err = cudaFuncSetAttribute(conp2::block_pair_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conp2::block_pair_kernel<true><<<nb, conp2::BP_TB, smem, s>>>(a);
+  if (fuse && m > 0) {
+    err = conp2::launch_block_pair<true, true>(a, smem, s);
+  } else if (fuse) {
+    err = conp2::launch_block_pair<true, false>(a, smem, s);
+  } else if (m > 0) {
+    err = conp2::launch_block_pair<false, true>(a, smem, s);
   } else {
-    err = cudaFuncSetAttribute(conp2::block_pair_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conp2::block_pair_kernel<false><<<nb, conp2::BP_TB, smem, s>>>(a);
+    err = conp2::launch_block_pair<false, false>(a, smem, s);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   conp2::block_pair_reduce<<<1, conp2::BP_REDUCE_TB, 0, s>>>(partials, nb,
                                                              sums);

@@ -1,4 +1,7 @@
-// Electrode b-vector real-space rows:
+// The electrode-row sweeps: the b-vector real-space rows (K5) and the CONP
+// Gaussian correction swept on its own (K6).
+//
+// K5, electrode b-vector real-space rows:
 //   b_i = -sum_{electrolyte j, r^2 < cut_coulsq} q_j (erfc(g r)/r + pot(r^2))
 //   pot(r^2) = fo * exp(-e2/2) - erfc(sqrt(e2))/sqrt(e2) * eta,  e2 = eta^2 r^2
 // (fix_conp.cpp:1281-1365 blist_coul_cal; the ETA mode is fo = 0).
@@ -19,6 +22,34 @@
 // window only (the electrode columns are skipped by flag, never by
 // distance) and writes b_i once.  Neighbouring electrode rows sit on the
 // same lattice plane, so the threads of a warp walk the same windows.
+//
+// K6, the Gaussian correction over (electrode i, electrolyte j) pairs with
+// r < cutoff (fix_conp.cpp:1368-1444 blist_coul_cal_post_force):
+//   e_ij = qqr2e q_i q_j (fo exp(-e2/2) - erfcr(e2) eta)
+//   F_ij = qqr2e q_i q_j (e2 fo exp(-e2/2) - ferfcr(e2) eta) / r^2 * d_ij
+// with eta, fo from the (T+1)^2 type tables at (type_i, type_j).
+//
+// Replaces the TPU kernel in lammps_user_conp2_tpu/ops/pallas/ele_rows_kernel.py,
+// conp_correction_pallas (body _corr_kernel), which the JAX engine runs when
+// the pair sweep does not fuse the correction.
+//
+// What bounds it on this card: the per-pair chain (exp, rsqrt, the A&S
+// polynomial with its division, one more division), evaluated twice per
+// pair; the inputs sit in L2.
+//
+// Design: deterministic, no atomics.  Two passes over the same z-sorted
+// columns (zorder.z_perm), each row binary-searching its z windows as K5
+// does.  One warp owns one row: its lanes stride over the row's windows
+// and a fixed-order warp shuffle sums their partial forces (a thread per
+// row would give the il decks' 2,496 electrode rows ~40 blocks of 64 on 132
+// SMs, each thread walking ~10^3 columns).  Pass 1: a warp per electrode row sums the row's force over
+// the electrolyte columns, writes it once and adds the row's energy to a
+// per-block sum (fixed-order tree) reduced by a one-block second kernel.
+// Pass 2: a warp per atom in z order; an electrolyte atom sums the
+// reactions of the electrode columns in its windows and writes its row
+// once.  Both passes form each pair term from the electrode's side, op for
+// op (d = x_ele - x_ely with the plain version's minimum image and |d|^2,
+// common.cuh rsq_rn), so both sides of a pair are the same numbers.
 #include <cmath>
 #include <cstdint>
 
@@ -113,9 +144,203 @@ __global__ void __launch_bounds__(B_TB) b_rows_kernel(BArgs a) {
   a.b_out[r] = acc;
 }
 
+constexpr int C_WARPS = 8;        // rows (one warp each) per block of K6
+constexpr int C_TB = 32 * C_WARPS;
+constexpr int C_REDUCE_TB = 256;
+
+struct CorrArgs {
+  const float* x;          // (n, 3) original order
+  const float* q;          // (n,)
+  const int64_t* type;     // (n,)
+  const int64_t* ele_idx;  // (ne,) electrode row -> atom index
+  const float* ele_f;      // (n,) 1 = electrode
+  const float* ely_f;      // (n,) 1 = electrolyte
+  const float* gtab;       // (2, nt1, nt1) eta, fo
+  const int64_t* perm;     // (n,) sorted position -> atom index
+  const float* zs;         // (n,) sorted wrapped z keys
+  int n, ne, nt1;
+  float bx, by, bz, ibz;
+  int px, py, pz;
+  float cutsq, zcut, qqr2e;
+  float* f_out;            // (n, 3) original order
+  float* partials;         // (ceil(ne / C_WARPS),) per-block energy sums
+};
+
+// the z windows of a row at z (wrapped): [lo, hi) sorted ranges, up to 3
+__device__ __forceinline__ int z_windows(const CorrArgs& a, float z, int* lo,
+                                         int* hi) {
+  const float zw = a.pz ? z - a.bz * floorf(z * a.ibz) : z;
+  float wl[3], wh[3];
+  int nwin = 1;
+  wl[0] = zw - a.zcut;
+  wh[0] = zw + a.zcut;
+  if (a.pz) {
+    if (2.0f * a.zcut >= a.bz) {
+      wl[0] = -INFINITY;
+      wh[0] = INFINITY;
+    } else {
+      nwin = 3;
+      wl[1] = wl[0] + a.bz;
+      wh[1] = wh[0] + a.bz;
+      wl[2] = wl[0] - a.bz;
+      wh[2] = wh[0] - a.bz;
+    }
+  }
+  for (int w = 0; w < nwin; ++w) {
+    lo[w] = search(a.zs, a.n, wl[w], false);
+    hi[w] = search(a.zs, a.n, wh[w], true);
+  }
+  return nwin;
+}
+
+// one (electrode e, electrolyte l) pair from the electrode's side: adds
+// F_el to f (the force on e; -F_el acts on l) and e_el to en when r is
+// within the cutoff
+__device__ __forceinline__ void corr_pair(const CorrArgs& a, int64_t ae,
+                                          int64_t al, float* f, float* en) {
+  const float dx = min_image_rn(__fsub_rn(a.x[3 * ae], a.x[3 * al]), a.bx,
+                                a.px);
+  const float dy = min_image_rn(__fsub_rn(a.x[3 * ae + 1], a.x[3 * al + 1]),
+                                a.by, a.py);
+  const float dz = min_image_rn(__fsub_rn(a.x[3 * ae + 2], a.x[3 * al + 2]),
+                                a.bz, a.pz);
+  const float rsq = rsq_rn(dx, dy, dz);
+  if (!(rsq < a.cutsq)) return;
+  const int t = static_cast<int>(a.type[ae]) * a.nt1 +
+                static_cast<int>(a.type[al]);
+  const float et = a.gtab[t];
+  const float fo = a.gtab[a.nt1 * a.nt1 + t];
+  const float e2 = et * et * rsq;
+  const float ghalf = expf(-0.5f * e2);
+  const float em2 = ghalf * ghalf;                   // exp(-e2)
+  const float erfcr = erfcr_clamped(e2, em2);
+  const float gexp = fo * ghalf;
+  const float ferfcr = e2 < ERFC_MAX_SQ ? erfcr + EWALD_F * em2 : 0.f;
+  const float pref = a.qqr2e * a.q[ae] * a.q[al];
+  *en += pref * (gexp - erfcr * et);
+  const float fpair = pref * (e2 * gexp - ferfcr * et) / rsq;
+  f[0] += fpair * dx;
+  f[1] += fpair * dy;
+  f[2] += fpair * dz;
+}
+
+// pass 1: electrode rows against the electrolyte columns of their windows
+__global__ void __launch_bounds__(C_TB) corr_ele_kernel(CorrArgs a) {
+  __shared__ float sred[C_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int r = blockIdx.x * C_WARPS + w;
+  float f[3] = {0.f, 0.f, 0.f};
+  float en = 0.f;
+  int64_t ae = 0;
+  if (r < a.ne) {
+    ae = a.ele_idx[r];
+    int lo[3], hi[3];
+    const int nwin = z_windows(a, a.x[3 * ae + 2], lo, hi);
+    for (int win = 0; win < nwin; ++win) {
+      for (int k = lo[win] + lane; k < hi[win]; k += 32) {
+        const int64_t al = a.perm[k];
+        if (a.ely_f[al] > 0.f) corr_pair(a, ae, al, f, &en);
+      }
+    }
+  }
+  f[0] = warp_sum(f[0]);
+  f[1] = warp_sum(f[1]);
+  f[2] = warp_sum(f[2]);
+  en = warp_sum(en);
+  if (lane == 0) {
+    if (r < a.ne) {
+      a.f_out[3 * ae] = f[0];
+      a.f_out[3 * ae + 1] = f[1];
+      a.f_out[3 * ae + 2] = f[2];
+    }
+    sred[w] = en;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float acc = 0.f;
+    for (int k = 0; k < C_WARPS; ++k) acc += sred[k];
+    a.partials[blockIdx.x] = acc;
+  }
+}
+
+// pass 2: electrolyte atoms (in z order) against the electrode columns of
+// their windows, the reactions of pass 1's pair terms
+__global__ void __launch_bounds__(C_TB) corr_ely_kernel(CorrArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * C_WARPS + (threadIdx.x >> 5);
+  if (k0 >= a.n) return;                 // warp-uniform
+  const int64_t al = a.perm[k0];
+  if (!(a.ely_f[al] > 0.f)) return;      // warp-uniform
+  float f[3] = {0.f, 0.f, 0.f};
+  float en = 0.f;
+  int lo[3], hi[3];
+  const int nwin = z_windows(a, a.x[3 * al + 2], lo, hi);
+  for (int win = 0; win < nwin; ++win) {
+    for (int k = lo[win] + lane; k < hi[win]; k += 32) {
+      const int64_t ae = a.perm[k];
+      if (a.ele_f[ae] > 0.f) corr_pair(a, ae, al, f, &en);
+    }
+  }
+  f[0] = warp_sum(f[0]);
+  f[1] = warp_sum(f[1]);
+  f[2] = warp_sum(f[2]);
+  if (lane == 0) {
+    a.f_out[3 * al] = -f[0];
+    a.f_out[3 * al + 1] = -f[1];
+    a.f_out[3 * al + 2] = -f[2];
+  }
+}
+
+// *ecorr = sum of the per-block energies, fixed order
+__global__ void __launch_bounds__(C_REDUCE_TB)
+corr_reduce(const float* partials, int nblocks, float* ecorr) {
+  __shared__ float s[C_REDUCE_TB];
+  float acc = 0.f;
+  for (int b = threadIdx.x; b < nblocks; b += C_REDUCE_TB) acc += partials[b];
+  s[threadIdx.x] = acc;
+  __syncthreads();
+  for (int h = C_REDUCE_TB / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) s[threadIdx.x] += s[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *ecorr = s[0];
+}
+
 }  // namespace conp2
 
 extern "C" {
+
+// rows per block of the K6 passes: the wrapper sizes the per-block energy
+// buffer (ceil(ne / rows)) from it
+int conp2_corr_rows() { return conp2::C_WARPS; }
+
+// f_out (n, 3) (rows neither electrode nor electrolyte are left as they
+// are: the caller zeroes f_out) and ecorr (1) in float32.  Returns
+// cudaGetLastError().
+int conp2_conp_correction_f32(const float* x, const float* q,
+                              const int64_t* type, const int64_t* ele_idx,
+                              const float* ele_f, const float* ely_f,
+                              const float* gtab, const int64_t* perm,
+                              const float* zs, int n, int ne, int nt1,
+                              float bx, float by, float bz, int px, int py,
+                              int pz, float cutsq, float zcut, float qqr2e,
+                              float* f_out, float* partials, float* ecorr,
+                              void* stream) {
+  if (n <= 0 || ne <= 0 || nt1 <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  conp2::CorrArgs a{x, q, type, ele_idx, ele_f, ely_f, gtab, perm, zs, n, ne,
+                    nt1, bx, by, bz, 1.0f / bz, px, py, pz, cutsq, zcut,
+                    qqr2e, f_out, partials};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nb_e = (ne + conp2::C_WARPS - 1) / conp2::C_WARPS;
+  const int nb_a = (n + conp2::C_WARPS - 1) / conp2::C_WARPS;
+  conp2::corr_ele_kernel<<<nb_e, conp2::C_TB, 0, s>>>(a);
+  conp2::corr_ely_kernel<<<nb_a, conp2::C_TB, 0, s>>>(a);
+  conp2::corr_reduce<<<1, conp2::C_REDUCE_TB, 0, s>>>(partials, nb_e, ecorr);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // b_out (ne,) float32.  Returns cudaGetLastError().
 int conp2_b_realspace_f32(const float* x, const float* q_elyte,

@@ -3,8 +3,7 @@
 The part of the JAX package's ``ops/cells.py`` the list needs: a static
 cell decomposition with edge >= list radius, atoms binned and ranked per
 cell with one sort, the 27-cell neighbor map, and the per-cell candidate
-matrix.  The exclusion correction is applied after any exclusion-blind
-pair sweep.  The cell pair sweep itself (``cell_pair_forces``) is not
+matrix.  The cell pair sweep itself (``cell_pair_forces``) is not
 ported: the port's large-N pair path is the Verlet list.
 """
 
@@ -16,8 +15,6 @@ import math
 
 import numpy as np
 import torch
-
-from .pairs import PairTables, min_image
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,35 +112,3 @@ def candidate_columns(grid: CellGrid, x):
     nb, uniq = neighbor_cells(grid, x.device)
     cols = torch.where(uniq[:, :, None], table[nb], n)
     return table, cols.reshape(grid.total, 27 * grid.cap), overflow
-
-
-def exclusion_correction(x, q, type_idx, tables: PairTables, exclusions, *,
-                         box, periodic, cutsq, qqr2e):
-    """Special-bond corrections to ADD to an exclusion-blind pair sweep:
-    (df (N,3), devdwl, decoul).  Excluded pairs keep the k-space
-    compensation term (-erf(g r)/r), as in ``ops/pairs.py``."""
-    n = x.shape[0]
-    exi, exv = exclusions
-    me = exi.shape[1]
-    rows = torch.arange(n, device=x.device).repeat_interleave(me)
-    cols = exi.reshape(-1)
-    sval = exv.reshape(-1).to(x.dtype)
-    valid = cols < n
-    cols_safe = torch.where(valid, cols, 0)
-    d = min_image(x[rows] - x[cols_safe], box, periodic)
-    rsq = torch.sum(d * d, dim=1)
-    valid = valid & (rsq < cutsq)
-    rsq_safe = torch.where(valid, rsq, torch.ones_like(rsq))
-    r2inv = 1.0 / rsq_safe
-    r6inv = r2inv ** 3
-    ti, tj = type_idx[rows], type_idx[cols_safe]
-    ds = sval - 1.0
-    dflj = ds * r6inv * (tables.lj1[ti, tj] * r6inv - tables.lj2[ti, tj]) * r2inv
-    delj = ds * r6inv * (tables.lj3[ti, tj] * r6inv - tables.lj4[ti, tj])
-    pref = qqr2e * q[rows] * q[cols_safe] / torch.sqrt(rsq_safe)
-    zero = torch.zeros_like(rsq)
-    dfpair = torch.where(valid, dflj + ds * pref * r2inv, zero)
-    df = torch.zeros_like(x).index_add_(0, rows, dfpair[:, None] * d)
-    dev = 0.5 * torch.sum(torch.where(valid, delj, zero))
-    dec = 0.5 * torch.sum(torch.where(valid, ds * pref, zero))
-    return df, dev, dec

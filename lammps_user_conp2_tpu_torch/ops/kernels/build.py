@@ -113,11 +113,18 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_b_realspace_f32.argtypes = (
         [P] * 9 + [I, I, I] + [F, F, F] + [I, I, I] + [F, F, F] + [P, P])
     lib.conp2_b_realspace_f32.restype = I
+    lib.conp2_conp_correction_f32.argtypes = (
+        [P] * 9 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
+    lib.conp2_conp_correction_f32.restype = I
+    lib.conp2_corr_rows.argtypes = []
+    lib.conp2_corr_rows.restype = I
     lib.conp2_block_pair_f32.argtypes = (
-        [P] * 9 + [I] * 5 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
+        [P] * 11 + [I] * 6 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
     lib.conp2_block_pair_f32.restype = I
     lib.conp2_spread_mesh_f32.argtypes = [P, P] + [I] * 8 + [P, P]
     lib.conp2_spread_mesh_f32.restype = I
+    lib.conp2_spread_tiles_f32.argtypes = [P, P] + [I] * 5 + [P, P]
+    lib.conp2_spread_tiles_f32.restype = I
     lib.conp2_gather3_f32.argtypes = [P] * 3 + [I] * 8 + [P, P]
     lib.conp2_gather3_f32.restype = I
     lib.conp2_shake_positions_f32.argtypes = (

@@ -1,5 +1,7 @@
-"""Electrode b-vector real-space rows: the CUDA kernel
-``csrc/ele_rows_kernel.cu`` and its plain PyTorch version.
+"""The electrode-row sweeps: the CUDA kernels of ``csrc/ele_rows_kernel.cu``
+and their plain PyTorch versions.
+
+K5, the electrode b-vector real-space rows:
 
     b_i = -sum_{electrolyte j, r^2 < cut_coulsq} q_j (erfc(g r)/r + pot(r^2))
     pot(r^2) = fo * exp(-e2/2) - erfcr(e2) * eta,   e2 = eta^2 r^2
@@ -7,9 +9,16 @@
 with per-electrode-row tables eta_rows/fo_rows (Ne, T+1) indexed by the
 column type (ETA mode: uniform eta, fo = 0; fix_conp.cpp:1281-1365).
 
-``b_realspace`` launches the kernel for CUDA float32 tensors and takes
-``b_realspace_plain`` for CPU tensors.  The kernel has no fixed capacity:
-every electrode row searches its own z window, so nothing can overflow.
+K6, the CONP Gaussian correction swept on its own (the engine's unfused
+dense branch, ``MDConfig.use_pallas_pair=False``): forces on the electrode
+rows and their Newton reactions on the electrolyte, and the correction
+energy, over (electrode, electrolyte) pairs within the cutoff, with eta and
+fo from the (T+1, T+1) type tables (fix_conp.cpp:1368-1444).
+
+``b_realspace`` and ``conp_correction`` launch their kernels for CUDA
+float32 tensors and take the plain versions for CPU tensors.  Neither
+kernel has a fixed capacity: every row searches its own z window, so
+nothing can overflow.
 """
 
 from __future__ import annotations
@@ -19,11 +28,12 @@ import math
 import torch
 
 from ..erfc import erfcr_sqrt
-from ..pairs import min_image
+from ..pairs import conp_correction_forces, gauss_table_kernels, min_image
 from . import build
 from .zorder import Z_MARGIN, z_perm
 
 launches = build.LaunchCounter("b_realspace")
+corr_launches = build.LaunchCounter("conp_correction")
 
 
 def b_realspace_plain(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
@@ -90,3 +100,64 @@ def b_realspace(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
     build.check_status("b_realspace", status)
     launches.count += 1
     return b
+
+
+def conp_correction_plain(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab,
+                          fo_tab, *, box, periodic, cutoff, qqr2e):
+    """The electrode-row sweep of ``ops/pairs.conp_correction_forces`` with
+    the table kernels (the JAX package's XLA branch).  ``ele_f`` is not
+    read: the rows are ``ele_idx``."""
+    potential, force = gauss_table_kernels(eta_tab, fo_tab)
+    return conp_correction_forces(x, q, ele_idx, ely_f > 0, force, potential,
+                                  type_idx, box=box, periodic=periodic,
+                                  cutoff=cutoff, qqr2e=qqr2e)
+
+
+def conp_correction(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab, fo_tab, *,
+                    box, periodic, cutoff, qqr2e, zsort=None):
+    """CONP Gaussian correction over (electrode, electrolyte) pairs within
+    ``cutoff``: (f (N, 3), ecorr).  K6 for CUDA float32 tensors, the plain
+    version for CPU tensors.
+
+    x (N,3); q (N,); type_idx (N,) int64; ele_idx (Ne,) int64 the electrode
+    rows; ele_f / ely_f (N,) 0/1 float flags of the electrodes (the rows of
+    ``ele_idx``) and the electrolyte; eta_tab / fo_tab (T+1, T+1).
+    ``zsort``: (perm, z_sorted) from ``zorder.z_perm`` at these positions
+    (computed here when None)."""
+    kw = dict(box=box, periodic=periodic, cutoff=cutoff, qqr2e=qqr2e)
+    if x.device.type == "cpu":
+        return conp_correction_plain(x, q, type_idx, ele_idx, ele_f, ely_f,
+                                     eta_tab, fo_tab, **kw)
+    n = x.shape[0]
+    ne = ele_idx.shape[0]
+    gtab = torch.stack([eta_tab, fo_tab]).contiguous()
+    nt1 = gtab.shape[1]
+    if zsort is None:
+        zsort = z_perm(x, box, periodic)
+    perm, zs = zsort
+    build.check_cuda("conp_correction", torch.float32, x, q, ele_f, ely_f,
+                     gtab, zs)
+    build.check_cuda("conp_correction", torch.int64, type_idx, ele_idx, perm)
+    if (x.shape != (n, 3) or q.shape != (n,) or type_idx.shape != (n,)
+            or ele_f.shape != (n,) or ely_f.shape != (n,)
+            or perm.shape != (n,) or zs.shape != (n,)):
+        raise ValueError("conp_correction: expected x (N,3) and charges, "
+                         "types, flags, perm, z keys (N,)")
+    if gtab.shape != (2, nt1, nt1) or ne == 0:
+        raise ValueError("conp_correction: tables must be (T+1, T+1) and "
+                         "the electrode rows non-empty")
+    lib = build.load_library()
+    f = torch.zeros((n, 3), dtype=x.dtype, device=x.device)
+    partials = torch.empty((-(-ne // lib.conp2_corr_rows()),),
+                           dtype=x.dtype, device=x.device)
+    ecorr = torch.empty((1,), dtype=x.dtype, device=x.device)
+    status = lib.conp2_conp_correction_f32(
+        x.data_ptr(), q.data_ptr(), type_idx.data_ptr(), ele_idx.data_ptr(),
+        ele_f.data_ptr(), ely_f.data_ptr(), gtab.data_ptr(), perm.data_ptr(),
+        zs.data_ptr(), n, ne, nt1, *[float(v) for v in box],
+        *[int(bool(p)) for p in periodic], float(cutoff) ** 2,
+        float(cutoff) + Z_MARGIN, float(qqr2e), f.data_ptr(),
+        partials.data_ptr(), ecorr.data_ptr(), build.stream_ptr())
+    build.check_status("conp_correction", status)
+    corr_launches.count += 1
+    return f, ecorr[0]

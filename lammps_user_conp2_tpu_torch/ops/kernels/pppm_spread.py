@@ -1,5 +1,6 @@
-"""PPPM charge spread into the z-binned mesh (K2a): the CUDA kernel
-``csrc/pppm_spread.cu`` and its plain PyTorch version.
+"""PPPM charge spreads from the tile slot rows: into the z-binned mesh (K2a)
+and into per-tile patches (K2b), the CUDA kernels of ``csrc/pppm_spread.cu``
+and their plain PyTorch versions.
 
 Input: the slot rows (T, 8, cap) of ``ops/pppm.py TileSlots`` ([lx, ly,
 lz, dxx, dxy, dxz, q, 0] per slot; tile t = (tx * nty + ty) * ntz + tz).
@@ -7,10 +8,15 @@ Output: the mesh (nx, ny, ntz, ez), merged in x and y (periodic) and
 binned in z: bin tz holds the ez patch rows of its tiles, which the
 shifted z-DFT of ``_spread_rhok_tiled`` contracts.
 
-``spread_mesh`` launches the kernel for CUDA float32 tensors, takes the
-plain version for CPU tensors and raises on CUDA float64.  The plain
-version is the JAX package's non-Pallas branch: per-tile patches
-(wx (x) wy)^T (q wz) (``_tile_patches``), then the x/y overlap-add.
+``spread_tiles`` (K2b) returns the per-tile patches (T, ex*ey, ez)
+themselves, which ``ops/pppm.py spread_tiled`` overlap-adds into the real
+mesh.
+
+``spread_mesh`` and ``spread_tiles`` launch their kernels for CUDA float32
+tensors, take the plain versions for CPU tensors and raise on CUDA
+float64.  The plain versions are the JAX package's non-Pallas branch:
+per-tile patches (wx (x) wy)^T (q wz) (``_tile_patches`` with its
+``_local_weight_mats``), then, for K2a, the x/y overlap-add.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from . import build
 
 launches = build.LaunchCounter("spread_mesh")
+tiles_launches = build.LaunchCounter("spread_tiles")
 
 
 def tile_patches_plain(rows, cf, geom):
@@ -77,4 +84,28 @@ def spread_mesh(rows, cf, geom):
         build.stream_ptr())
     build.check_status("spread_mesh", status)
     launches.count += 1
+    return out
+
+
+def spread_tiles(rows, cf, geom):
+    """Per-tile charge patches (T, ex*ey, ez) from the slot rows: K2b for
+    CUDA float32 tensors, ``tile_patches_plain`` for CPU tensors.  ``cf``:
+    the (p, p) B-spline coefficients (``ops/pppm.py rho_coeffs``)."""
+    if rows.device.type == "cpu":
+        return tile_patches_plain(rows, cf, geom)
+    bw = geom.hw + geom.dm
+    ex, ey, ez = geom.tlx + 2 * bw, geom.tly + 2 * bw, geom.tlz + 2 * bw
+    build.check_cuda("spread_tiles", torch.float32, rows, cf)
+    if rows.shape != (geom.t_tiles, 8, geom.cap):
+        raise ValueError("spread_tiles: slot rows must be (T, 8, cap)")
+    if geom.p != 5 or cf.shape != (5, 5):
+        raise ValueError("spread_tiles: the kernel takes order 5 stencils")
+    out = torch.empty((geom.t_tiles, ex * ey, ez), dtype=rows.dtype,
+                      device=rows.device)
+    lib = build.load_library()
+    status = lib.conp2_spread_tiles_f32(
+        rows.data_ptr(), cf.data_ptr(), geom.t_tiles, ex, ey, ez, geom.cap,
+        out.data_ptr(), build.stream_ptr())
+    build.check_status("spread_tiles", status)
+    tiles_launches.count += 1
     return out

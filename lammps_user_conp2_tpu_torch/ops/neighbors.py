@@ -12,7 +12,9 @@ stages each union once for all B atoms.  On CUDA float32 that sweep is the
 CUDA kernel ``csrc/block_pair.cu`` (``ops/kernels/block_pair.py``), with
 the CONP Gaussian correction fused in; elsewhere the per-atom sweep
 ``nlist_pair_forces`` and the electrode-row correction run in plain
-PyTorch, as in the JAX engine.
+PyTorch, as in the JAX engine.  Both sweeps apply special-bond exclusions
+per pair (the JAX package subtracts them after an s = 1 sweep, which
+cancels catastrophically in float32 at bonded distances).
 
 Capacity (K, U, cell cap) is sized from the positions at set-up; an
 overflow NaN-poisons the forces and energies through the sticky
@@ -28,10 +30,10 @@ import numpy as np
 import torch
 
 from .cells import (CellGrid, bin_atoms, build_cell_grid, candidate_columns,
-                    exclusion_correction, neighbor_cells)
+                    neighbor_cells)
 from .erfc import A1, A2, A3, A4, A5, EWALD_F, EWALD_P, erfcr_sqrt
 from .kernels.block_pair import block_pair
-from .pairs import PairTables, min_image
+from .pairs import PairTables, min_image, special_factors
 
 # bits reserved for the neighbour's atom type in the packed sort key
 TYPE_BITS = 5
@@ -245,9 +247,11 @@ def needs_rebuild(ncfg: NeighborConfig, nlist: NeighborList, x):
 
 
 def nlist_pair_rows(ncfg: NeighborConfig, x, q, xi, qi, idx_rows, lj_rows, *,
-                    g_ewald, qqr2e):
+                    g_ewald, qqr2e, excl_rows=None):
     """Verlet-list sweep over a block of rows: (f_rows (nrow, 3), ev, ec)
-    with the 0.5 full-list energy factor applied."""
+    with the 0.5 full-list energy factor applied.  ``excl_rows``: the rows'
+    (excl_idx, excl_val), applied per pair (LJ scaled by s, the Coulomb
+    term minus (1 - s) qq/r), or None."""
     n = x.shape[0]
     xqp = torch.cat([torch.cat([x, q[:, None].to(x.dtype)], dim=1),
                      torch.tensor([[1e6, 1e6, 1e6, 0.0]], dtype=x.dtype,
@@ -261,30 +265,29 @@ def nlist_pair_rows(ncfg: NeighborConfig, x, q, xi, qi, idx_rows, lj_rows, *,
     rsq_safe = torch.where(mask, rsq, torch.ones_like(rsq))
     r2inv = 1.0 / rsq_safe
     r6inv = r2inv * r2inv * r2inv
+    si = (torch.ones_like(rsq) if excl_rows is None
+          else special_factors(*excl_rows, idx_rows, x.dtype))
+    lj_on = mask & (si > 0.0)
     l1, l2, l3, l4 = lj_rows
-    flj = torch.where(mask, r6inv * (l1 * r6inv - l2) * r2inv, zero)
-    elj = torch.where(mask, r6inv * (l3 * r6inv - l4), zero)
+    flj = torch.where(lj_on, si * r6inv * (l1 * r6inv - l2) * r2inv, zero)
+    elj = torch.where(lj_on, si * r6inv * (l3 * r6inv - l4), zero)
     r = torch.sqrt(rsq_safe)
     grij = g_ewald * r
     expm2 = torch.exp(-grij * grij)
     tt = 1.0 / (1.0 + EWALD_P * grij)
     erfc = tt * (A1 + tt * (A2 + tt * (A3 + tt * (A4 + tt * A5)))) * expm2
     pref = qqr2e * qi[:, None] * xqj[..., 3] / r
-    fcoul = torch.where(mask, pref * (erfc + EWALD_F * grij * expm2), zero)
-    ecoul = torch.where(mask, pref * erfc, zero)
+    dcoul = (1.0 - si) * pref
+    fcoul = torch.where(mask, pref * (erfc + EWALD_F * grij * expm2) - dcoul,
+                        zero)
+    ecoul = torch.where(mask, pref * erfc - dcoul, zero)
     fpair = flj + fcoul * r2inv
     f_rows = torch.sum(fpair[:, :, None] * d, dim=1)
     return f_rows, 0.5 * torch.sum(elj), 0.5 * torch.sum(ecoul)
 
 
-def _finish(ncfg, nlist, x, q, type_idx, tables, exclusions, f, ev, ec,
-            qqr2e):
-    """Exclusion correction and the overflow poison shared by the sweeps."""
-    if exclusions is not None:
-        df, dev, dec = exclusion_correction(
-            x, q, type_idx, tables, exclusions, box=ncfg.grid.box,
-            periodic=ncfg.grid.periodic, cutsq=ncfg.cutoff ** 2, qqr2e=qqr2e)
-        f, ev, ec = f + df, ev + dev, ec + dec
+def _poison(nlist, x, f, ev, ec):
+    """The overflow poison shared by the sweeps: (f, ev, ec, overflow)."""
     ov = nlist.overflow
     nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
     return (torch.where(ov, nan, f), torch.where(ov, nan, ev),
@@ -295,11 +298,12 @@ def nlist_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
                       type_idx, tables: PairTables, exclusions, *, g_ewald,
                       qqr2e):
     """LJ + real-space Coulomb from the per-atom list: (f, evdwl, ecoul,
-    overflow).  Each pair sits in both atoms' rows: energies carry 0.5."""
+    overflow).  Each pair sits in both atoms' rows: energies carry 0.5.
+    ``exclusions``: (excl_idx, excl_val) applied per pair, or None."""
     f, ev, ec = nlist_pair_rows(ncfg, x, q, x, q, nlist.idx, nlist.lj,
-                                g_ewald=g_ewald, qqr2e=qqr2e)
-    return _finish(ncfg, nlist, x, q, type_idx, tables, exclusions, f, ev,
-                   ec, qqr2e)
+                                g_ewald=g_ewald, qqr2e=qqr2e,
+                                excl_rows=exclusions)
+    return _poison(nlist, x, f, ev, ec)
 
 
 def block_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
@@ -311,10 +315,9 @@ def block_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
     CONP Gaussian correction into the sweep; every (ele, elyte) pair then
     appears in both atoms' rows, so ecorr carries the 0.5 too."""
     out = _block_sweep(ncfg, x, q, nlist.bun, nlist.brows, type_idx, tables,
-                       g_ewald=g_ewald, qqr2e=qqr2e, conp_fuse=conp_fuse)
-    f = out[0][nlist.binv]
-    res = _finish(ncfg, nlist, x, q, type_idx, tables, exclusions, f,
-                  0.5 * out[1], 0.5 * out[2], qqr2e)
+                       g_ewald=g_ewald, qqr2e=qqr2e, conp_fuse=conp_fuse,
+                       exclusions=exclusions)
+    res = _poison(nlist, x, out[0][nlist.binv], 0.5 * out[1], 0.5 * out[2])
     if conp_fuse is None:
         return res
     nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
@@ -322,14 +325,16 @@ def block_pair_forces(ncfg: NeighborConfig, nlist: NeighborList, x, q,
 
 
 def _block_sweep(ncfg: NeighborConfig, x, q, un, rows, type_idx,
-                 tables: PairTables, *, g_ewald, qqr2e, conp_fuse=None):
+                 tables: PairTables, *, g_ewald, qqr2e, conp_fuse=None,
+                 exclusions=None):
     """(f_slots (NB*B, 3) in slot order, sum_elj, sum_ecoul[, sum_ecorr]),
-    raw sums over the ordered pairs: the caller applies binv, the 0.5 and
-    the exclusion correction.  K1 on CUDA float32, its plain version on
-    the CPU."""
+    raw sums over the ordered pairs with the exclusions applied per pair:
+    the caller applies binv and the 0.5.  K1 on CUDA float32, its plain
+    version on the CPU."""
     return block_pair(x, q, type_idx, un, rows, tables, box=ncfg.grid.box,
                       periodic=ncfg.grid.periodic, cutoff=ncfg.cutoff,
-                      g_ewald=g_ewald, qqr2e=qqr2e, conp_fuse=conp_fuse)
+                      g_ewald=g_ewald, qqr2e=qqr2e, conp_fuse=conp_fuse,
+                      exclusions=exclusions)
 
 
 def ele_rows_from_list(nlist: NeighborList, ele_idx):

@@ -57,12 +57,17 @@ def make_pair_tables(lj_eps: np.ndarray, lj_sigma: np.ndarray, *,
                       lj3=mk(4.0 * lj_eps * s12), lj4=mk(4.0 * lj_eps * s6))
 
 
-def _row_special(exi, exv, n, dtype):
-    """(B, N) special-bond factors of one row block from its sparse lists
-    (index n = no entry, dropped)."""
-    si = torch.ones((exi.shape[0], n + 1), dtype=dtype, device=exi.device)
-    si.scatter_(1, exi.long(), exv.to(dtype))
-    return si[:, :n]
+def special_factors(exi, exv, cols, dtype):
+    """Special-bond factors of (row, column) pairs from the rows' own
+    exclusion lists ``exi``/``exv`` (..., m): 1 unless ``cols`` (broadcast
+    against (..., 1)) is listed; the last listed match wins, as in the CUDA
+    kernels.  The dense and list sweeps and K1's plain version use it."""
+    si = torch.ones(torch.broadcast_shapes(exi.shape[:-1] + (1,), cols.shape),
+                    dtype=dtype, device=cols.device)
+    for k in range(exi.shape[-1]):
+        si = torch.where(exi[..., k, None] == cols,
+                         exv[..., k, None].to(dtype), si)
+    return si
 
 
 def dense_pair_forces(x, q, type_idx, tables: PairTables, exclusions, *,
@@ -89,8 +94,8 @@ def dense_pair_forces(x, q, type_idx, tables: PairTables, exclusions, *,
         if exclusions is None:
             si = torch.ones_like(rsq)
         else:
-            si = _row_special(exclusions[0][i0:i1], exclusions[1][i0:i1], n,
-                              dtype)
+            si = special_factors(exclusions[0][i0:i1], exclusions[1][i0:i1],
+                                 cols[None, :], dtype)
         rsq_safe = torch.where(inrange, rsq, torch.ones_like(rsq))
         r2inv = 1.0 / rsq_safe
         r6inv = r2inv * r2inv * r2inv
@@ -126,7 +131,8 @@ def conp_correction_forces(x, q, ele_idx, elyte_mask, pair_force_fn,
     """Gaussian correction force on electrode<->electrolyte pairs.
 
     Only the (Ne x N) electrode-row block is swept; the electrolyte side
-    comes from the same block's column sums (Newton's third law).
+    comes from the same block's column sums (Newton's third law).  The
+    plain version of K6 (``ops/kernels/ele_rows_kernel.conp_correction``).
     pair_force_fn/pair_potential_fn: (rsq, itype, jtype) -> kernel value
     (ETA: fix_conp.cpp:1472-1480).  Returns (forces (N,3), ecorr)."""
     n = x.shape[0]
@@ -137,7 +143,9 @@ def conp_correction_forces(x, q, ele_idx, elyte_mask, pair_force_fn,
         eb = ele_idx[e0:e0 + block]
         xi, qi, ti = x[eb], q[eb], type_idx[eb]
         dx = min_image(xi[:, None, :] - x[None, :, :], box, periodic)
-        rsq = torch.sum(dx * dx, dim=-1)
+        # ((dx^2 + dy^2) + dz^2), K6's order: both agree on the pair set
+        rsq = (dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1]
+               + dx[..., 2] * dx[..., 2])
         mask = elyte_mask[None, :] & (rsq < cutoff * cutoff)
         rsq_safe = torch.where(mask, rsq, torch.ones_like(rsq))
         prefactor = qqr2e * qi[:, None] * q[None, :]

@@ -28,9 +28,15 @@ matmul with the host-built float64 phase tables cast to the run dtype.
 
 The z-binned route runs in every dtype (the JAX float64 engine takes the
 real-mesh tiled spread/gather instead: the same algebra).  The real-mesh
-tiled functions (``spread_tiled``, ``_overlap_add``, ``gather_tiled``,
-``gather3_ad_tiled``; K2b) are not ported: ``spread``/``gather`` raise on
-meshes above the dense bound.
+tiled path serves ``spread``, ``gather`` and ``gather3`` above the dense
+bound (the electrode re-spread and b-vector readout when the electrodes are
+not read through their z planes, and the ik force readout on a tiled
+mesh): per-tile charge patches (K2b, ``ops/kernels/pppm_spread.py
+spread_tiles``) overlap-added into the (nx, ny, nz) mesh
+(``spread_tiled``), and a per-atom stencil readout through the tile slots
+of the wrap-padded mesh (``gather_tiled``, plain PyTorch on the card too:
+the JAX package computes it in XLA).  ``gather3_ad_tiled`` is not ported
+(the engine's ad forces take the z-binned gather in every dtype).
 """
 
 from __future__ import annotations
@@ -661,6 +667,47 @@ def _patch_dims(geom: TileGeom):
     return bw, geom.tlx + 2 * bw, geom.tly + 2 * bw, geom.tlz + 2 * bw
 
 
+def _overlap_add(patches, geom: TileGeom, nz: int):
+    """(T, ex*ey, ez) per-tile patches -> the (nx, ny, nz) mesh, one tiled
+    axis at a time.  x and y are periodic; in span mode the z bin axis is
+    not, and the extended z ring (bin 0 starts at unwrapped node -tlz) maps
+    into [0, nz): ring nodes [tlz, ntz*tlz) onto [0, (ntz-1)*tlz), the
+    guard bin [0, tlz) onto [nz - tlz, nz)."""
+    bw, ex, ey, ez = _patch_dims(geom)
+    ntx, nty, ntz = geom.ntx, geom.nty, geom.ntz
+    tlx, tly, tlz = geom.tlx, geom.tly, geom.tlz
+    pt = patches.reshape(ntx, nty, ntz, ex, ey, ez)
+    pt = _merge_axis(pt, 2, 5, tlz, bw, periodic=not geom.z_span)
+    pt = _merge_axis(pt, 1, 4, tly, bw, periodic=True)
+    pt = _merge_axis(pt, 0, 3, tlx, bw, periodic=True)
+    brick = pt.permute(0, 3, 1, 4, 2, 5).reshape(ntx * tlx, nty * tly,
+                                                 ntz * tlz)
+    if not geom.z_span:
+        return brick
+    pad = torch.nn.functional.pad
+    main = pad(brick[:, :, tlz:], (0, nz - (ntz - 1) * tlz))
+    low = pad(brick[:, :, :tlz], (nz - tlz, 0))
+    return main + low
+
+
+def _pad_brick(b, geom: TileGeom, nz: int):
+    """Wrap-pad a (nx, ny, nz) mesh for the tiled readout: bw on x and y; in
+    span mode bin tz's patch starts at unwrapped node (tz-1)*tlz - bw, i.e.
+    padded index tz*tlz with a (tlz + bw) low wrap pad, the high pad
+    covering the top guard bins; otherwise bw on z too."""
+    bw, _, _, ez = _patch_dims(geom)
+    if geom.z_span:
+        zpad = (geom.tlz + bw,
+                max(0, (geom.ntz - 1) * geom.tlz + ez - (nz + geom.tlz + bw)))
+    else:
+        zpad = (bw, bw)
+    for ax, (lo, hi) in enumerate(((bw, bw), (bw, bw), zpad)):
+        n = b.shape[ax]
+        idx = torch.remainder(torch.arange(-lo, n + hi, device=b.device), n)
+        b = torch.index_select(b, ax, idx)
+    return b
+
+
 # ---------------------------------------------------------------------------
 # z-binned path
 # ---------------------------------------------------------------------------
@@ -810,13 +857,74 @@ def gather3_ad_zbin(grid: PPPMGrid, uz, x, slots: TileSlots = None):
 
 
 # ---------------------------------------------------------------------------
-# dense path
+# real-mesh tiled path
 # ---------------------------------------------------------------------------
 
-def _tiled_not_ported(what):
-    raise NotImplementedError(
-        f"not ported yet: {what} on a mesh above the dense bound (the "
-        "real-mesh tiled spread_tiled/gather_tiled path, K2b)")
+def spread_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None):
+    """Charges onto the (nx, ny, nz) mesh for large meshes: per-tile patches
+    from the slot rows (K2b), then the x/y/z overlap-add.  NaN on tile
+    overflow.  ``slots``: built with the same x and q (else binned here)."""
+    if slots is None:
+        slots = tile_slots(grid, x, q)
+    geom = _tile_geometry(grid, x.shape[0])
+    patches = pppm_spread.spread_tiles(slots.rows,
+                                       _coeffs(grid, x.dtype, x.device), geom)
+    return _nan_where(slots.overflow, _overlap_add(patches, geom, grid.nz))
+
+
+# atoms per chunk of the tiled readout: bounds the (fields, chunk, 125)
+# stencil transient
+GATHER_CHUNK = 16384
+
+
+def gather_tiled(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
+    """Stencil readout of one or more (nx, ny, nz) meshes at the atoms
+    through their tile slots: each atom's p^3 nodes are read from its
+    tile's window of the wrap-padded mesh at the slot's local stencil
+    origin and weighted by the B-spline weights of its slot row.  Returns a
+    list of (N,) values, NaN on tile overflow.  ``slots``: built with the
+    same x (charges are not read), else binned here."""
+    n = x.shape[0]
+    dtype, dev = x.dtype, x.device
+    if slots is None:
+        slots = tile_slots(grid, x, torch.zeros((n,), dtype=dtype,
+                                                device=dev))
+    geom = _tile_geometry(grid, n)
+    bw, ex, ey, ez = _patch_dims(geom)
+    p, cap = geom.p, geom.cap
+    cf = _coeffs(grid, dtype, dev)
+    bp = torch.stack([_pad_brick(b.to(dtype), geom, grid.nz)
+                      for b in bricks])                  # (nb, X, Y, Z)
+    nb, _, ys, zs = bp.shape
+    flat = bp.reshape(nb, -1)
+    a = torch.arange(p, device=dev)
+    outs = []
+    for i0 in range(0, n, GATHER_CHUNK):
+        slot = slots.slot[i0:i0 + GATHER_CHUNK]
+        t = slot // cap
+        r = slots.rows[t, :, slot % cap]                 # (c, 8)
+        origin = ((t // (geom.nty * geom.ntz)) * geom.tlx,
+                  ((t // geom.ntz) % geom.nty) * geom.tly,
+                  (t % geom.ntz) * geom.tlz)
+        idx, w = [], []
+        for ax, e in enumerate((ex, ey, ez)):
+            loc = r[:, ax].to(torch.int64)[:, None] + a[None, :]  # (c, p)
+            wa = _horner_w(r[:, 3 + ax], cf)
+            # one-hot semantics: a node outside the patch has no weight
+            w.append(torch.where((loc >= 0) & (loc < e), wa,
+                                 torch.zeros_like(wa)))
+            idx.append(origin[ax][:, None] + loc.clamp(0, e - 1))
+        node = ((idx[0][:, :, None, None] * ys + idx[1][:, None, :, None])
+                * zs + idx[2][:, None, None, :]).reshape(-1)
+        vals = flat[:, node].reshape(nb, -1, p, p, p)
+        outs.append(torch.einsum("bcxyz,cx,cy,cz->bc", vals, *w))
+    out = _nan_where(slots.overflow, torch.cat(outs, dim=1))
+    return list(out)
+
+
+# ---------------------------------------------------------------------------
+# dense path
+# ---------------------------------------------------------------------------
 
 
 def _axis_weight_matrices(grid: PPPMGrid, x):
@@ -833,28 +941,30 @@ def _wxy(WX, WY):
     return (WX[:, :, None] * WY[:, None, :]).reshape(WX.shape[0], -1)
 
 
-def spread(grid: PPPMGrid, x, q):
-    """Charges onto the mesh (LAMMPS make_rho): (nx, ny, nz)."""
+def spread(grid: PPPMGrid, x, q, slots: TileSlots = None):
+    """Charges onto the mesh (LAMMPS make_rho): (nx, ny, nz); the tiled
+    path above the dense bound."""
     if not _use_dense(grid, x.shape[0]):
-        _tiled_not_ported("spread")
+        return spread_tiled(grid, x, q, slots=slots)
     WX, WY, WZ = _axis_weight_matrices(grid, x)
     rho = _wxy(WX, WY).T @ (q[:, None] * WZ)
     return rho.reshape(grid.nx, grid.ny, grid.nz)
 
 
-def gather(grid: PPPMGrid, brick, x):
+def gather(grid: PPPMGrid, brick, x, slots: TileSlots = None):
     """Stencil readout of a mesh field at atom positions: (N,)."""
     if not _use_dense(grid, x.shape[0]):
-        _tiled_not_ported("gather")
+        return gather_tiled(grid, [brick], x, slots=slots)[0]
     WX, WY, WZ = _axis_weight_matrices(grid, x)
     t = WZ @ brick.reshape(grid.nx * grid.ny, grid.nz).T
     return torch.sum(_wxy(WX, WY) * t, dim=1)
 
 
-def gather3(grid: PPPMGrid, bricks, x):
+def gather3(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
     """Three mesh fields at once (the ik force path): (N, 3)."""
     if not _use_dense(grid, x.shape[0]):
-        _tiled_not_ported("gather3")
+        return torch.stack(gather_tiled(grid, list(bricks), x, slots=slots),
+                           dim=1)
     WX, WY, WZ = _axis_weight_matrices(grid, x)
     wxy = _wxy(WX, WY)
     return torch.stack([torch.sum(
@@ -866,7 +976,10 @@ def gather3_ad(grid: PPPMGrid, u, x):
     """E = -grad(phi) at the atoms from one potential mesh (ad scheme;
     exactly -d/dx of the discrete mesh energy): (N, 3)."""
     if not _use_dense(grid, x.shape[0]):
-        _tiled_not_ported("gather3_ad")
+        raise NotImplementedError(
+            "not ported yet: gather3_ad on a mesh above the dense bound (the "
+            "JAX package's gather3_ad_tiled; the engine reads ad forces "
+            "through the z-binned gather3_ad_zbin)")
     (ix, iy, iz), (wx, wy, wz), (dxx, dxy, dxz), _, _ = _stencil_full(grid, x)
     cf = _coeffs(grid, x.dtype, x.device)
     n = x.shape[0]

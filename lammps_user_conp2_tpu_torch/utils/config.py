@@ -76,7 +76,10 @@ class ConpConfig:
     matout: bool = False         # dump amatrix / inv_a_matrix files
     a_file: Optional[str] = None         # read A ("org") from file
     ainv_file: Optional[str] = None      # read A^-1 ("inv") from file
-    mobile_electrodes: bool = False      # recompute electrode trig tables per solve
+    # electrodes that move: under PPPM they are read through the full mesh,
+    # never their set-up z planes (the port's INV solve keeps A frozen, as
+    # the JAX package does with INV)
+    mobile_electrodes: bool = False
     cg_tolerance: float = 1e-6
     cg_maxiter: int = 100
 
@@ -130,9 +133,13 @@ class MDConfig:
     thermostats: tuple = ()         # tuple[ThermostatConfig]
     shake: Optional[ShakeConfig] = None
     zmirror: Optional[ZMirrorConfig] = None
-    # JAX package only: force its Pallas pair kernel on or off (None =
-    # auto).  The port takes its CUDA pair kernel for every CUDA float32
-    # tensor and ignores this field.
+    # the fused dense pair kernel on or off (None = auto).  The port: None
+    # or True take the fused sweep (K4, the correction folded in); False
+    # the unfused plain sweep with the CONP correction swept on its own
+    # (K6).  The Verlet-list paths do not read it.  False exists for parity
+    # with the JAX package's flag and keeps K6 on a path; it is not a
+    # production option: the fused K4 computes the same forces about 3x
+    # faster on the il cell (PERF.md).
     use_pallas_pair: Optional[bool] = None
     # real-space pair path: "auto" (block-compacted Verlet neighbor list
     # when N is large and the box is much bigger than the cutoff, else

@@ -114,6 +114,42 @@ def near_wall_positions(system, *, margin: float = 5.0, jitter: float = 0.05,
     return x
 
 
+def near_sheet_positions(system, *, gap: float = 2.0, count: int = 8,
+                         sep: float = 5.0) -> np.ndarray:
+    """x0 with up to ``count`` one-atom electrolyte molecules (the il
+    decks' anions) next to each electrode moved in z to ``gap`` Angstrom off
+    that electrode's innermost sheet, x and y kept.  They are taken nearest
+    the sheet first, skipping any within ``sep`` of one already taken in x
+    and y, so that no two land on one another.
+
+    The il decks keep every ion more than 4 A from the sheets, beyond the
+    clamped Gaussian of the CONP correction (eta r < 5.8: r < 2.93 A at eta
+    1.979), so at x0 every correction term is 0; these positions give the
+    engine's correction nonzero terms on both walls."""
+    x = np.array(system.x0, np.float64)
+    ely = ~system.ele_mask
+    mols, counts = np.unique(system.mol[ely], return_counts=True)
+    idx = np.nonzero(ely & np.isin(system.mol, mols[counts == 1]))[0]
+    z = x[:, 2]
+    lxy = np.asarray(system.box[:2], np.float64)
+
+    def take(order):
+        chosen = []
+        for i in idx[order]:
+            d = x[chosen, :2] - x[i, :2]
+            d -= lxy * np.round(d / lxy)
+            if np.all(np.sum(d * d, axis=1) >= sep * sep):
+                chosen.append(i)
+                if len(chosen) == count:
+                    break
+        return np.asarray(chosen, np.int64)
+
+    low, high = take(np.argsort(z[idx])), take(np.argsort(-z[idx]))
+    x[low, 2] = z[system.ele_left_mask].max() + gap
+    x[high, 2] = z[system.ele_right_mask].min() - gap
+    return x
+
+
 # --------------------------------------------------------------------------
 # the ionic-liquid decks
 # --------------------------------------------------------------------------
@@ -240,8 +276,8 @@ def write_il_data(path, *, n_pairs: int = 320, sheets: int = 3,
     Types 1-3 are the cation sites (bond type 1 between sites 1-2, type 2
     between 2-3, angle type 1 at 180 degrees; the positions satisfy the
     three constraints), 4 the anion, 5 the electrodes.  Ion molecules are
-    1 ... 2 n_pairs (cations first), the left electrode mol 641 and the
-    right 642.  Each wall has ``sheets`` graphene sheets of 4 nx ny atoms
+    numbered from 1 (cations first), skipping 641 and 642: the left
+    electrode is mol 641 and the right 642.  Each wall has ``sheets`` graphene sheets of 4 nx ny atoms
     (AB-stacked, 3.35 A apart), lateral box 2.46 nx x 4.26 ny A.  The gap
     between the inner sheets holds the liquid at 1.3 g/cm^3 (its volume
     counted 1.7 A off each wall).  Pair coefficients as PairIJ Coeffs, the
@@ -340,8 +376,11 @@ def write_il_data(path, *, n_pairs: int = 320, sheets: int = 3,
     v = np.concatenate([cat_v.reshape(-1, 3), an_v, np.zeros_like(ele_x)])
     typ = np.concatenate([np.tile([1, 2, 3], n_pairs), np.full(n_pairs, 4),
                           np.full(2 * nwall, 5)])
-    mol = np.concatenate([np.repeat(np.arange(1, n_pairs + 1), 3),
-                          np.arange(n_pairs + 1, 2 * n_pairs + 1),
+    # ion molecules 1, 2, ... skipping the electrodes' 641 and 642 (the
+    # decks' 640 ion molecules end just below them)
+    ion_mol = np.arange(1, 2 * n_pairs + 1)
+    ion_mol = ion_mol + 2 * (ion_mol >= 641)
+    mol = np.concatenate([np.repeat(ion_mol[:n_pairs], 3), ion_mol[n_pairs:],
                           np.full(nwall, 641), np.full(nwall, 642)])
     q = np.array([IL_SITES[t][3] for t in typ])
     natoms = len(x)

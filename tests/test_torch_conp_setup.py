@@ -74,14 +74,17 @@ def test_project_inverse_zneutr_matches():
 
 @pytest.mark.parametrize("change", [
     dict(mode=Mode.CONQ), dict(solver=Solver.CG), dict(ff=FFMode.FFIELD),
-    dict(kspace=KSpaceStyle.PPPM), dict(nevery=2), dict(matout=True),
-    dict(mobile_electrodes=True), dict(target=lambda step: 1.0)],
+    dict(kspace=KSpaceStyle.PPPM, solver=Solver.CG), dict(nevery=2),
+    dict(matout=True), dict(mobile_electrodes=True,
+                            solver=Solver.CG_MATFREE),
+    dict(target=lambda step: 1.0)],
     ids=["conq", "cg", "ffield", "pppm", "nevery", "matout", "mobile",
          "callable"])
 def test_setup_refuses_features_not_ported(change):
-    """PPPM itself is ported; what it still refuses is electrodes whose
-    stencils touch more than max(nz/4, 16) z planes (here spread through
-    the box), which would need the real-mesh tiled spread."""
+    """PPPM with electrodes whose stencils touch more than max(nz/4, 16) z
+    planes (here spread through the box) and mobile electrodes under the
+    INV solver are ported (test_torch_fullmesh.py); the CG solvers, on
+    those paths as everywhere, are not."""
     system, md, cfg = twl.synthetic(**S1)
     cfg = dataclasses.replace(cfg, **change)
     x0 = None
@@ -121,3 +124,36 @@ def test_build_engine_refuses_verlet_list_size():
         md, kspace_style=KSpaceStyle.PPPM), **CPU64)
     assert eng.ncfg is not None and eng.ncfg.block == 0
     assert eng.ncfg.k_max > 0 and eng.pppm_grid is not None
+
+
+@pytest.mark.parametrize("change", ["spread", "mobile"])
+def test_setup_reads_electrodes_through_the_full_mesh(change):
+    """Electrodes spread through the box, or mobile ones, keep no z-plane
+    set under PPPM, in both packages; mobile electrodes change nothing
+    under EWALD with the INV solver."""
+    system, md, cfg = twl.synthetic(**S1)
+    jsys, jmd, jcfg = jwl.synthetic(**S1)
+    x0 = np.array(system.x0)
+    if change == "spread":
+        ele = system.ele_mask
+        x0[ele, 2] = np.linspace(1.0, system.box[2] - 1.0, int(ele.sum()))
+        cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM)
+        jcfg = dataclasses.replace(jcfg, kspace=type(jcfg.kspace).PPPM)
+    else:
+        cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM,
+                                  mobile_electrodes=True)
+        jcfg = dataclasses.replace(jcfg, kspace=type(jcfg.kspace).PPPM,
+                                   mobile_electrodes=True)
+    t = tconp.setup_conp(system, md, cfg, x0=x0, **SOLVE64)
+    j = jconp.setup_conp(jsys, jmd, jcfg, x0=x0)
+    assert t.ele_zplanes is None and j.ele_zplanes is None
+    assert rel_err(t.ainv.numpy(), j.ctx.ainv) < 1e-8
+    _, _, ecfg = twl.synthetic(**S1)
+    still = tconp.setup_conp(system, md, ecfg, **SOLVE64)
+    moved = tconp.setup_conp(system, md, dataclasses.replace(
+        ecfg, mobile_electrodes=True), **SOLVE64)
+    assert torch.equal(still.ainv, moved.ainv)
+    x = torch.as_tensor(x0)
+    q = torch.as_tensor(system.q0)
+    assert torch.equal(still.b_vector_full(x, q)[0],
+                       moved.b_vector_full(x, q)[0])

@@ -4,8 +4,12 @@ per output (tools/kernel_oracle.py's measure; 5e-5 for SHAKE/RATTLE on
 the test-size ionic-liquid cell, also across the periodic x face), a CUDA
 float64 tensor raises, and the engines' main paths launch their kernels
 (K4 and K5 on the mid-size path; K1, K2a and K3 on the Verlet-list +
-tiled-PPPM path; K7 and K8 on the ionic-liquid deck).  Needs a CUDA
-device: skipped on the CPU.  Run on the card with
+tiled-PPPM path; K7 and K8 on the ionic-liquid deck; K1 with the cations'
+exclusions on the deck's block path; K6 and not K4 with
+use_pallas_pair=False, whose correction energy from anions 2 A off the
+sheets agrees with the CPU float64 engine's; K2b on the mobile-electrode
+tiled mesh).  Needs a
+CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
 import numpy as np
@@ -194,11 +198,13 @@ def test_large_engine_launches_kernels(cuda, monkeypatch):
     assert np.isfinite(float(st.energy))
 
 
-def _il_cell(cuda, directory):
+def _il_cell(cuda, directory, **md_kw):
+    import dataclasses
     from lammps_user_conp2_tpu_torch import workloads
     from lammps_user_conp2_tpu_torch.models.conp import setup_conp
     from lammps_user_conp2_tpu_torch.models.md import build_engine
     system, md, cfg = il_small(workloads, il_small_file(directory))
+    md = dataclasses.replace(md, **md_kw)
     conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=cuda)
     eng = build_engine(system, md, conp, dtype=torch.float32, device=cuda)
     return system, md, eng
@@ -264,3 +270,143 @@ def test_il_engine_launches_shake_kernels(cuda, tmp_path):
     torch.cuda.synchronize()
     assert (k.shake_launches.count, k.rattle_launches.count) == (3, 3)
     assert np.isfinite(float(st.energy))
+
+
+def test_block_pair_with_exclusions_on_card(cuda, tmp_path):
+    """K1 applies the cations' special-bond exclusions per pair, as the
+    plain version does (fused and unfused), on the deck's block path."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    system, md, eng = _il_cell(cuda, tmp_path, pair_path="block")
+    assert eng.ncfg.block == 8 and eng.exclusions is not None
+    x = torch.as_tensor(system.x0, dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(charges_with_electrodes(system), dtype=torch.float32,
+                        device=cuda)
+    nbr, _ = eng.derived_state(x)
+    kw = dict(box=eng.ncfg.grid.box, periodic=eng.ncfg.grid.periodic,
+              cutoff=md.cutoff, g_ewald=eng.conp.ksp.g_ewald,
+              qqr2e=system.units().qqr2e, exclusions=eng.exclusions)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    args = (x, q, eng.type_idx, nbr.bun, nbr.brows, eng.tables)
+    for cf in (None, fuse):
+        got = k1.block_pair(*args, conp_fuse=cf, **kw)
+        ref = k1.block_pair_plain(*args, conp_fuse=cf, **kw)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+    k1.launches.reset()
+    st, _ = eng.run(eng.init_state(), 3, thermo_every=0)
+    torch.cuda.synchronize()
+    assert k1.launches.count == 4 and np.isfinite(float(st.energy))
+
+
+@pytest.mark.parametrize("positions", [x_near, x_close],
+                         ids=["x_near", "x_close"])
+def test_conp_correction_matches_plain_on_card(cuda, positions):
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k6
+    system, md, conp, eng, x, q = _cell(cuda, positions)
+    args = (x, q, eng.type_idx, conp.ele_idx_t, eng.ele_flag, eng.elyte_flag,
+            eng.eta_tab, eng.fo_tab)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              qqr2e=system.units().qqr2e)
+    got = k6.conp_correction(*args, **kw)
+    ref = k6.conp_correction_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+    if positions is x_close:
+        assert abs(float(ref[1])) > 1e-3
+    with pytest.raises(TypeError):
+        k6.conp_correction(*(a.double() if a.is_floating_point() else a
+                             for a in args), **kw)
+
+
+def test_unfused_engine_launches_k6_not_k4(cuda, tmp_path):
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    system, md, eng = _il_cell(cuda, tmp_path, use_pallas_pair=False)
+    for c in (k4.launches, k56.launches, k56.corr_launches):
+        c.reset()
+    st, _ = eng.run(eng.init_state(), 3, thermo_every=0)
+    torch.cuda.synchronize()
+    assert (k4.launches.count, k56.launches.count,
+            k56.corr_launches.count) == (0, 4, 4)
+    assert np.isfinite(float(st.energy))
+
+
+def test_unfused_engine_correction_near_sheets_on_card(cuda, tmp_path,
+                                                       monkeypatch):
+    """The engine feeds K6 on the card (the solver's z order, the flags):
+    from anions 2 A off the inner sheets its correction energy is nonzero
+    and within 1e-3 of the CPU float64 engine's."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models import md as md_mod
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    seen = {}
+    real = md_mod.conp_correction
+
+    def spy(x, *a, **k):
+        out = real(x, *a, **k)
+        seen[x.device.type] = float(out[1])
+        return out
+
+    monkeypatch.setattr(md_mod, "conp_correction", spy)
+    system, md, eng = _il_cell(cuda, tmp_path, use_pallas_pair=False)
+    cfg = il_small(workloads, il_small_file(tmp_path))[2]
+    md64 = dataclasses.replace(md, use_pallas_pair=False)
+    eng64 = md_mod.build_engine(
+        system, md64, setup_conp(system, md64, cfg, solve_dtype=torch.float64,
+                                 device="cpu"),
+        dtype=torch.float64, device="cpu")
+    x0 = workloads.near_sheet_positions(system, gap=2.0, count=4)
+    k56.corr_launches.reset()
+    eng.init_state(x0=x0)
+    eng64.init_state(x0=x0)
+    assert k56.corr_launches.count == 1
+    assert abs(seen["cpu"]) > 1e-7
+    assert abs(seen["cuda"] - seen["cpu"]) <= 1e-3 * abs(seen["cpu"])
+
+
+def test_spread_tiles_matches_plain_on_card(cuda, monkeypatch):
+    """K2b on the electrode slots of the forced tiled S3 mesh (the grid's
+    slot capacity, almost every slot empty) and on all atoms."""
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+    system, md, conp, eng, x, q, pppm = _tiled_cell(cuda, x_near)
+    grid = eng.pppm_grid
+    cfd = P._coeffs(grid, torch.float32, cuda)
+    ne = conp.ne
+    for xx, qq in ((x[:ne], q[:ne]), (x, q)):
+        geom = P._tile_geometry(grid, xx.shape[0])
+        slots = P.tile_slots(grid, xx, qq)
+        got = k2.spread_tiles(slots.rows, cfd, geom)
+        ref = k2.tile_patches_plain(slots.rows, cfd, geom)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()) and _rel(got, ref) <= TOL
+    with pytest.raises(TypeError):
+        k2.spread_tiles(slots.rows.double(), cfd.double(), geom)
+
+
+def test_mobile_tiled_engine_launches_k2b(cuda, monkeypatch):
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+    monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+    system, md, cfg = workloads.synthetic(**S3)
+    md = dataclasses.replace(md, pair_path="block", pppm_diff="ad",
+                             kspace_style=KSpaceStyle.PPPM)
+    cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM,
+                              mobile_electrodes=True)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=cuda)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=cuda)
+    assert conp.ele_zplanes is None
+    k2.tiles_launches.reset()
+    st, _ = eng.run(eng.init_state(x0=x_near(system)), 3, thermo_every=0)
+    torch.cuda.synchronize()
+    assert k2.tiles_launches.count == 4 and np.isfinite(float(st.energy))

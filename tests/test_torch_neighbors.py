@@ -269,11 +269,12 @@ def test_k1_fused_equals_unfused_plus_correction(cell, positions):
 
 
 def test_exclusion_correction_matches(cell):
-    """The special-bond correction added after the exclusion-blind sweeps,
-    on random exclusion lists (the synthetic cells have no bonds), and the
-    per-atom sweep with exclusions."""
+    """Special-bond exclusions on random exclusion lists (the synthetic
+    cells have no bonds): the port applies them per pair in both sweeps
+    (per-atom rows and K1's plain version), the JAX package sweeps at s = 1
+    and adds its ``ops/cells.exclusion_correction`` afterwards; both give
+    the same forces and energies in float64."""
     from lammps_user_conp2_tpu.ops.cells import exclusion_correction as jex
-    from lammps_user_conp2_tpu_torch.ops.cells import exclusion_correction
     system, jsys, md, cfg, _, _ = cell
     x, jt, tt, ti, lists = _lists(cell, x_near)
     n = system.natoms
@@ -286,24 +287,24 @@ def test_exclusion_correction_matches(cell):
         idx[i, :len(nb)] = nb
     val = rng.choice([0.0, 0.5], size=(n, 3))
     q = charges_with_electrodes(system)
-    kw = dict(box=tc.grid.box, periodic=tc.grid.periodic,
-              cutsq=md.cutoff ** 2, qqr2e=system.units().qqr2e)
-    jout = jex(jnp.asarray(x), jnp.asarray(q), jnp.asarray(jsys.type), jt,
-               (jnp.asarray(idx), jnp.asarray(val)), **kw)
+    qqr2e = system.units().qqr2e
+    jexcl = (jnp.asarray(idx), jnp.asarray(val))
     texcl = (torch.as_tensor(idx), torch.as_tensor(val))
-    tout = exclusion_correction(torch.as_tensor(x), torch.as_tensor(q), ti,
-                                tt, texcl, **kw)
-    assert np.abs(np.asarray(jout[0])).max() > 0.0
-    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]), rtol=0,
-                               atol=1e-10 * np.abs(np.asarray(jout[0])).max())
-    for a, b in zip(tout[1:], jout[1:]):
-        assert float(a) == pytest.approx(float(b), rel=1e-10)
-    jf, jev, jec, _ = JN.nlist_pair_forces(
-        jc, jl, jnp.asarray(x), jnp.asarray(q), jnp.asarray(jsys.type), jt,
-        (jnp.asarray(idx), jnp.asarray(val)), g_ewald=G, qqr2e=kw["qqr2e"])
-    tf, tev, tec, _ = TN.nlist_pair_forces(
-        tc, tl, torch.as_tensor(x), torch.as_tensor(q), ti, tt, texcl,
-        g_ewald=G, qqr2e=kw["qqr2e"])
-    assert rel_err(tf.numpy(), jf) < 1e-10
-    assert float(tev) == pytest.approx(float(jev), rel=1e-10)
-    assert float(tec) == pytest.approx(float(jec), rel=1e-10)
+    djf = jex(jnp.asarray(x), jnp.asarray(q), jnp.asarray(jsys.type), jt,
+              jexcl, box=tc.grid.box, periodic=tc.grid.periodic,
+              cutsq=md.cutoff ** 2, qqr2e=qqr2e)[0]
+    assert np.abs(np.asarray(djf)).max() > 0.0
+    for block, jsweep, tsweep in ((0, JN.nlist_pair_forces,
+                                   TN.nlist_pair_forces),
+                                  (8, JN.block_pair_forces,
+                                   TN.block_pair_forces)):
+        jc, jl, tc, tl = lists[block]
+        jf, jev, jec, _ = jsweep(
+            jc, jl, jnp.asarray(x), jnp.asarray(q), jnp.asarray(jsys.type),
+            jt, jexcl, g_ewald=G, qqr2e=qqr2e)
+        tf, tev, tec, _ = tsweep(
+            tc, tl, torch.as_tensor(x), torch.as_tensor(q), ti, tt, texcl,
+            g_ewald=G, qqr2e=qqr2e)
+        assert rel_err(tf.numpy(), jf) < 1e-10
+        assert float(tev) == pytest.approx(float(jev), rel=1e-10)
+        assert float(tec) == pytest.approx(float(jec), rel=1e-10)

@@ -15,7 +15,6 @@ from lammps_user_conp2_tpu.ops.pairs import make_pair_tables as jtables
 from lammps_user_conp2_tpu.ops.pallas.pair_kernel import pair_forces_pallas
 from lammps_user_conp2_tpu_torch import workloads as twl
 from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
-from lammps_user_conp2_tpu_torch.ops.cells import exclusion_correction
 from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
 from lammps_user_conp2_tpu_torch.ops.pairs import make_pair_tables
 from torch_cells import S2, charges_with_electrodes, x_close, x_near
@@ -72,10 +71,11 @@ def test_pair_plain_matches_jax_kernel(positions, fused):
 
 
 def test_exclusion_correction_matches_dense_exclusions():
-    """The Verlet-list paths' exclusion pass (``ops/cells.py``): the
-    uniform s=1 sweep plus ``exclusion_correction`` equals the dense sweep
+    """The JAX package's exclusion pass (its ``ops/cells.py``): a uniform
+    s=1 sweep plus ``exclusion_correction`` equals the port's dense sweep
     with the special factors applied per pair, and the JAX kernel with the
     same exclusions."""
+    from lammps_user_conp2_tpu.ops.cells import exclusion_correction
     system, x, q, kw = _inputs(x_near)
     n = system.natoms
     rng = np.random.default_rng(5)
@@ -92,12 +92,14 @@ def test_exclusion_correction_matches_dense_exclusions():
     f1, ev1, ec1 = k4.pair_forces_plain(xt, qt, tt, tabs, excl, **kw)
     f0, ev0, ec0 = k4.pair_forces_plain(xt, qt, tt, tabs, None, **kw)
     df, dev, dec = exclusion_correction(
-        xt, qt, tt, tabs, excl, box=kw["box"], periodic=kw["periodic"],
-        cutsq=kw["cutoff"] ** 2, qqr2e=kw["qqr2e"])
-    np.testing.assert_allclose((f0 + df).numpy(), f1.numpy(), rtol=1e-9,
-                               atol=1e-9)
-    assert float(ev0 + dev) == pytest.approx(float(ev1), rel=1e-12)
-    assert float(ec0 + dec) == pytest.approx(float(ec1), rel=1e-12)
+        jnp.asarray(x), jnp.asarray(q), jnp.asarray(system.type),
+        jtables(system.lj_eps, system.lj_sigma, system.type),
+        (jnp.asarray(exi), jnp.asarray(exv)), box=kw["box"],
+        periodic=kw["periodic"], cutsq=kw["cutoff"] ** 2, qqr2e=kw["qqr2e"])
+    np.testing.assert_allclose(f0.numpy() + np.asarray(df), f1.numpy(),
+                               rtol=1e-9, atol=1e-9)
+    assert float(ev0) + float(dev) == pytest.approx(float(ev1), rel=1e-12)
+    assert float(ec0) + float(dec) == pytest.approx(float(ec1), rel=1e-12)
     assert float(dec) != 0.0
     jf, jev, jec = pair_forces_pallas(
         jnp.asarray(x), jnp.asarray(q), jnp.asarray(system.type),
