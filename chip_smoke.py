@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's six main paths (``lammps_user_conp2_tpu_torch``:
-setup_conp -> build_engine -> init_state -> Engine.run) and exits non-zero
-if any phase fails.
+Drives the port's seven paths (six main paths through
+``lammps_user_conp2_tpu_torch``: setup_conp -> build_engine -> init_state ->
+Engine.run; and the window gather probe ``exp_vmem_gather.run_probe``)
+and exits non-zero if any phase fails.
 
 Mid-size path, the 7,296-atom synthetic capacitor
 ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
@@ -111,6 +112,21 @@ read through the full inverse FFT and the tiled gather:
  23. 2 steps on the card against 2 on the CPU (float64) with phase 9's
      bounds.
 
+Window gather probe, ``exp_vmem_gather`` (K9: R window gathers per lane,
+summed, from a window staged in shared memory) at its shapes (nb, W) =
+(32, 2048), (32, 4096), (8, 8192), and the global-memory gather
+``exp_gather_chunk`` it is measured against:
+
+ 24. K9 against its plain version at the three shapes, R = 8 (2e-5; both
+     add the same float32 terms in order, so the error is 0), timed at
+     (32, 2048); at R = 1, where the function is one ``torch.gather``, K9
+     against and timed beside that call;
+ 25. the probe's chained steps at the three shapes (ms, ns/row,
+     ns/element); K9 must have launched; then the global-memory gather's
+     ns/row (random and local indices, one-shot and in 4/8/16 chunks by
+     indexing, and one-shot with each row gathered as one 16-byte
+     element); both one-shot sums agree (1e-5).
+
 The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
 angle the three constraint directions of a straight cation are parallel,
 so SHAKE corrects along the axis only; the bend that the forces make stays,
@@ -124,8 +140,10 @@ Every kernel's line carries its bound: the larger of the bytes it must
 move (its input tensors read once, its outputs written once) over 3.35
 TB/s and the operations this run's data needs (per-kernel counts below)
 over 67 TFLOP/s, float32 outside the tensor cores (H100 SXM, NVIDIA's
-data sheet); no single PyTorch call computes any of these functions, so
-``library_ms`` is null.  The line before the last is {"kernels": [...]},
+data sheet).  No single PyTorch call computes any of these functions, so
+``library_ms`` is null, with one exception: K9 at R = 1 is
+``torch.gather(win, 1, idx)``, whose time is K9's ``library_ms``, beside
+K9's own at R = 1 (``ms_r1``).  The line before the last is {"kernels": [...]},
 the last line {"ok": true, "device": {...}}.  Needs no network and imports
 no jax.
 """
@@ -376,6 +394,7 @@ def main() -> int:
     launches.update(bonded_path(card, dev, results))
     launches.update(unfused_path(card, dev, results))
     launches.update(fullmesh_path(card, dev, results))
+    launches.update(gather_probe_path(card, dev, results))
     pallas = "lammps_user_conp2_tpu/ops/pallas/"
     replaces = {
         "pair_forces_conp": pallas + "pair_kernel.py:316",
@@ -386,7 +405,8 @@ def main() -> int:
         "gather3": pallas + "pppm_gather.py:100",
         "conp_correction": pallas + "ele_rows_kernel.py:280",
         "shake_positions": pallas + "shake_kernel.py:163",
-        "rattle_velocities": pallas + "shake_kernel.py:207"}
+        "rattle_velocities": pallas + "shake_kernel.py:207",
+        "window_gather": "tools/exp_vmem_gather.py:46"}
     csrc = "lammps_user_conp2_tpu_torch/csrc/"
     source = {
         "pair_forces_conp": csrc + "pair_kernel.cu",
@@ -397,13 +417,15 @@ def main() -> int:
         "gather3": csrc + "pppm_gather.cu",
         "conp_correction": csrc + "ele_rows_kernel.cu",
         "shake_positions": csrc + "shake_kernel.cu",
-        "rattle_velocities": csrc + "shake_kernel.cu"}
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        "rattle_velocities": csrc + "shake_kernel.cu",
+        "window_gather": csrc + "vmem_gather.cu"}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_r1")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
                     max_rel_err=results[name]["rel"],
-                    **{k: results[name][k] for k in keys})
+                    **{k: results[name][k] for k in keys
+                       if k in results[name]})
                for name in replaces]
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(card)
@@ -1000,6 +1022,68 @@ def fullmesh_path(card, dev, results):
     # ---- phase 23: card (float32) against CPU (float64)
     card_vs_cpu("phase 23", eng, system, md, cfg, 2, x0=x_near)
     return {"spread_tiles": launches["spread_tiles"]}
+
+
+def gather_probe_path(card, dev, results):
+    """Phases 24-25, the window gather probe; fills ``results`` for K9 and
+    returns its launch count from the probe run."""
+    from lammps_user_conp2_tpu_torch import exp_gather_chunk, exp_vmem_gather
+    from lammps_user_conp2_tpu_torch.ops.kernels import vmem_gather as k9
+
+    # ---- phase 24: K9 against its plain version at the probe's shapes
+    worst_rel = worst_abs = 0.0
+    for nb, W in exp_vmem_gather.PROBE_SHAPES:
+        win, idx = exp_vmem_gather.probe_inputs(nb, W, dev)
+        kern = lambda: k9.window_gather(win, idx, 8)
+        plain = lambda: k9.window_gather_plain(win, idx, 8)
+        got = kern()
+        torch.cuda.synchronize()
+        rel, dabs = compare(f"window_gather ({nb}, {W}), R=8, cols "
+                            f"{k9.window_cols(W)}", (got,), (plain(),))
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, dabs)
+        if (nb, W) == exp_vmem_gather.PROBE_SHAPES[0]:
+            r = dict(ms=median_ms(kern), plain_ms=median_ms(plain, reps=5))
+            r.update(bound((win, idx), got, 8 * got.numel()))
+            # at R = 1 the function is one torch.gather: the yardstick
+            kern1 = lambda: k9.window_gather(win, idx, 1)
+            lib = lambda: torch.gather(win, 1, idx)
+            compare("window_gather R=1 vs torch.gather", (kern1(),), (lib(),))
+            r.update(ms_r1=median_ms(kern1), library_ms=median_ms(lib))
+            bound_r1 = bound((win, idx), got, got.numel())
+    results["window_gather"] = dict(rel=worst_rel, abs=worst_abs, **r)
+    report("phase 24", results, ("window_gather",), card)
+    print(f"phase 24: window_gather at {exp_vmem_gather.PROBE_SHAPES[0]} R=1 "
+          f"{r['ms_r1']:.4f} ms, "
+          f"torch.gather {r['library_ms']:.4f} ms, bound "
+          f"{bound_r1['bound_ms']:.6f} ms ({bound_r1['bound_by']})  [{card}]")
+
+    # ---- phase 25: the port's probe (chained steps through K9) and the
+    # global-memory gather it is measured against
+    k9.launches.reset()
+    probe = [exp_vmem_gather.run_probe(nb, W, R=8, device=dev)
+             for nb, W in exp_vmem_gather.PROBE_SHAPES]
+    launches = k9.launches.count
+    print(f"phase 25: window_gather launched {launches} times in the probe")
+    if launches < 1:
+        raise AssertionError("phase 25: the probe did not launch K9")
+    if not all(math.isfinite(p["ms"]) and p["ms"] > 0.0 for p in probe):
+        raise AssertionError("phase 25: a probe time is not finite")
+    hbm = exp_gather_chunk.run(device=dev)
+    tab_np, idx_sets = exp_gather_chunk.make_inputs()
+    tab = torch.as_tensor(tab_np, dtype=torch.float32, device=dev)
+    for name, idx_np in idx_sets.items():
+        idx = torch.as_tensor(idx_np, device=dev)
+        compare(f"{name} gather sum, 16-byte elements vs indexing",
+                (exp_gather_chunk.gather_sum_rows(tab, idx),),
+                (exp_gather_chunk.gather_sum(tab, idx),), 1e-5)
+    print("phase 25: ns/row, shared-memory window (K9, R=8): " + ", ".join(
+        f"({p['nb']}, {p['W']}) {p['ns_row']:.4f}" for p in probe)
+        + f"  [{card}]")
+    print("phase 25: ns/row, global-memory gather (5.56M rows): " + ", ".join(
+        f"{h['name']} {h['op']} {h['chunks']}x {h['ns_row']:.4f}"
+        for h in hbm)
+        + f"  [{card}]")
+    return {"window_gather": launches}
 
 
 if __name__ == "__main__":

@@ -133,6 +133,8 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_rattle_velocities_f32.argtypes = (
         [P] * 8 + [I] * 3 + [F] * 3 + [I] * 3 + [P] * 2)
     lib.conp2_rattle_velocities_f32.restype = I
+    lib.conp2_window_gather_f32.argtypes = [P, P] + [I] * 4 + [P, P]
+    lib.conp2_window_gather_f32.restype = I
     return lib
 
 

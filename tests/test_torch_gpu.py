@@ -8,7 +8,8 @@ tiled-PPPM path; K7 and K8 on the ionic-liquid deck; K1 with the cations'
 exclusions on the deck's block path; K6 and not K4 with
 use_pallas_pair=False, whose correction energy from anions 2 A off the
 sheets agrees with the CPU float64 engine's; K2b on the mobile-electrode
-tiled mesh).  Needs a
+tiled mesh); K9, the window gather probe, equals its plain version
+exactly.  Needs a
 CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
@@ -410,3 +411,17 @@ def test_mobile_tiled_engine_launches_k2b(cuda, monkeypatch):
     st, _ = eng.run(eng.init_state(x0=x_near(system)), 3, thermo_every=0)
     torch.cuda.synchronize()
     assert k2.tiles_launches.count == 4 and np.isfinite(float(st.energy))
+
+
+@pytest.mark.parametrize("nb,W", [(4, 512), (2, 8192)])
+def test_window_gather_matches_plain_on_card(cuda, nb, W):
+    from lammps_user_conp2_tpu_torch.exp_vmem_gather import probe_inputs
+    from lammps_user_conp2_tpu_torch.ops.kernels import vmem_gather as k9
+    win, idx = probe_inputs(nb, W, cuda)
+    k9.launches.reset()
+    got = k9.window_gather(win, idx, 8)
+    torch.cuda.synchronize()
+    assert k9.launches.count == 1
+    assert float((got - k9.window_gather_plain(win, idx, 8)).abs().max()) == 0.0
+    with pytest.raises(TypeError):
+        k9.window_gather(win.double(), idx, 8)

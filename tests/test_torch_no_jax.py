@@ -2,8 +2,10 @@
 loaded by conftest), import the port, run S1 for 2 steps on the CPU, run
 the Verlet-list + PPPM path on S3 for 2 steps, write the test-size
 ionic-liquid data file and run il_onelayer (SHAKE/RATTLE) on it for 2
-steps, and check that neither jax nor the JAX package was imported and
-that no CUDA kernel was launched."""
+steps, import the gather probes (``timing``, ``exp_vmem_gather``,
+``exp_gather_chunk``, K9's ``ops.kernels.vmem_gather``) and run K9's
+plain path, and check that neither jax nor the JAX package (nor
+``tools/``) was imported and that no CUDA kernel was launched."""
 
 import json
 import os
@@ -21,12 +23,13 @@ from lammps_user_conp2_tpu_torch.models.conp import setup_conp
 from lammps_user_conp2_tpu_torch.models.md import build_engine
 from lammps_user_conp2_tpu_torch.ops.kernels import (
     block_pair, ele_rows_kernel, pair_kernel, pppm_gather, pppm_spread,
-    shake_kernel)
+    shake_kernel, vmem_gather)
 from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
 import lammps_user_conp2_tpu_torch.interop
 import lammps_user_conp2_tpu_torch.shake_residual
 import lammps_user_conp2_tpu_torch.step_breakdown
 import lammps_user_conp2_tpu_torch.step_breakdown_large
+from lammps_user_conp2_tpu_torch import exp_gather_chunk, exp_vmem_gather, timing
 S64 = dict(solve_dtype=torch.float64, device="cpu")
 C64 = dict(dtype=torch.float64, device="cpu")
 system, md, cfg = workloads.synthetic(64, 4)
@@ -44,10 +47,15 @@ system, md, cfg = workloads.il_onelayer(0, data_path=path)
 md = dataclasses.replace(md, cutoff=7.0, kspace_accuracy=1e-5)
 il = build_engine(system, md, setup_conp(system, md, cfg, **S64), **C64)
 st3, th3 = il.run(il.init_state(), 2)
-mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather)
+probe = exp_vmem_gather.run_probe(2, 32, R=3, device="cpu", iters=2)
+mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather,
+        vmem_gather)
 print(json.dumps(dict(
     jax=[m for m in sys.modules if m == "jax" or m.startswith("jax.")],
     ref=[m for m in sys.modules if m.split(".")[0] == "lammps_user_conp2_tpu"],
+    tools=[m for m in ("timing", "exp_vmem_gather", "exp_gather_chunk")
+           if m in sys.modules],
+    probe_ms=probe["ms"],
     launches=[m.launches.count for m in mods] + [
         shake_kernel.shake_launches.count, shake_kernel.rattle_launches.count],
     step=st.step, energy=float(st.energy), temp=float(th["temp"][-1]),
@@ -62,8 +70,9 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["jax"] == [] and out["ref"] == []
-    assert out["launches"] == [0, 0, 0, 0, 0, 0, 0]
+    assert out["jax"] == [] and out["ref"] == [] and out["tools"] == []
+    assert out["launches"] == [0, 0, 0, 0, 0, 0, 0, 0]
+    assert out["probe_ms"] > 0.0
     assert out["step"] == 2 and out["step2"] == 2 and out["list2"]
     assert out["step3"] == 2 and out["shake3"] and out["temp3"] > 0.0
     assert out["temp"] > 0.0 and abs(out["energy"]) < 1e12
