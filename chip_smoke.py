@@ -17,7 +17,9 @@ pair sweep K4, electrode rows K5):
      source);
   3. K4 and K5 against their plain PyTorch versions on the card, float32,
      at the cell's shapes: max|kernel - plain| / max|plain| <= 2e-5 per
-     output, all finite; median times of both (CUDA events);
+     output, all finite, and two launches bit-identical; median times of
+     both (CUDA events); the pairs K4's tile-pair schedule tests beside
+     the pairs in range;
   4. the main path on the card: float64 setup, float32 run, 10 warm-up and
      100 timed steps from positions near the walls; K4 and K5 must have
      launched every step; finite energy, neutral electrodes;
@@ -52,7 +54,9 @@ mid-size path with SHAKE/RATTLE, K7 and K8):
      / max|plain| <= 5e-5 on x, dv and v; the constraint residual after K7
      no worse than after the plain version; median times.  K4 (with the
      cations' special-bond exclusions, fused correction) and K5 against
-     their plain versions at this cell's shapes (2e-5);
+     their plain versions at this cell's shapes (2e-5), two launches
+     bit-identical, timed with their bounds (``ms_il``, ``bound_ms_il`` in
+     the kernels line), K4's tested and in-range pairs;
  12. the main path: 11 warm-up and 100 timed steps; K4, K5, K7 and K8 must
      have launched every step (111 times; K4 and K5 once more in
      init_state); finite energy, neutral electrodes; the angles' 1-3
@@ -136,12 +140,18 @@ the temperature bound (``shake_residual.py``;
 tests/test_torch_shake_residual.py holds both packages to it over 800
 steps).
 
-Every kernel's line carries its bound: the larger of the bytes it must
-move (its input tensors read once, its outputs written once) over 3.35
-TB/s and the operations this run's data needs (per-kernel counts below)
-over 67 TFLOP/s, float32 outside the tensor cores (H100 SXM, NVIDIA's
-data sheet).  No single PyTorch call computes any of these functions, so
-``library_ms`` is null, with one exception: K9 at R = 1 is
+Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the median of
+single calls, each between two CUDA events, as in every earlier run of
+this script.  K4 and K5 also carry ``host_ms`` (the wrapper's host time
+per call, on the host clock) and ``device_ms`` (their CUDA kernels' device
+time per call, torch.profiler: K4's three, K5's two, the compaction of
+the z order to the electrolyte included).  The il cell's figures carry
+the suffix ``_il``.  Every kernel's line carries its bound: the larger
+of the bytes it must move (its input tensors read once, its outputs
+written once) over 3.35 TB/s and the operations this run's data needs
+(per-kernel counts below) over 67 TFLOP/s, float32 outside the tensor
+cores (H100 SXM, NVIDIA's data sheet).  No single PyTorch call computes
+any of these functions, so ``library_ms`` is null, with one exception: K9 at R = 1 is
 ``torch.gather(win, 1, idx)``, whose time is K9's ``library_ms``, beside
 K9's own at R = 1 (``ms_r1``).  The line before the last is {"kernels": [...]},
 the last line {"ok": true, "device": {...}}.  Needs no network and imports
@@ -172,14 +182,16 @@ IL_F64_BONDS = 2.996e-3
 OUT_DIR = "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-# operations per unit of work, for the bounds: an ordered pair inside the
-# cutoff (LJ and the A&S erfc Coulomb, force and energy, the fused
-# Gaussian correction); an electrode-electrolyte pair inside the Coulomb
-# cutoff of a b row; an atom's order-5 spread (weights by Horner, 125
-# products) and gather (weights and derivatives, three 125-term sums); one
-# SHAKE and one RATTLE slot update; an (electrode, electrolyte) pair of the
-# separate correction sweep, counted once (K6 evaluates each pair twice, once
-# per side, but the function needs it once: the reaction is its negative)
+# operations per unit of work, for the bounds: a pair inside the cutoff
+# (LJ and the A&S erfc Coulomb, force and energy, the fused Gaussian
+# correction; K4's counted once, as the function needs it: the reaction is
+# its negative; K1's per entry of its neighbour list); an
+# electrode-electrolyte pair inside the Coulomb cutoff of a b row; an
+# atom's order-5 spread (weights by Horner, 125 products) and gather
+# (weights and derivatives, three 125-term sums); one SHAKE and one RATTLE
+# slot update; an (electrode, electrolyte) pair of the separate correction
+# sweep, counted once (K6 evaluates each pair twice, once per side, but the
+# function needs it once: the reaction is its negative)
 PAIR_FLOPS = 60
 B_ROW_FLOPS = 40
 SPREAD_FLOPS = 400
@@ -210,6 +222,48 @@ def median_ms(fn, reps=20, warmup=3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def host_ms(fn, reps=50) -> float:
+    """Host time per call of a kernel wrapper: ``reps`` calls enqueued back
+    to back on the host clock, before the synchronise.  Where it exceeds
+    the device time, a CUDA-event time of one call is the host's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def device_ms(fn, parts, reps=20, tag=None) -> float:
+    """Device time per call of the CUDA kernels whose names contain one of
+    ``parts`` (torch.profiler over ``reps`` calls); with ``tag``, each
+    part's share is printed."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = dict.fromkeys(parts, 0.0)
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            for p in parts:
+                if p in e.name:
+                    per[p] += e.time_range.elapsed_us() / reps / 1e3
+    if tag:
+        print(f"    {tag}: device ms per call " + ", ".join(
+            f"{p} {t:.4f}" for p, t in per.items()))
+    return sum(per.values())
+
+
+# the CUDA kernels of each redesigned wrapper, for ``device_ms``
+K4_PARTS = ("pair_schedule", "pair_sweep", "pair_reduce")
+K5_PARTS = ("b_order_kernel", "b_rows_kernel")
 
 
 def compare(name, got, ref, tol=KERNEL_TOL):
@@ -261,6 +315,31 @@ def pairs_within(xa, xb, box, periodic, rc2, same=False) -> int:
                 d[..., ax] -= box[ax] * torch.round(d[..., ax] / box[ax])
         n += int(((d * d).sum(-1) < rc2).sum())
     return n - (xa.shape[0] if same else 0)
+
+
+def same_bits(name, got, again):
+    """Raises unless two launches on the same input gave the same bits."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two launches differ")
+    print(f"    {name}: two launches bit-identical")
+
+
+def k4_pairs(tag, k4, x, zsort, system, cutoff, card, m=0) -> int:
+    """Unordered pairs within the cutoff; printed beside the pairs K4's
+    tile-pair schedule tests (counted in Python from the schedule) and the
+    CTAs of the fused sweep with m special partners per atom."""
+    sched = k4.tile_schedule_plain(zsort[1], x.shape[0], box=system.box,
+                                   periodic=system.periodic, cutoff=cutoff)
+    tested = k4.schedule_pairs(sched, x.shape[0])
+    inrange = pairs_within(x, x, system.box, system.periodic, cutoff ** 2,
+                           same=True) // 2
+    nt = sched.hi.shape[0]
+    ctas = k4.sweep_ctas(True, m, nt * (nt + 1) // 2)
+    print(f"{tag}: K4 schedule {int(sched.off[-1])} of {nt * (nt + 1) // 2} "
+          f"tile pairs, {tested} unordered pairs tested, {inrange} in range "
+          f"({100.0 * inrange / max(tested, 1):.1f}%), fused sweep on {ctas} "
+          f"CTAs of 8 warps  [{card}]")
+    return inrange
 
 
 def agree(tag, s32, s64, ne):
@@ -333,6 +412,7 @@ def main() -> int:
                g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
     fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
     results = {}
+    pairs = k4_pairs("phase 3", k4, x, zsort, system, md.cutoff, card)
     for name, cf in (("pair_forces", None), ("pair_forces_conp", fuse)):
         kern = lambda: k4.pair_forces(x, q, eng.type_idx, eng.tables, None,
                                       zsort=zsort, conp_fuse=cf, **pkw)
@@ -341,14 +421,18 @@ def main() -> int:
         got = kern()
         torch.cuda.synchronize()
         rel, dabs = compare(name, got, plain())
+        same_bits(name, got, kern())
         if cf is not None and not float(got[3].abs()) > 0.0:
             raise AssertionError("pair_forces_conp: ecorr is zero")
+        print(f"    {name}: evdwl {float(got[1]):.6f} / {float(plain()[1]):.6f}"
+              f", ecoul {float(got[2]):.6f} (kernel / plain)")
         results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                             plain_ms=median_ms(plain))
+                             plain_ms=median_ms(plain),
+                             host_ms=host_ms(kern),
+                             device_ms=device_ms(kern, K4_PARTS, tag=name))
         results[name].update(bound(
             (x, q, eng.type_idx, eng.tables, zsort, cf), got,
-            PAIR_FLOPS * pairs_within(x, x, system.box, system.periodic,
-                                      md.cutoff ** 2, same=True)))
+            PAIR_FLOPS * pairs))
     # at x_near the Gaussian correction (clamped at eta r = 5.8, r < 2.93 A)
     # is ~1e-14: hold the fused chain to its plain version where it is large
     x_close = torch.as_tensor(workloads.near_wall_positions(system, margin=3.0),
@@ -371,10 +455,13 @@ def main() -> int:
     got = kern()
     torch.cuda.synchronize()
     rel, dabs = compare("b_realspace", (got,), (plain(),))
+    same_bits("b_realspace", (got,), (kern(),))
     if not float(got.abs().max()) > 0.0:
         raise AssertionError("b_realspace: all rows are zero")
     results["b_realspace"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                                  plain_ms=median_ms(plain))
+                                  plain_ms=median_ms(plain),
+                                  host_ms=host_ms(kern),
+                                  device_ms=device_ms(kern, K5_PARTS))
     results["b_realspace"].update(bound(
         (bargs, zsort), got, B_ROW_FLOPS * pairs_within(
             x[:conp.ne], x[conp.ne:], system.box, system.periodic,
@@ -419,7 +506,8 @@ def main() -> int:
         "shake_positions": csrc + "shake_kernel.cu",
         "rattle_velocities": csrc + "shake_kernel.cu",
         "window_gather": csrc + "vmem_gather.cu"}
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_r1")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_r1",
+            "host_ms", "device_ms", "ms_il", "device_ms_il", "bound_ms_il")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -567,6 +655,7 @@ def il_path(card, dev, results):
     from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
     from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
     from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+    from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
 
     # ---- phase 10: set-up
     t0 = time.perf_counter()
@@ -650,20 +739,44 @@ def il_path(card, dev, results):
     pkw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
                g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
     fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
-    got = k4.pair_forces(x0, q, eng.type_idx, eng.tables, eng.exclusions,
-                         conp_fuse=fuse, **pkw)
+    zsort = z_perm(x0, system.box, system.periodic)
+    pairs = k4_pairs("phase 11", k4, x0, zsort, system, md.cutoff, card,
+                     m=eng.excl_idx.shape[1])
+    kern = lambda: k4.pair_forces(x0, q, eng.type_idx, eng.tables,
+                                  eng.exclusions, zsort=zsort,
+                                  conp_fuse=fuse, **pkw)
+    got = kern()
     torch.cuda.synchronize()
     compare("pair_forces_conp with exclusions", got, k4.pair_forces_plain(
         x0, q, eng.type_idx, eng.tables, eng.exclusions, conp_fuse=fuse,
         **pkw))
+    same_bits("pair_forces_conp with exclusions", got, kern())
+    il = {"pair_forces_conp": dict(
+        ms=median_ms(kern), device_ms=device_ms(
+            kern, K4_PARTS, tag="pair_forces_conp at the il cell"), **bound(
+        (x0, q, eng.type_idx, eng.tables, eng.exclusions, zsort, fuse), got,
+        PAIR_FLOPS * pairs))}
     q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
     bargs = (x0, q_elyte, conp.ele_idx_t, conp.elyte_f, conp.eta_rows,
              conp.fo_rows, conp.type_t)
     bkw = dict(box=system.box, periodic=system.periodic,
                cut_coulsq=conp.cut_coulsq, g_ewald=conp.ksp.g_ewald)
-    got = k5.b_realspace(*bargs, **bkw)
+    kern = lambda: k5.b_realspace(*bargs, zsort=zsort, **bkw)
+    got = kern()
     torch.cuda.synchronize()
     compare("b_realspace", (got,), (k5.b_realspace_plain(*bargs, **bkw),))
+    same_bits("b_realspace", (got,), (kern(),))
+    il["b_realspace"] = dict(ms=median_ms(kern),
+                             device_ms=device_ms(kern, K5_PARTS), **bound(
+        (bargs, zsort), got, B_ROW_FLOPS * pairs_within(
+            x0[:conp.ne], x0[conp.ne:], system.box, system.periodic,
+            conp.cut_coulsq)))
+    for name, r in il.items():
+        results[name].update(ms_il=r["ms"], device_ms_il=r["device_ms"],
+                             bound_ms_il=r["bound_ms"])
+        print(f"phase 11: {name:20s} at the il cell {r['ms']:.4f} ms, device "
+              f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})  [{card}]")
     report("phase 11", results, ("shake_positions", "rattle_velocities"),
            card, SHAKE_TOL)
 
@@ -769,8 +882,11 @@ def report(tag, results, names, card, tol=KERNEL_TOL):
     the bound, beside the card's name and power limit."""
     for name in names:
         r = results[name]
+        extra = "".join(f", {k} {r[k]:.4f} ms" for k in ("host_ms",
+                                                          "device_ms")
+                        if k in r)
         print(f"{tag}: {name:20s} rel err {r['rel']:.3e} (tol {tol}), kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['ms']:.4f} ms{extra}, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']})  [{card}]")
 
 

@@ -59,7 +59,7 @@ struct BlockArgs {
   const float* exv;        // (n, m) their factors s
   int m;                   // 0: no exclusions
   int n, nb, usz, nt1;
-  float bx, by, bz;
+  float bx, by, bz, ibx, iby, ibz;
   int px, py, pz;
   float cutsq, g, qqr2e;
   float* f_out;            // (nb * B, 3) slot order
@@ -154,9 +154,9 @@ __global__ void __launch_bounds__(BP_TB) block_pair_kernel(BlockArgs a) {
     for (int k = lane; k < usz; k += 32) {
       const int j = uid[k];
       if (j >= n || j == iid) continue;
-      const float dx = min_image_rn(__fsub_rn(xi, ux[k]), a.bx, a.px);
-      const float dy = min_image_rn(__fsub_rn(yi, uy[k]), a.by, a.py);
-      const float dz = min_image_rn(__fsub_rn(zi, uz[k]), a.bz, a.pz);
+      const float dx = min_image_rn(__fsub_rn(xi, ux[k]), a.bx, a.ibx, a.px);
+      const float dy = min_image_rn(__fsub_rn(yi, uy[k]), a.by, a.iby, a.py);
+      const float dz = min_image_rn(__fsub_rn(zi, uz[k]), a.bz, a.ibz, a.pz);
       const float rsq = rsq_rn(dx, dy, dz);
       if (!(rsq < a.cutsq)) continue;
       const int tj = ut[k];
@@ -292,8 +292,9 @@ int conp2_block_pair_f32(const float* x, const float* q, const int64_t* type,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   conp2::BlockArgs a{x, q, type, ele_f, ely_f, un, rows, lj, gtab, exi, exv,
-                     m, n, nb, usz, nt1, bx, by, bz, px, py, pz, cutsq,
-                     g_ewald, qqr2e, f_out, partials};
+                     m, n, nb, usz, nt1, bx, by, bz, 1.0f / bx, 1.0f / by,
+                     1.0f / bz, px, py, pz, cutsq, g_ewald, qqr2e, f_out,
+                     partials};
   const size_t smem = static_cast<size_t>(usz) * 7 * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fuse = ele_f != nullptr;

@@ -41,14 +41,23 @@ __device__ __forceinline__ float min_image(float d, float len, float inv_len,
 }
 
 // minimum image and |d|^2 evaluated exactly as the plain PyTorch versions
-// evaluate them, op for op with round-to-nearest and no FMA contraction:
+// evaluate them, with round-to-nearest and no FMA contraction:
 // d - L * round(d / L) and ((dx*dx + dy*dy) + dz*dz).  A pair then lies
 // inside the cutoff in the kernel iff it does in the plain version, which
-// matters where a lattice spacing equals the cutoff.
+// matters where a lattice spacing equals the cutoff.  d / L matters only
+// through its rounding, which d * inv_len (inv_len = 1/L) gives unless the
+// product lies within 1e-5 (per unit of |d/L|) of a half-integer (its error
+// is ~2e-7 of it); there the true quotient decides.  So the value is the
+// division form's, at a multiply's cost.
 __device__ __forceinline__ float min_image_rn(float d, float len,
-                                              int periodic) {
-  return periodic ? __fsub_rn(d, __fmul_rn(len, rintf(__fdiv_rn(d, len))))
-                  : d;
+                                              float inv_len, int periodic) {
+  if (!periodic) return d;
+  const float t = d * inv_len;
+  float k = rintf(t);
+  if (fabsf(fabsf(t - k) - 0.5f) < 1e-5f * (1.0f + fabsf(t))) {
+    k = rintf(__fdiv_rn(d, len));
+  }
+  return __fsub_rn(d, __fmul_rn(len, k));
 }
 
 __device__ __forceinline__ float rsq_rn(float dx, float dy, float dz) {

@@ -11,17 +11,25 @@
 //
 // What bounds it on this card: the per-pair transcendental chain -- two exp,
 // two rsqrt and two A&S polynomials with their divisions per pair in range
-// -- not bytes: positions, charges and the sort keys of every atom fit in
-// L2.
+// -- and the dependent loads of each column (its atom index, then its
+// position, charge and type), not bytes: positions, charges and the sort
+// keys of every atom fit in L2.
 //
-// Design: the columns are z-sorted (perm, zs from ops/kernels/zorder.z_perm).
-// One thread owns one electrode row and binary-searches the sorted keys for
-// the column window whose z lies within sqrt(cut_coulsq) + Z_MARGIN of its
-// own (three windows on a periodic z, one per image; the whole range when
-// the window spans the box).  It sums over the electrolyte columns of the
-// window only (the electrode columns are skipped by flag, never by
-// distance) and writes b_i once.  Neighbouring electrode rows sit on the
-// same lattice plane, so the threads of a warp walk the same windows.
+// Design: K6's pass 1.  One warp owns one electrode row (B_WARPS rows per
+// CTA: the 1,152 rows of the 7,296-atom cell make 144 CTAs on 132 SMs, a
+// thread per row made 36 single-warp CTAs).  The columns are the
+// electrolyte alone, by order, not by a flag: a first kernel (b_order, one
+// CTA) compacts the step's shared z order (zorder.z_perm) to its
+// electrolyte atoms, stably, by a fixed-order block scan over the flags,
+// and writes their count to the device, so a window never holds an
+// electrode column (64% of the window columns at 7,296 atoms, 92% on the
+// ionic-liquid cell were electrodes skipped by flag), whatever the atoms'
+// layout, with no second sort and no host sync.  The warp binary-searches
+// that order for the z window within sqrt(cut_coulsq) + Z_MARGIN of its row
+// (three windows on a periodic z, one per image; the whole range when the
+// window spans the box), its lanes stride over the window's columns, and a
+// fixed-order warp sum forms b_i, written once.  |d|^2 is formed as the plain version forms it, to the
+// bit (common.cuh min_image_rn, rsq_rn).
 //
 // K6, the Gaussian correction over (electrode i, electrolyte j) pairs with
 // r < cutoff (fix_conp.cpp:1368-1444 blist_coul_cal_post_force):
@@ -57,24 +65,11 @@
 
 namespace conp2 {
 
-constexpr int B_TB = 32;          // electrode rows per block
-
-struct BArgs {
-  const float* x;          // (n, 3) original order
-  const float* q;          // (n,) electrolyte charges (0 on electrodes)
-  const int64_t* ele_idx;  // (ne,) electrode row -> atom index
-  const float* ely_f;      // (n,) 1 = electrolyte column
-  const float* eta_rows;   // (ne, nt1) Gaussian width of (row, column type)
-  const float* fo_rows;    // (ne, nt1) overlap prefactor of (row, column type)
-  const int64_t* type;     // (n,)
-  const int64_t* perm;     // (n,) sorted position -> atom index
-  const float* zs;         // (n,) sorted wrapped z keys
-  int n, ne, nt1;
-  float bx, by, bz, ibx, iby, ibz;
-  int px, py, pz;
-  float cutsq, zcut, g;
-  float* b_out;            // (ne,)
-};
+constexpr int B_WARPS = 8;        // electrode rows (one warp each) per CTA
+constexpr int B_TB = 32 * B_WARPS;
+constexpr int ORD_TB = 1024;      // the one CTA of b_order
+constexpr int ORD_ITEMS = 4;      // consecutive sorted positions per thread
+static_assert(ORD_TB == 32 * 32, "b_order scans 32 warp totals in one warp");
 
 // first sorted position with zs[k] >= v (upper = false) or zs[k] > v
 __device__ __forceinline__ int search(const float* zs, int n, float v,
@@ -92,43 +87,133 @@ __device__ __forceinline__ int search(const float* zs, int n, float v,
   return lo;
 }
 
+// the z windows of a row at z in n sorted keys: [lo, hi) ranges, up to 3
+// (one per image on a periodic z; the whole range when 2 zcut spans it)
+__device__ __forceinline__ int z_windows(const float* zs, int n, float z,
+                                         float bz, float ibz, int pz,
+                                         float zcut, int* lo, int* hi) {
+  const float zw = pz ? z - bz * floorf(z * ibz) : z;
+  float wl[3], wh[3];
+  int nwin = 1;
+  wl[0] = zw - zcut;
+  wh[0] = zw + zcut;
+  if (pz) {
+    if (2.0f * zcut >= bz) {
+      wl[0] = -INFINITY;
+      wh[0] = INFINITY;
+    } else {
+      nwin = 3;
+      wl[1] = wl[0] + bz;
+      wh[1] = wh[0] + bz;
+      wl[2] = wl[0] - bz;
+      wh[2] = wh[0] - bz;
+    }
+  }
+  for (int w = 0; w < nwin; ++w) {
+    lo[w] = search(zs, n, wl[w], false);
+    hi[w] = search(zs, n, wh[w], true);
+  }
+  return nwin;
+}
+
+struct BArgs {
+  const float* x;          // (n, 3) original order
+  const float* q;          // (n,) electrolyte charges (0 on electrodes)
+  const int64_t* ele_idx;  // (ne,) electrode row -> atom index
+  const float* eta_rows;   // (ne, nt1) Gaussian width of (row, column type)
+  const float* fo_rows;    // (ne, nt1) overlap prefactor of (row, column type)
+  const int64_t* type;     // (n,)
+  const int* perm;         // the electrolyte's atoms in z order (the first
+  const float* zs;         // *ncols entries) and their sorted z keys
+  const int* ncols;        // (1,) their count, written on the device
+  int ne, nt1;
+  float bx, by, bz, ibx, iby, ibz;
+  int px, py, pz;
+  float cutsq, zcut, g;
+  float* b_out;            // (ne,)
+};
+
+// one CTA: the electrolyte's z order, the entries of the full z order
+// (perm, zs) whose atom has ely_f > 0, in the same order, into (cperm, czs),
+// and their count into *ncols.  Chunks of ORD_TB * ORD_ITEMS sorted
+// positions; thread t takes ORD_ITEMS consecutive ones, and a fixed-order
+// block scan (warp shuffles, then the warp totals) places each kept entry.
+__global__ void __launch_bounds__(ORD_TB)
+b_order_kernel(const int64_t* perm, const float* zs, const float* ely_f,
+               int n, int* cperm, float* czs, int* ncols) {
+  __shared__ int wofs[ORD_TB / 32];
+  __shared__ int chunk_total;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  int base = 0;
+  for (int c0 = 0; c0 < n; c0 += ORD_TB * ORD_ITEMS) {
+    const int k0 = c0 + tid * ORD_ITEMS;
+    int atom[ORD_ITEMS];
+    unsigned keep = 0u;
+    for (int i = 0; i < ORD_ITEMS; ++i) {
+      atom[i] = 0;
+      if (k0 + i < n) {
+        atom[i] = static_cast<int>(perm[k0 + i]);
+        if (ely_f[atom[i]] > 0.f) keep |= 1u << i;
+      }
+    }
+    const int cnt = __popc(keep);
+    int inc = cnt;                          // inclusive scan over the warp
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += v;
+    }
+    if (lane == 31) wofs[wid] = inc;
+    __syncthreads();
+    if (wid == 0) {                         // scan of the 32 warp totals
+      const int w = wofs[lane];
+      int winc = w;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, winc, o);
+        if (lane >= o) winc += v;
+      }
+      wofs[lane] = winc - w;
+      if (lane == 31) chunk_total = winc;
+    }
+    __syncthreads();
+    int pos = base + wofs[wid] + inc - cnt;
+    for (int i = 0; i < ORD_ITEMS; ++i) {
+      if (keep & (1u << i)) {
+        cperm[pos] = atom[i];
+        czs[pos] = zs[k0 + i];
+        ++pos;
+      }
+    }
+    base += chunk_total;
+    __syncthreads();                        // wofs, chunk_total reused
+  }
+  if (tid == 0) *ncols = base;
+}
+
 __global__ void __launch_bounds__(B_TB) b_rows_kernel(BArgs a) {
-  const int r = blockIdx.x * B_TB + threadIdx.x;
-  if (r >= a.ne) return;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * B_WARPS + (threadIdx.x >> 5);
+  if (r >= a.ne) return;                 // warp-uniform
   const int64_t ai = a.ele_idx[r];
   const float xi = a.x[3 * ai], yi = a.x[3 * ai + 1], zi = a.x[3 * ai + 2];
   const float* eta = a.eta_rows + static_cast<int64_t>(r) * a.nt1;
   const float* fov = a.fo_rows + static_cast<int64_t>(r) * a.nt1;
-  const float zw = a.pz ? zi - a.bz * floorf(zi * a.ibz) : zi;
-
-  float wlo[3], whi[3];
-  int nwin = 1;
-  wlo[0] = zw - a.zcut;
-  whi[0] = zw + a.zcut;
-  if (a.pz) {
-    if (2.0f * a.zcut >= a.bz) {
-      wlo[0] = -INFINITY;
-      whi[0] = INFINITY;
-    } else {
-      nwin = 3;
-      wlo[1] = wlo[0] + a.bz;
-      whi[1] = whi[0] + a.bz;
-      wlo[2] = wlo[0] - a.bz;
-      whi[2] = whi[0] - a.bz;
-    }
-  }
+  int lo[3], hi[3];
+  const int nwin = z_windows(a.zs, *a.ncols, zi, a.bz, a.ibz, a.pz, a.zcut,
+                             lo, hi);
   const float g = a.g;
   float acc = 0.f;
   for (int w = 0; w < nwin; ++w) {
-    const int lo = search(a.zs, a.n, wlo[w], false);
-    const int hi = search(a.zs, a.n, whi[w], true);
-    for (int k = lo; k < hi; ++k) {
-      const int64_t aj = a.perm[k];
-      if (!(a.ely_f[aj] > 0.f)) continue;
-      const float dx = min_image(xi - a.x[3 * aj], a.bx, a.ibx, a.px);
-      const float dy = min_image(yi - a.x[3 * aj + 1], a.by, a.iby, a.py);
-      const float dz = min_image(zi - a.x[3 * aj + 2], a.bz, a.ibz, a.pz);
-      const float rsq = dx * dx + dy * dy + dz * dz;
+    for (int k = lo[w] + lane; k < hi[w]; k += 32) {
+      const int aj = a.perm[k];
+      const float dx = min_image_rn(__fsub_rn(xi, a.x[3 * aj]), a.bx,
+                                    a.ibx, a.px);
+      const float dy = min_image_rn(__fsub_rn(yi, a.x[3 * aj + 1]), a.by,
+                                    a.iby, a.py);
+      const float dz = min_image_rn(__fsub_rn(zi, a.x[3 * aj + 2]), a.bz,
+                                    a.ibz, a.pz);
+      const float rsq = rsq_rn(dx, dy, dz);
       if (!(rsq < a.cutsq)) continue;
       const int tj = static_cast<int>(a.type[aj]);
       const float et = eta[tj];
@@ -141,7 +226,8 @@ __global__ void __launch_bounds__(B_TB) b_rows_kernel(BArgs a) {
       acc -= dudq * a.q[aj];
     }
   }
-  a.b_out[r] = acc;
+  acc = warp_sum(acc);
+  if (lane == 0) a.b_out[r] = acc;
 }
 
 constexpr int C_WARPS = 8;        // rows (one warp each) per block of K6
@@ -159,39 +245,12 @@ struct CorrArgs {
   const int64_t* perm;     // (n,) sorted position -> atom index
   const float* zs;         // (n,) sorted wrapped z keys
   int n, ne, nt1;
-  float bx, by, bz, ibz;
+  float bx, by, bz, ibx, iby, ibz;
   int px, py, pz;
   float cutsq, zcut, qqr2e;
   float* f_out;            // (n, 3) original order
   float* partials;         // (ceil(ne / C_WARPS),) per-block energy sums
 };
-
-// the z windows of a row at z (wrapped): [lo, hi) sorted ranges, up to 3
-__device__ __forceinline__ int z_windows(const CorrArgs& a, float z, int* lo,
-                                         int* hi) {
-  const float zw = a.pz ? z - a.bz * floorf(z * a.ibz) : z;
-  float wl[3], wh[3];
-  int nwin = 1;
-  wl[0] = zw - a.zcut;
-  wh[0] = zw + a.zcut;
-  if (a.pz) {
-    if (2.0f * a.zcut >= a.bz) {
-      wl[0] = -INFINITY;
-      wh[0] = INFINITY;
-    } else {
-      nwin = 3;
-      wl[1] = wl[0] + a.bz;
-      wh[1] = wh[0] + a.bz;
-      wl[2] = wl[0] - a.bz;
-      wh[2] = wh[0] - a.bz;
-    }
-  }
-  for (int w = 0; w < nwin; ++w) {
-    lo[w] = search(a.zs, a.n, wl[w], false);
-    hi[w] = search(a.zs, a.n, wh[w], true);
-  }
-  return nwin;
-}
 
 // one (electrode e, electrolyte l) pair from the electrode's side: adds
 // F_el to f (the force on e; -F_el acts on l) and e_el to en when r is
@@ -199,11 +258,11 @@ __device__ __forceinline__ int z_windows(const CorrArgs& a, float z, int* lo,
 __device__ __forceinline__ void corr_pair(const CorrArgs& a, int64_t ae,
                                           int64_t al, float* f, float* en) {
   const float dx = min_image_rn(__fsub_rn(a.x[3 * ae], a.x[3 * al]), a.bx,
-                                a.px);
+                                a.ibx, a.px);
   const float dy = min_image_rn(__fsub_rn(a.x[3 * ae + 1], a.x[3 * al + 1]),
-                                a.by, a.py);
+                                a.by, a.iby, a.py);
   const float dz = min_image_rn(__fsub_rn(a.x[3 * ae + 2], a.x[3 * al + 2]),
-                                a.bz, a.pz);
+                                a.bz, a.ibz, a.pz);
   const float rsq = rsq_rn(dx, dy, dz);
   if (!(rsq < a.cutsq)) return;
   const int t = static_cast<int>(a.type[ae]) * a.nt1 +
@@ -236,7 +295,8 @@ __global__ void __launch_bounds__(C_TB) corr_ele_kernel(CorrArgs a) {
   if (r < a.ne) {
     ae = a.ele_idx[r];
     int lo[3], hi[3];
-    const int nwin = z_windows(a, a.x[3 * ae + 2], lo, hi);
+    const int nwin = z_windows(a.zs, a.n, a.x[3 * ae + 2], a.bz, a.ibz, a.pz,
+                               a.zcut, lo, hi);
     for (int win = 0; win < nwin; ++win) {
       for (int k = lo[win] + lane; k < hi[win]; k += 32) {
         const int64_t al = a.perm[k];
@@ -275,7 +335,8 @@ __global__ void __launch_bounds__(C_TB) corr_ely_kernel(CorrArgs a) {
   float f[3] = {0.f, 0.f, 0.f};
   float en = 0.f;
   int lo[3], hi[3];
-  const int nwin = z_windows(a, a.x[3 * al + 2], lo, hi);
+  const int nwin = z_windows(a.zs, a.n, a.x[3 * al + 2], a.bz, a.ibz, a.pz,
+                             a.zcut, lo, hi);
   for (int win = 0; win < nwin; ++win) {
     for (int k = lo[win] + lane; k < hi[win]; k += 32) {
       const int64_t ae = a.perm[k];
@@ -331,8 +392,8 @@ int conp2_conp_correction_f32(const float* x, const float* q,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   conp2::CorrArgs a{x, q, type, ele_idx, ele_f, ely_f, gtab, perm, zs, n, ne,
-                    nt1, bx, by, bz, 1.0f / bz, px, py, pz, cutsq, zcut,
-                    qqr2e, f_out, partials};
+                    nt1, bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz, px, py,
+                    pz, cutsq, zcut, qqr2e, f_out, partials};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb_e = (ne + conp2::C_WARPS - 1) / conp2::C_WARPS;
   const int nb_a = (n + conp2::C_WARPS - 1) / conp2::C_WARPS;
@@ -342,24 +403,42 @@ int conp2_conp_correction_f32(const float* x, const float* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// b_out (ne,) float32.  Returns cudaGetLastError().
+// the electrolyte's z order alone (K5's first kernel) into
+// order (2n + 1 int32: the atom indices, the keys as float32, the count).
+// Returns cudaGetLastError().
+int conp2_b_order_i32(const int64_t* perm, const float* zs,
+                      const float* ely_f, int n, int* order, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  conp2::b_order_kernel<<<1, conp2::ORD_TB, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      perm, zs, ely_f, n, order, reinterpret_cast<float*>(order + n),
+      order + 2 * n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// b_out (ne,) float32 over the electrolyte columns (ely_f > 0) of the full
+// z order (perm, zs), which b_order_kernel compacts into the workspace
+// order (2n + 1 int32) first.  Returns cudaGetLastError().
 int conp2_b_realspace_f32(const float* x, const float* q_elyte,
                           const int64_t* ele_idx, const float* ely_f,
                           const float* eta_rows, const float* fo_rows,
                           const int64_t* type, const int64_t* perm,
-                          const float* zs, int n, int ne, int nt1,
-                          float bx, float by, float bz, int px, int py, int pz,
-                          float cutsq, float zcut, float g_ewald, float* b_out,
-                          void* stream) {
+                          const float* zs, int n, int ne, int nt1, float bx,
+                          float by, float bz, int px, int py, int pz,
+                          float cutsq, float zcut, float g_ewald, int* order,
+                          float* b_out, void* stream) {
   if (n <= 0 || ne <= 0 || nt1 <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  conp2::BArgs a{x, q_elyte, ele_idx, ely_f, eta_rows, fo_rows, type, perm,
-                 zs, n, ne, nt1, bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz,
-                 px, py, pz, cutsq, zcut, g_ewald, b_out};
-  const int nblocks = (ne + conp2::B_TB - 1) / conp2::B_TB;
-  conp2::b_rows_kernel<<<nblocks, conp2::B_TB, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* czs = reinterpret_cast<float*>(order + n);
+  conp2::b_order_kernel<<<1, conp2::ORD_TB, 0, s>>>(perm, zs, ely_f, n,
+                                                    order, czs, order + 2 * n);
+  conp2::BArgs a{x, q_elyte, ele_idx, eta_rows, fo_rows, type, order, czs,
+                 order + 2 * n, ne, nt1, bx, by, bz, 1.0f / bx, 1.0f / by,
+                 1.0f / bz, px, py, pz, cutsq, zcut, g_ewald, b_out};
+  const int nblocks = (ne + conp2::B_WARPS - 1) / conp2::B_WARPS;
+  conp2::b_rows_kernel<<<nblocks, conp2::B_TB, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

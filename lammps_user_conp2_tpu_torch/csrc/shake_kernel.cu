@@ -41,6 +41,7 @@ constexpr float SH_DENOM_MIN = 1e-12f;
 
 struct ShBox {
   float len[3];
+  float inv[3];            // 1 / len
   int periodic[3];
 };
 
@@ -136,7 +137,7 @@ shake_kernel(const float* __restrict__ xn, const float* __restrict__ xo,
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
       ro[s][ax] = min_image_rn(__fsub_rn(xo[3 * ai + ax], xo[3 * aj + ax]),
-                               box.len[ax], box.periodic[ax]);
+                               box.len[ax], box.inv[ax], box.periodic[ax]);
     }
   }
   for (int it = 0; it < SH_ITERS; ++it) {
@@ -147,7 +148,7 @@ shake_kernel(const float* __restrict__ xn, const float* __restrict__ xo,
       for (int ax = 0; ax < 3; ++ax) {
         rn[ax] = min_image_rn(__fsub_rn(pick<K>(xc, si[s], ax),
                                         pick<K>(xc, sj[s], ax)),
-                              box.len[ax], box.periodic[ax]);
+                              box.len[ax], box.inv[ax], box.periodic[ax]);
       }
       const float diff = __fsub_rn(dot3_rn(rn, rn), d2[s]);
       const float denom = __fmul_rn(isum2[s], dot3_rn(rn, ro[s]));
@@ -204,7 +205,7 @@ rattle_kernel(const float* __restrict__ xp, const float* __restrict__ vp,
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
       r[s][ax] = min_image_rn(__fsub_rn(xp[3 * ai + ax], xp[3 * aj + ax]),
-                              box.len[ax], box.periodic[ax]);
+                              box.len[ax], box.inv[ax], box.periodic[ax]);
     }
     const float d = __fmul_rn(__fadd_rn(imi[s], imj[s]), dot3_rn(r[s], r[s]));
     den[s] = d > SH_DENOM_MIN ? d : SH_DENOM_MIN;
@@ -251,7 +252,8 @@ int conp2_shake_positions_f32(const float* xn, const float* xo,
                               float lz, int px, int py, int pz, float* x,
                               float* dv, void* stream) {
   if (m <= 0) return 0;
-  const conp2::ShBox box{{lx, ly, lz}, {px, py, pz}};
+  const conp2::ShBox box{{lx, ly, lz}, {1.0f / lx, 1.0f / ly, 1.0f / lz},
+                            {px, py, pz}};
   const int nblocks = (m + conp2::SH_TB - 1) / conp2::SH_TB;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CONP2_SHAKE_LAUNCH(KK, CC)                                          \
@@ -276,7 +278,8 @@ int conp2_rattle_velocities_f32(const float* xp, const float* vp,
                                 float lz, int px, int py, int pz, float* vout,
                                 void* stream) {
   if (m <= 0) return 0;
-  const conp2::ShBox box{{lx, ly, lz}, {px, py, pz}};
+  const conp2::ShBox box{{lx, ly, lz}, {1.0f / lx, 1.0f / ly, 1.0f / lz},
+                            {px, py, pz}};
   const int nblocks = (m + conp2::SH_TB - 1) / conp2::SH_TB;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CONP2_RATTLE_LAUNCH(KK, CC)                                         \

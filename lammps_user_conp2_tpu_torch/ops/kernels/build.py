@@ -105,13 +105,16 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.conp2_pair_forces_f32.argtypes = (
-        [P] * 11 + [I, I, I] + [F, F, F] + [I, I, I] + [F, F, F, F]
-        + [P, P, P, P])
+        [P] * 15 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 5 + [I] + [P] * 6)
     lib.conp2_pair_forces_f32.restype = I
-    lib.conp2_pair_tile_rows.argtypes = []
-    lib.conp2_pair_tile_rows.restype = I
+    lib.conp2_pair_sweep_ctas.argtypes = [I, I, I]
+    lib.conp2_pair_sweep_ctas.restype = I
+    lib.conp2_pair_schedule_i32.argtypes = [P, I, I, F, F, P, P]
+    lib.conp2_pair_schedule_i32.restype = I
     lib.conp2_b_realspace_f32.argtypes = (
-        [P] * 9 + [I, I, I] + [F, F, F] + [I, I, I] + [F, F, F] + [P, P])
+        [P] * 9 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 3)
+    lib.conp2_b_order_i32.argtypes = [P, P, P, I, P, P]
+    lib.conp2_b_order_i32.restype = I
     lib.conp2_b_realspace_f32.restype = I
     lib.conp2_conp_correction_f32.argtypes = (
         [P] * 9 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
@@ -155,5 +158,8 @@ def check_status(name: str, status: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_ptr(device: torch.device = None) -> int:
+    """The current CUDA stream of ``device`` (default: the current device)
+    as an int, read without building a Stream object."""
+    index = torch.cuda.current_device() if device is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

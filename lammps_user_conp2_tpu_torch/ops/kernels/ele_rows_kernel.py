@@ -18,7 +18,9 @@ fo from the (T+1, T+1) type tables (fix_conp.cpp:1368-1444).
 ``b_realspace`` and ``conp_correction`` launch their kernels for CUDA
 float32 tensors and take the plain versions for CPU tensors.  Neither
 kernel has a fixed capacity: every row searches its own z window, so
-nothing can overflow.
+nothing can overflow.  K5's windows hold electrolyte columns only: its
+first kernel compacts the shared z order to the electrolyte
+(``elyte_order``), K6 searches the order of every atom.
 """
 
 from __future__ import annotations
@@ -59,6 +61,32 @@ def b_realspace_plain(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
     return torch.cat(out)
 
 
+def elyte_order_plain(perm, zs, elyte_mask_f):
+    """The electrolyte's z order: the entries of the full z order (perm,
+    zs) whose atom has elyte_mask_f > 0, in the same order -- the plain
+    version of K5's first kernel (``b_order_kernel``)."""
+    keep = elyte_mask_f[perm] > 0
+    return perm[keep], zs[keep]
+
+
+def elyte_order(perm, zs, elyte_mask_f):
+    """``elyte_order_plain`` on the CPU; on CUDA tensors K5's first kernel
+    alone (``b_realspace`` runs it inside its launch), returning int32
+    atom indices and the float32 keys, cut to their count (one host sync:
+    a test entry, not the step's)."""
+    if perm.device.type == "cpu":
+        return elyte_order_plain(perm, zs, elyte_mask_f)
+    build.check_cuda("elyte_order", torch.float32, zs, elyte_mask_f)
+    build.check_cuda("elyte_order", torch.int64, perm)
+    n = perm.shape[0]
+    order = torch.empty(2 * n + 1, dtype=torch.int32, device=perm.device)
+    build.check_status("elyte_order", build.load_library().conp2_b_order_i32(
+        perm.data_ptr(), zs.data_ptr(), elyte_mask_f.data_ptr(), n,
+        order.data_ptr(), build.stream_ptr(perm.device)))
+    m = int(order[2 * n])
+    return order[:m], order[n:2 * n].view(torch.float32)[:m]
+
+
 def b_realspace(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
                 type_idx, *, box, periodic, cut_coulsq, g_ewald, zsort=None):
     """Real-space b rows (Ne,) for the electrodes ``ele_idx``.
@@ -66,7 +94,9 @@ def b_realspace(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
     x (N,3); q_elyte (N,) charges with the electrodes zeroed; elyte_mask_f
     (N,) 1.0 = electrolyte; eta_rows/fo_rows (Ne, T+1); type_idx (N,) int64.
     ``zsort``: (perm, z_sorted) from ``zorder.z_perm`` at these positions
-    (computed here when None)."""
+    (computed here when None); the launch compacts it to the electrolyte
+    by ``elyte_mask_f`` on the device (``elyte_order``), so the rows'
+    windows hold electrolyte columns only, in any layout of the atoms."""
     kw = dict(box=box, periodic=periodic, cut_coulsq=cut_coulsq,
               g_ewald=g_ewald)
     if x.device.type == "cpu":
@@ -88,6 +118,8 @@ def b_realspace(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
                          "types, perm, z keys (N,)")
     if eta_rows.shape != (ne, nt1) or fo_rows.shape != (ne, nt1):
         raise ValueError("b_realspace: eta_rows/fo_rows must be (Ne, T+1)")
+    # the workspace of the electrolyte's order: atom indices, keys, count
+    order = torch.empty(2 * n + 1, dtype=torch.int32, device=x.device)
     b = torch.empty((ne,), dtype=x.dtype, device=x.device)
     lib = build.load_library()
     status = lib.conp2_b_realspace_f32(
@@ -96,7 +128,8 @@ def b_realspace(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
         type_idx.data_ptr(), perm.data_ptr(), zs.data_ptr(), n, ne, nt1,
         *[float(v) for v in box], *[int(bool(p)) for p in periodic],
         float(cut_coulsq), math.sqrt(float(cut_coulsq)) + Z_MARGIN,
-        float(g_ewald), b.data_ptr(), build.stream_ptr())
+        float(g_ewald), order.data_ptr(), b.data_ptr(),
+        build.stream_ptr(x.device))
     build.check_status("b_realspace", status)
     launches.count += 1
     return b

@@ -6,14 +6,22 @@ the CUDA kernel ``csrc/pair_kernel.cu`` and its plain PyTorch version.
 the JAX package's ``pair_forces_pallas``, except that atom types index the
 (T+1, T+1) tables directly (no one-hot operands).
 
-The kernel has no fixed capacity (it walks every column tile and culls by
-z), so nothing can overflow and nothing is regrown.  Special-bond
-exclusions are applied per pair inside the kernel, as the plain version
+The kernel evaluates each unordered pair once (Newton's third law, as the
+TPU kernel does) over a schedule of (row tile, column tile) work items:
+tiles of ``TILE`` consecutive atoms of the z order, each row tile paired
+with the tiles at or after it whose z span lies within the cutoff
+(``tile_schedule``).  Every work item has its own slot in a side buffer
+sized by the tile-pair triangle, so nothing can overflow and nothing is
+regrown.  Special-bond exclusions are applied per pair inside the kernel,
+from the row atom's list (the lists are symmetric), as the plain version
 applies them (the JAX package sweeps at s = 1 and corrects afterwards,
 which cancels catastrophically in float32 at bonded distances).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -23,6 +31,89 @@ from . import build
 from .zorder import Z_MARGIN, z_perm
 
 launches = build.LaunchCounter("pair_forces")
+TILE = 32          # atoms per tile: one warp lane each (csrc/pair_kernel.cu)
+SLOT = 6 * TILE    # side-buffer floats per work item (row and column forces)
+
+
+class TileSchedule(NamedTuple):
+    """The tile-pair work items of the z-sorted atoms, T = ceil(N / TILE)
+    tiles.  Row tile I pairs with the direct range [I, hi[I]] and the
+    wrapped range [wp[I], T) (empty: wp[I] = T; periodic z only); its items
+    are [off[I], off[I+1]), in ascending column tile.  Column tile J is
+    reached by the row tiles [lo_col[J], J] (direct) and [0, wc[J])
+    (wrapped)."""
+    off: torch.Tensor       # (T + 1,)
+    hi: torch.Tensor        # (T,)
+    wp: torch.Tensor        # (T,)
+    lo_col: torch.Tensor    # (T,)
+    wc: torch.Tensor        # (T,)
+
+
+def tile_schedule_plain(zs, n, *, box, periodic, cutoff) -> TileSchedule:
+    """The schedule from the sorted z keys ``zs`` (N,) with searchsorted on
+    the tiles' first and last keys, the cull of ``cutoff + Z_MARGIN``: the
+    plain version of the kernel's ``pair_schedule`` (the same float32
+    bounds on float32 keys).  int64 tensors on ``zs``'s device."""
+    nt = -(-n // TILE)
+    zcut = float(cutoff) + Z_MARGIN
+    tiles = torch.arange(nt, device=zs.device)
+    t_lo = zs[::TILE].contiguous()
+    t_hi = zs[torch.clamp((tiles + 1) * TILE, max=n) - 1].contiguous()
+    hi = torch.maximum(torch.searchsorted(t_lo, t_hi + zcut, right=True) - 1,
+                       tiles)
+    if periodic[2]:
+        w = torch.searchsorted(t_hi, t_lo + (float(box[2]) - zcut))
+        wp = torch.maximum(w, hi + 1)
+    else:
+        w = wp = torch.full_like(hi, nt)
+    cnt = hi - tiles + 1 + (nt - wp)
+    off = torch.cat([cnt.new_zeros(1), torch.cumsum(cnt, 0)])
+    lo_col = torch.searchsorted(hi, tiles)
+    wc = torch.minimum(torch.searchsorted(w, tiles, right=True), lo_col)
+    return TileSchedule(off, hi, wp, lo_col, wc)
+
+
+def tile_schedule(zs, n, *, box, periodic, cutoff) -> TileSchedule:
+    """``tile_schedule_plain`` on the CPU; for CUDA float32 keys the
+    kernel's own schedule (``pair_schedule``, int32), which ``pair_forces``
+    computes inside its launch."""
+    kw = dict(box=box, periodic=periodic, cutoff=cutoff)
+    if zs.device.type == "cpu":
+        return tile_schedule_plain(zs, n, **kw)
+    build.check_cuda("tile_schedule", torch.float32, zs)
+    nt = -(-n // TILE)
+    zcut = float(cutoff) + Z_MARGIN
+    sched = torch.empty(6 * nt + 1 + nt * (nt + 1) // 2, dtype=torch.int32,
+                        device=zs.device)
+    lib = build.load_library()
+    build.check_status("tile_schedule", lib.conp2_pair_schedule_i32(
+        zs.data_ptr(), n, int(bool(periodic[2])), zcut,
+        float(box[2]) - zcut, sched.data_ptr(), build.stream_ptr(zs.device)))
+    return TileSchedule(*torch.split(sched[:5 * nt + 1],
+                                     [nt + 1, nt, nt, nt, nt]))
+
+
+def schedule_items(s: TileSchedule):
+    """(I, J): the row and column tile of every work item, in item order,
+    decoded as the sweep decodes them."""
+    nt = s.hi.shape[0]
+    off, hi, wp = s.off.long(), s.hi.long(), s.wp.long()
+    k = torch.arange(int(off[-1]), device=off.device)
+    ti = torch.searchsorted(off, k, right=True) - 1
+    d = k - off[ti]
+    nd = hi[ti] - ti + 1
+    tj = torch.where(d < nd, ti + d, wp[ti] + d - nd)
+    assert nt == 0 or int(tj.max()) < nt
+    return ti, tj
+
+
+def schedule_pairs(s: TileSchedule, n: int) -> int:
+    """Unordered atom pairs the sweep tests: every row x column pair of an
+    off-diagonal item, r (r - 1) / 2 of a diagonal one."""
+    ti, tj = schedule_items(s)
+    size = lambda t: torch.clamp(n - t * TILE, max=TILE)
+    ri, cj = size(ti), size(tj)
+    return int(torch.where(ti == tj, ri * (ri - 1) // 2, ri * cj).sum())
 
 
 def pair_forces_plain(x, q, type_idx, tables: PairTables, exclusions, *, box,
@@ -49,7 +140,8 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
 
     ``zsort``: (perm, z_sorted) from ``zorder.z_perm`` at these positions
     (computed here when None).  ``exclusions``: (excl_idx (N, m) int64,
-    excl_val (N, m)) with m <= 16, or None.  ``conp_fuse``: optional (ele_flag,
+    excl_val (N, m)) with m <= 16 and symmetric lists (j lists i with the
+    factor i lists j with), or None.  ``conp_fuse``: optional (ele_flag,
     elyte_flag, eta_tab, fo_tab) -- per-atom 0/1 float flags (N,) and the
     (T+1, T+1) Gaussian width / overlap tables; the forces then include the
     CONP Gaussian correction and a fourth value ``ecorr`` is returned.
@@ -60,29 +152,29 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
         return pair_forces_plain(x, q, type_idx, tables, exclusions,
                                  conp_fuse=conp_fuse, **kw)
     n = x.shape[0]
-    lj = torch.stack(tuple(tables)).contiguous()
-    nt1 = lj.shape[1]
+    nt1 = tables.lj1.shape[0]
     if zsort is None:
         zsort = z_perm(x, box, periodic)
     perm, zs = zsort
-    build.check_cuda("pair_forces", torch.float32, x, q, lj, zs)
+    build.check_cuda("pair_forces", torch.float32, x, q, zs, *tables)
     build.check_cuda("pair_forces", torch.int64, type_idx, perm)
     if (x.shape != (n, 3) or q.shape != (n,) or type_idx.shape != (n,)
             or perm.shape != (n,) or zs.shape != (n,)):
         raise ValueError("pair_forces: expected x (N,3) and q, types, perm, "
                          "z keys (N,)")
-    if lj.shape != (4, nt1, nt1):
+    if tables.lj1.shape != (nt1, nt1) or not (
+            tables.lj1.shape == tables.lj2.shape == tables.lj3.shape
+            == tables.lj4.shape):
         raise ValueError("pair_forces: LJ tables must be (T+1, T+1)")
-    ptrs = [None, None, None]                     # ele_f, ely_f, gtab
+    ptrs = [None] * 4                             # ele_f, ely_f, eta, fo
     if conp_fuse is not None:
-        ele_f, ely_f, eta_tab, fo_tab = conp_fuse
-        gtab = torch.stack([eta_tab, fo_tab]).contiguous()
-        build.check_cuda("pair_forces", torch.float32, ele_f, ely_f, gtab)
-        if (ele_f.shape != (n,) or ely_f.shape != (n,)
-                or gtab.shape != (2, nt1, nt1)):
+        build.check_cuda("pair_forces", torch.float32, *conp_fuse)
+        if (conp_fuse[0].shape != (n,) or conp_fuse[1].shape != (n,)
+                or conp_fuse[2].shape != (nt1, nt1)
+                or conp_fuse[3].shape != (nt1, nt1)):
             raise ValueError("pair_forces: conp_fuse flags must be (N,) and "
                              "tables (T+1, T+1)")
-        ptrs = [ele_f.data_ptr(), ely_f.data_ptr(), gtab.data_ptr()]
+        ptrs = [t.data_ptr() for t in conp_fuse]
     exi = exv = None
     m = 0
     if exclusions is not None:
@@ -93,22 +185,45 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
         if exi.shape != (n, m) or exv.shape != (n, m) or m > 16:
             raise ValueError("pair_forces: exclusions must be (N, m), m <= 16")
     lib = build.load_library()
-    nblocks = -(-n // lib.conp2_pair_tile_rows())
-    f = torch.empty((n, 3), dtype=x.dtype, device=x.device)
-    partials = torch.empty((nblocks, 3), dtype=x.dtype, device=x.device)
-    energies = torch.empty((3,), dtype=x.dtype, device=x.device)
+    nt = -(-n // TILE)
+    items_cap = nt * (nt + 1) // 2
+    nctas = sweep_ctas(conp_fuse is not None, m, items_cap)
+    if nctas <= 0:
+        raise RuntimeError("pair_forces: the card refused the sweep's shared "
+                           f"memory for {m} special partners per atom")
+    # one workspace: the side buffer, the sweep's per-CTA energies and the
+    # schedule with each item's row tile (int32); one output: f, then
+    # evdwl, ecoul, ecorr
+    nbuf = items_cap * SLOT + 3 * nctas
+    ws = torch.empty(nbuf + 6 * nt + 1 + items_cap, dtype=x.dtype,
+                     device=x.device)
+    out = torch.empty(3 * n + 3, dtype=x.dtype, device=x.device)
+    wsp, outp = ws.data_ptr(), out.data_ptr()
+    zcut = float(cutoff) + Z_MARGIN
     status = lib.conp2_pair_forces_f32(
         x.data_ptr(), q.data_ptr(), type_idx.data_ptr(), ptrs[0], ptrs[1],
-        perm.data_ptr(), zs.data_ptr(), lj.data_ptr(), ptrs[2],
-        None if exi is None else exi.data_ptr(),
+        perm.data_ptr(), zs.data_ptr(), *[t.data_ptr() for t in tables],
+        ptrs[2], ptrs[3], None if exi is None else exi.data_ptr(),
         None if exv is None else exv.data_ptr(), m, n, nt1,
         *[float(b) for b in box], *[int(bool(p)) for p in periodic],
-        float(cutoff) ** 2, float(cutoff) + Z_MARGIN, float(g_ewald),
-        float(qqr2e), f.data_ptr(), partials.data_ptr(), energies.data_ptr(),
-        build.stream_ptr())
+        float(cutoff) ** 2, zcut, float(box[2]) - zcut, float(g_ewald),
+        float(qqr2e), nctas, wsp + 4 * nbuf, wsp,
+        wsp + 4 * items_cap * SLOT,
+        outp, outp + 4 * 3 * n, build.stream_ptr(x.device))
     build.check_status("pair_forces", status)
     launches.count += 1
-    ev, ec = energies[0], energies[1]
+    ev, ec, ecorr = out[3 * n:]
+    f = out[:3 * n].view(n, 3)
     if conp_fuse is not None:
-        return f, ev, ec, energies[2]
+        return f, ev, ec, ecorr
     return f, ev, ec
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_ctas(fuse: bool, m: int, items_cap: int) -> int:
+    """The persistent sweep's CTA count on the current card: its occupancy
+    with the shared memory of m special partners per row, at most one CTA
+    per 8 items; -1 if the card refuses that memory.  Asked of the library
+    once per shape: this is its only cache."""
+    return build.load_library().conp2_pair_sweep_ctas(int(fuse), m,
+                                                       items_cap)

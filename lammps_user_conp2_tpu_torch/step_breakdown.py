@@ -12,9 +12,9 @@ b-vector assembly (phase tables, electrolyte structure factor, k-space
 readout, the real-space rows kernel, slab term); the INV solve (A^-1 b and
 the charge update); the pair sweep kernel with the fused CONP correction;
 the factored-Ewald forces; on ``il`` the SHAKE (K7) and RATTLE (K8)
-wrappers.  Then a torch.profiler
-trace of a short window gives the device-busy share of the step and the
-device time by kernel name; the table and the Chrome trace go to
+wrappers.  Then a torch.profiler trace of a short window gives the
+device-busy share of the step, the device time by kernel name and K4's
+and K5's device time per step; the table and the Chrome trace go to
 ``chiprun_out/``.  Fails when no CUDA device is visible.
 """
 
@@ -161,6 +161,14 @@ def main() -> int:
     for key, (ms, cnt) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:9.4f} ms/step  {cnt:6.1f}x  {key[:70]}")
+    # K4 is three kernels (schedule, sweep, reduction), K5 two (the
+    # electrolyte's z order, the rows)
+    for key, parts in (("K4", ("pair_schedule", "pair_sweep", "pair_reduce")),
+                       ("K5", ("b_order_kernel", "b_rows_kernel"))):
+        ms = sum(t for name, (t, _) in by_name.items()
+                 if any(p in name for p in parts))
+        res[f"{key}_device_ms_per_step"] = ms
+        print(f"  {key} device time {ms:.4f} ms/step  [{card}]")
     res["device_busy_ms_per_step"] = busy
     res["device_busy_share_of_chained_step"] = busy / wall
     print(json.dumps(dict(card=card, cell=args.cell, natoms=system.natoms,

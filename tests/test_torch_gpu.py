@@ -9,8 +9,11 @@ exclusions on the deck's block path; K6 and not K4 with
 use_pallas_pair=False, whose correction energy from anions 2 A off the
 sheets agrees with the CPU float64 engine's; K2b on the mobile-electrode
 tiled mesh); K9, the window gather probe, equals its plain version
-exactly.  Needs a
-CUDA device: skipped on the CPU.  Run on the card with
+exactly.  K5 on shuffled atoms (electrodes not first), its electrolyte
+order kernel equal to ``elyte_order_plain``; K4 also on clusters of 33
+and 100 atoms (ragged tiles), its tile-pair schedule kernel equal to
+``tile_schedule_plain``, and K4 and K5 bit-identical across two
+launches.  Needs a CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
 import numpy as np
@@ -119,6 +122,105 @@ def test_kernels_periodic_z_on_card(cuda):
     b = k5.b_realspace(*args, **bkw)
     ref_b = k5.b_realspace_plain(*args, **bkw)
     assert float(ref_b.abs().max()) > 0.0 and _rel(b, ref_b) <= TOL
+
+
+def test_b_rows_any_layout_on_card(cuda):
+    """K5 takes its columns from the electrolyte mask, not from the atoms'
+    order: the S2 atoms shuffled (electrodes no longer first) give the
+    plain version's rows, and its first kernel's electrolyte order equals
+    its plain version exactly."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
+    system, md, conp, eng, x, q = _cell(cuda, x_near)
+    order = torch.as_tensor(np.random.default_rng(5).permutation(
+        system.natoms), device=cuda)
+    where = torch.empty_like(order)
+    where[order] = torch.arange(system.natoms, device=cuda)
+    q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+    args = (x[order].contiguous(), q_elyte[order].contiguous(),
+            where[conp.ele_idx_t].contiguous(),
+            conp.elyte_f[order].contiguous(), conp.eta_rows, conp.fo_rows,
+            conp.type_t[order].contiguous())
+    assert not bool((args[2] == torch.arange(conp.ne, device=cuda)).all())
+    bkw = dict(box=system.box, periodic=system.periodic,
+               cut_coulsq=conp.cut_coulsq, g_ewald=conp.ksp.g_ewald)
+    b = k5.b_realspace(*args, **bkw)
+    ref_b = k5.b_realspace_plain(*args, **bkw)
+    assert float(ref_b.abs().max()) > 0.0 and _rel(b, ref_b) <= TOL
+    for periodic in (system.periodic, (True, True, True)):
+        perm, zs = z_perm(args[0], system.box, periodic)
+        got = k5.elyte_order(perm, zs, args[3])
+        ref = k5.elyte_order_plain(perm, zs, args[3])
+        assert torch.equal(got[0].long(), ref[0])
+        assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("n", [33, 100])
+def test_pair_kernel_small_n_on_card(cuda, n):
+    """K4 on the n atoms of the S2 cell nearest a point 2 A inside the left
+    wall (electrodes and ions, one ragged tile or four), fused and not."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    system, md, conp, eng, x, q = _cell(cuda, x_close)
+    p = x[conp.ele_idx_t].mean(0)
+    p[2] = float(x[:conp.ne // 2, 2].mean()) + 2.0
+    idx = torch.argsort(((x - p) ** 2).sum(1))[:n].sort().values
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    fuse = tuple(t[idx].contiguous() for t in (eng.ele_flag, eng.elyte_flag))
+    fuse = fuse + (eng.eta_tab, eng.fo_tab)
+    assert float(fuse[0].sum()) > 0 and float(fuse[1].sum()) > 0
+    args = (x[idx].contiguous(), q[idx].contiguous(),
+            eng.type_idx[idx].contiguous(), eng.tables, None)
+    for cf in (None, fuse):
+        got = k4.pair_forces(*args, conp_fuse=cf, **kw)
+        ref = k4.pair_forces_plain(*args, conp_fuse=cf, **kw)
+        torch.cuda.synchronize()
+        assert float(ref[0].abs().max()) > 0.0
+        for g, r in zip(got, ref):
+            assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+
+
+@pytest.mark.parametrize("positions", [x_near, x_close],
+                         ids=["x_near", "x_close"])
+def test_tile_schedule_kernel_matches_plain_on_card(cuda, positions):
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
+    system, md, conp, eng, x, q = _cell(cuda, positions)
+    for periodic, cut in ((system.periodic, md.cutoff),
+                          ((True, True, True), md.cutoff),
+                          ((True, True, True), 0.6 * system.box[2])):
+        _, zs = z_perm(x, system.box, periodic)
+        kw = dict(box=system.box, periodic=periodic, cutoff=cut)
+        got = k4.tile_schedule(zs, system.natoms, **kw)
+        ref = k4.tile_schedule_plain(zs, system.natoms, **kw)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.long(), r)
+
+
+def test_kernels_bit_identical_across_launches_on_card(cuda, tmp_path):
+    """Fixed-order sums, no atomics: two launches on the same input give
+    the same bits (K4 fused, with the il fixture's exclusions; K5)."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    system, md, eng = _il_cell(cuda, tmp_path)
+    conp = eng.conp
+    x = torch.as_tensor(system.x0, dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(charges_with_electrodes(system), dtype=torch.float32,
+                        device=cuda)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    run = lambda: k4.pair_forces(x, q, eng.type_idx, eng.tables,
+                                 eng.exclusions, conp_fuse=fuse, **kw)
+    a, b = run(), run()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+    bargs = (x, q_elyte, conp.ele_idx_t, conp.elyte_f, conp.eta_rows,
+             conp.fo_rows, conp.type_t)
+    bkw = dict(box=system.box, periodic=system.periodic,
+               cut_coulsq=conp.cut_coulsq, g_ewald=conp.ksp.g_ewald)
+    assert torch.equal(k5.b_realspace(*bargs, **bkw),
+                       k5.b_realspace(*bargs, **bkw))
 
 
 def _tiled_cell(cuda, positions):
