@@ -34,6 +34,9 @@ z-binned mesh):
   7. K1 (block sweep, fused and unfused), K2a (spread) and K3 (gather)
      against their plain versions at the cell's shapes, as in phase 3; K1's
      fused correction also at ions 3 A from the walls, where |ecorr| > 1e-3;
+     K1 and K2a bit-identical across two launches, K1's packed rows equal
+     to their plain version, K1's work items and K2a's kept atoms per tile
+     and staging passes printed; K1's and K2a's host and device times;
   8. the main path: 10 warm-up and 100 timed steps from positions near the
      walls; K1, K2a and K3 must have launched every step and the Verlet
      list must have been rebuilt in the timed window; finite energy,
@@ -76,7 +79,9 @@ vectors):
 
  14. write the data file, set-up: the block list (B = 8) and exclusions;
  15. K1 with exclusions, fused and unfused, against its plain version
-     (2e-5), timed: K1's line in the kernels list comes from here;
+     (2e-5), two launches bit-identical, timed with its host and device
+     times: K1's line in the kernels list comes from here (its 100k
+     figures beside them, with the suffix ``_100k``);
  16. the main path: 11 warm-up and 100 timed steps; K1, K7 and K8 launched
      every step; finite energy, neutral electrodes;
  17. 3 steps on the card (float32) against 3 steps on the CPU (float64,
@@ -142,10 +147,11 @@ steps).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are the median of
 single calls, each between two CUDA events, as in every earlier run of
-this script.  K4 and K5 also carry ``host_ms`` (the wrapper's host time
-per call, on the host clock) and ``device_ms`` (their CUDA kernels' device
-time per call, torch.profiler: K4's three, K5's two, the compaction of
-the z order to the electrolyte included).  The il cell's figures carry
+this script.  K1, K2a, K4 and K5 also carry ``host_ms`` (the wrapper's
+host time per call, on the host clock) and ``device_ms`` (their CUDA
+kernels' device time per call, torch.profiler: K1's packing, sweep and
+reductions, K2a's one, K4's three, K5's two, the compaction of the z
+order to the electrolyte included).  The il cell's figures carry
 the suffix ``_il``.  Every kernel's line carries its bound: the larger
 of the bytes it must move (its input tensors read once, its outputs
 written once) over 3.35 TB/s and the operations this run's data needs
@@ -264,6 +270,9 @@ def device_ms(fn, parts, reps=20, tag=None) -> float:
 # the CUDA kernels of each redesigned wrapper, for ``device_ms``
 K4_PARTS = ("pair_schedule", "pair_sweep", "pair_reduce")
 K5_PARTS = ("b_order_kernel", "b_rows_kernel")
+K1_PARTS = ("block_pack", "block_sweep", "block_force_reduce",
+            "block_pair_reduce")
+K2A_PARTS = ("spread_mesh_kernel",)
 
 
 def compare(name, got, ref, tol=KERNEL_TOL):
@@ -506,8 +515,13 @@ def main() -> int:
         "shake_positions": csrc + "shake_kernel.cu",
         "rattle_velocities": csrc + "shake_kernel.cu",
         "window_gather": csrc + "vmem_gather.cu"}
+    r100k = results["block_pair_conp_100k"]
+    results["block_pair_conp"].update(
+        ms_100k=r100k["ms"], host_ms_100k=r100k["host_ms"],
+        device_ms_100k=r100k["device_ms"], bound_ms_100k=r100k["bound_ms"])
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_r1",
-            "host_ms", "device_ms", "ms_il", "device_ms_il", "bound_ms_il")
+            "host_ms", "device_ms", "ms_il", "device_ms_il", "bound_ms_il",
+            "ms_100k", "host_ms_100k", "device_ms_100k", "bound_ms_100k")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -532,6 +546,7 @@ def production_path(card, dev, results):
     from lammps_user_conp2_tpu_torch.models.md import build_engine
     from lammps_user_conp2_tpu_torch.ops import pppm
     from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
     from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
     from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
     from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
@@ -576,6 +591,7 @@ def production_path(card, dev, results):
             got = kern()
             torch.cuda.synchronize()
             rel, dabs = compare(name + tag, got, plain())
+            same_bits(name + tag, got, kern())
             if cf is not None and margin == 3.0:
                 ecorr = 0.5 * float(got[3])
                 print(f"    block_pair_conp at margin 3 A: ecorr {ecorr:.4f}")
@@ -586,7 +602,14 @@ def production_path(card, dev, results):
                 # bonded block cell (phase 15); these are this cell's
                 name = name + "_100k"
                 results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                                     plain_ms=median_ms(plain, reps=5))
+                                     plain_ms=median_ms(plain, reps=5),
+                                     host_ms=host_ms(kern),
+                                     device_ms=device_ms(kern, K1_PARTS,
+                                                         tag=name))
+                seg, nseg = k1.block_segments(*nbr.bun.shape)
+                print(f"    {name}: {nbr.bun.shape[0]} blocks x {nseg} "
+                      f"union segments of {seg} chunks = "
+                      f"{nbr.bun.shape[0] * nseg} warp items")
                 nb = nbr.idx
                 xj = x[nb.clamp(max=x.shape[0] - 1)]
                 d = xj - x[:, None, :]
@@ -600,6 +623,12 @@ def production_path(card, dev, results):
                                            PAIR_FLOPS * npairs))
         if tag:
             break
+        pk = k1.pack_rows(x, q, eng.type_idx, fuse[:2])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(
+                pk, k1.pack_rows_plain(x, q, eng.type_idx, fuse[:2]))):
+            raise AssertionError("phase 7: packed rows differ from plain")
+        print("    block_pair packed rows equal their plain version")
         q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
         slots = pppm.refresh_tile_slots(grid, tasg, x, q_elyte)
         cfd = pppm._coeffs(grid, torch.float32, dev)
@@ -608,10 +637,29 @@ def production_path(card, dev, results):
         got = kern()
         torch.cuda.synchronize()
         rel, dabs = compare("spread_mesh", (got,), (plain(),))
+        same_bits("spread_mesh", (got,), (kern(),))
+        bins = k2.spread_bins_plain(slots.rows, geom)
+        kept = [sum(len(p[1]) for p in b) for b in bins]
+        kcap = build.load_library().conp2_spread_mesh_pass_cap(
+            geom.tlx, geom.tly, geom.tlz + 2 * (geom.hw + geom.dm))
+        if kcap != k2.spread_pass_cap(geom):
+            raise AssertionError("phase 7: spread_pass_cap differs from the "
+                                 "kernel's")
+        print(f"    spread_mesh: kept atoms per tile max {max(kept)}, mean "
+              f"{np.mean(kept):.1f}, {sum(k == 0 for k in kept)} of "
+              f"{len(kept)} tiles keep none; {kcap} per pass, "
+              f"{max(len(b) for b in bins)} passes at most")
         results["spread_mesh"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                                      plain_ms=median_ms(plain, reps=5))
+                                      plain_ms=median_ms(plain, reps=5),
+                                      host_ms=host_ms(kern),
+                                      device_ms=device_ms(kern, K2A_PARTS))
+        # K2a reads every slot's charge and the other rows of the charged
+        # slots before each tile's count only
+        charged = slots.rows[:, 6] != 0
+        staged = slots.rows[:, :6].transpose(1, 2)[charged]      # (n, 6)
         results["spread_mesh"].update(bound(
-            (slots.rows, cfd), got, SPREAD_FLOPS * system.natoms))
+            (slots.rows[:, 6], staged, cfd), got,
+            SPREAD_FLOPS * staged.shape[0]))
         rhok = pppm._spread_rhok_tiled(grid, x, q_elyte, slots)
         _, uz = pppm.pppm_energy_u_zbin(grid, rhok, system.natoms)
         up = pppm._wrap_pad_xy(uz, geom.hw + geom.dm).contiguous()
@@ -939,8 +987,11 @@ def bonded_path(card, dev, results):
         got = kern()
         torch.cuda.synchronize()
         rel, dabs = compare(name + " with exclusions", got, plain())
+        same_bits(name + " with exclusions", got, kern())
         results[name] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                             plain_ms=median_ms(plain, reps=5))
+                             plain_ms=median_ms(plain, reps=5),
+                             host_ms=host_ms(kern),
+                             device_ms=device_ms(kern, K1_PARTS, tag=name))
         nb = nbr.idx
         d = x[nb.clamp(max=x.shape[0] - 1)] - x[:, None, :]
         for ax in range(3):
@@ -951,6 +1002,9 @@ def bonded_path(card, dev, results):
                       & (nb < x.shape[0])).sum())
         results[name].update(bound((args, cf, eng.exclusions), got,
                                    PAIR_FLOPS * npairs))
+    seg, nseg = k1.block_segments(*nbr.bun.shape)
+    print(f"phase 15: {nbr.bun.shape[0]} blocks x {nseg} union segments of "
+          f"{seg} chunks = {nbr.bun.shape[0] * nseg} warp items")
     report("phase 15", results, ("block_pair", "block_pair_conp"), card)
 
     # ---- phase 16: the main path

@@ -122,10 +122,14 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_corr_rows.argtypes = []
     lib.conp2_corr_rows.restype = I
     lib.conp2_block_pair_f32.argtypes = (
-        [P] * 11 + [I] * 6 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
+        [P] * 13 + [I] * 8 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
     lib.conp2_block_pair_f32.restype = I
+    lib.conp2_block_pack_f32.argtypes = [P] * 5 + [I, P, P]
+    lib.conp2_block_pack_f32.restype = I
     lib.conp2_spread_mesh_f32.argtypes = [P, P] + [I] * 8 + [P, P]
     lib.conp2_spread_mesh_f32.restype = I
+    lib.conp2_spread_mesh_pass_cap.argtypes = [I] * 3
+    lib.conp2_spread_mesh_pass_cap.restype = I
     lib.conp2_spread_tiles_f32.argtypes = [P, P] + [I] * 5 + [P, P]
     lib.conp2_spread_tiles_f32.restype = I
     lib.conp2_gather3_f32.argtypes = [P] * 3 + [I] * 8 + [P, P]

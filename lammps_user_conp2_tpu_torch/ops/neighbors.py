@@ -7,8 +7,8 @@ per row, and rebuilt when any atom has moved more than skin/2 (LAMMPS
 the list is the JAX package's list element for element.
 
 The block form groups B = 8 cell-sorted atoms whose rows share one
-sorted-unique union of width U: the sweep over it (``block_pair_forces``)
-stages each union once for all B atoms.  On CUDA float32 that sweep is the
+sorted-unique union of width U (int32 ids): the sweep over it
+(``block_pair_forces``) reads each union member once for all B atoms.  On CUDA float32 that sweep is the
 CUDA kernel ``csrc/block_pair.cu`` (``ops/kernels/block_pair.py``), with
 the CONP Gaussian correction fused in; elsewhere the per-atom sweep
 ``nlist_pair_forces`` and the electrode-row correction run in plain
@@ -51,7 +51,7 @@ class NeighborList:
     x_ref: torch.Tensor                  # (N, 3) positions at build time
     lj: Optional[torch.Tensor]           # (4, N, K) LJ coefficient planes
     overflow: torch.Tensor               # () bool: K, U or cell cap exceeded
-    bun: Optional[torch.Tensor] = None   # (NB, U) union ids, padded with N
+    bun: Optional[torch.Tensor] = None   # (NB, U) int32 union ids, pad N
     brows: Optional[torch.Tensor] = None  # (NB, B) block atom ids, pad N
     binv: Optional[torch.Tensor] = None  # (N,) atom -> flat block slot
 
@@ -232,8 +232,9 @@ def _attach_block_list(ncfg: NeighborConfig, x, nlist: NeighborList,
     if uvals.shape[1] < U:
         uvals = torch.nn.functional.pad(uvals, (0, U - uvals.shape[1]),
                                         value=n)
+    # int32: half the bytes K1 reads per step
     un = torch.where(torch.arange(U, device=x.device)[None, :] < cnt[:, None],
-                     uvals[:, :U], n)
+                     uvals[:, :U], n).to(torch.int32)
     binv = torch.empty(n, dtype=torch.int64, device=x.device)
     binv[perm] = torch.arange(n, device=x.device)
     return dataclasses.replace(nlist, bun=un, brows=rows, binv=binv,

@@ -1,21 +1,25 @@
 """Per-layer time of one MD step of the port on a CUDA device.
 
     python -m lammps_user_conp2_tpu_torch.step_breakdown [--steps 200]
-        [--cell mid|il]
+        [--cell mid|il|bonded]
 
-Builds a mid-size cell (float64 setup, float32 run): ``mid``, the
-7,296-atom ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` from
-``near_wall_positions``, or ``il``, ``workloads.il_onelayer(0)`` on the
-3,776-atom file of ``workloads.write_il_data`` (written to ``--out``).
-Times, with CUDA events and the median over repeats: the whole step; the
-b-vector assembly (phase tables, electrolyte structure factor, k-space
-readout, the real-space rows kernel, slab term); the INV solve (A^-1 b and
-the charge update); the pair sweep kernel with the fused CONP correction;
-the factored-Ewald forces; on ``il`` the SHAKE (K7) and RATTLE (K8)
-wrappers.  Then a torch.profiler trace of a short window gives the
-device-busy share of the step, the device time by kernel name and K4's
-and K5's device time per step; the table and the Chrome trace go to
-``chiprun_out/``.  Fails when no CUDA device is visible.
+Builds a cell on the factored-Ewald path (float64 setup, float32 run):
+``mid``, the 7,296-atom ``workloads.synthetic(6144, 24, lz=60, lxy=50)``
+from ``near_wall_positions``; ``il``, ``workloads.il_onelayer(0)`` on the
+3,776-atom file of ``workloads.write_il_data``; or ``bonded``, the same
+deck on the 8,772-atom file ``write_il_data(n_pairs=1329, sheets=1,
+nx=27, ny=16)``, where the block Verlet list takes the pair forces (K1
+with the cations' special-bond exclusions); data files are written to
+``--out``.  Times, with CUDA events and the median over repeats: the whole
+step; the b-vector assembly (phase tables, electrolyte structure factor,
+k-space readout, the real-space rows, slab term); the INV solve (A^-1 b
+and the charge update); the pair sweep with the fused CONP correction
+(K4, or K1 on ``bonded``); the factored-Ewald forces; on the il decks the
+SHAKE (K7) and RATTLE (K8) wrappers.  Then a torch.profiler trace of a
+short window gives the device-busy share of the step, the device time by
+kernel name and each hand kernel's device time per step; the table and
+the Chrome trace go to ``chiprun_out/``.  Fails when no CUDA device is
+visible.
 """
 
 from __future__ import annotations
@@ -30,6 +34,29 @@ import numpy as np
 import torch
 
 CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
+BONDED = dict(n_pairs=1329, sheets=1, nx=27, ny=16)
+# the CUDA kernels of each hand kernel, by name: K1 and K2a both as
+# redesigned and in their first design, so that a profile of either
+# version sums the same function
+KERNEL_PARTS = {
+    "K1": ("block_pair_kernel", "block_pack", "block_sweep",
+           "block_force_reduce", "block_pair_reduce"),
+    "K2a": ("spread_mesh_kernel",),
+    "K4": ("pair_schedule", "pair_sweep", "pair_reduce"),
+    "K5": ("b_order_kernel", "b_rows_kernel"),
+}
+
+
+def kernel_ms(by_name):
+    """{K: device ms per step} from ``device_busy``'s by-name table, for the
+    hand kernels that ran."""
+    out = {}
+    for key, parts in KERNEL_PARTS.items():
+        ms = sum(t for name, (t, _) in by_name.items()
+                 if any(p in name for p in parts))
+        if ms > 0.0:
+            out[key] = ms
+    return out
 
 
 def _median_ms(fn, reps=50, warmup=5):
@@ -76,7 +103,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--out", default="chiprun_out")
-    ap.add_argument("--cell", choices=("mid", "il"), default="mid")
+    ap.add_argument("--cell", choices=("mid", "il", "bonded"), default="mid")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_breakdown: no CUDA device visible")
@@ -84,6 +111,7 @@ def main() -> int:
     from .models.conp import setup_conp
     from .models.md import build_engine
     from .ops import ewald_factored as ewf
+    from .ops.neighbors import block_pair_forces
     from .ops.kernels.pair_kernel import pair_forces
     from .ops.kernels.shake_kernel import rattle_velocities, shake_positions
 
@@ -91,10 +119,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda:0")
-    if args.cell == "il":
+    if args.cell in ("il", "bonded"):
         os.makedirs(args.out, exist_ok=True)
+        kw, fname = ((BONDED, "il_8772.data") if args.cell == "bonded"
+                     else ({}, "il_3776.data"))
         system, md, cfg = workloads.il_onelayer(0, data_path=(
-            workloads.write_il_data(os.path.join(args.out, "il_3776.data"))))
+            workloads.write_il_data(os.path.join(args.out, fname), **kw)))
         x0 = None
     else:
         system, md, cfg = workloads.synthetic(**CELL)
@@ -103,25 +133,38 @@ def main() -> int:
     eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
     st = eng.init_state(x0=x0)
     st, _ = eng.run(st, 20, thermo_every=0)
-    x, q = st.x, st.q
+    x, q, nbr = st.x, st.q, st.nbr
     u = system.units()
-    b, kcache = conp.b_vector_full(x, q)
+    lists = (nbr, eng.ncfg) if eng.ncfg is not None else ()
+    b, kcache = conp.b_vector_full(x, q, *lists)
     fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
     tabs, sre, sie, zsort = kcache
-
-    layers = {
-        "step": lambda: eng.step(st),
-        "b_vector (tables+S+readout+K5+slab)": lambda: conp.b_vector_full(x, q),
-        "inv_solve (A^-1 b + update)": lambda: conp.ainv @ b,
-        "pair_sweep K4 (fused CONP)": lambda: pair_forces(
+    if eng.ncfg is None:
+        pair = ("pair_sweep K4 (fused CONP)", lambda: pair_forces(
             x, q, eng.type_idx, eng.tables, None, box=system.box,
             periodic=system.periodic, cutoff=md.cutoff,
             g_ewald=conp.ksp.g_ewald, qqr2e=u.qqr2e, zsort=zsort,
-            conp_fuse=fuse),
+            conp_fuse=fuse))
+    else:
+        pair = ("block sweep K1 (fused CONP)", lambda: block_pair_forces(
+            eng.ncfg, nbr, x, q, eng.type_idx, eng.tables, eng.exclusions,
+            g_ewald=conp.ksp.g_ewald, qqr2e=u.qqr2e, conp_fuse=fuse))
+        excl = eng.exclusions
+        print(f"{system.natoms} atoms, block list: {nbr.bun.shape[0]} "
+              f"blocks, U={nbr.bun.shape[1]}, exclusions "
+              f"{None if excl is None else tuple(excl[0].shape)}  [{card}]")
+
+    layers = {
+        "step": lambda: eng.step(st),
+        "b_vector (tables+S+readout+rows+slab)": lambda: conp.b_vector_full(
+            x, q, *lists),
+        "inv_solve (A^-1 b + update)": lambda: conp.ainv @ b,
+        pair[0]: pair[1],
         "ewald_forces (cached tables)": lambda: ewf.energy_forces_cached(
             eng.fksp, q, tabs, sre, sie, conp.ne),
-        "compute_forces (all)": lambda: eng.compute_forces(x, q, kcache),
-        "solve_full (all)": lambda: conp.solve_full(x, q),
+        "compute_forces (all)": lambda: eng.compute_forces(x, q, kcache,
+                                                           *lists[:1]),
+        "solve_full (all)": lambda: conp.solve_full(x, q, *lists),
     }
     if eng.cons is not None:
         kw = dict(box=system.box, periodic=system.periodic)
@@ -161,12 +204,7 @@ def main() -> int:
     for key, (ms, cnt) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:9.4f} ms/step  {cnt:6.1f}x  {key[:70]}")
-    # K4 is three kernels (schedule, sweep, reduction), K5 two (the
-    # electrolyte's z order, the rows)
-    for key, parts in (("K4", ("pair_schedule", "pair_sweep", "pair_reduce")),
-                       ("K5", ("b_order_kernel", "b_rows_kernel"))):
-        ms = sum(t for name, (t, _) in by_name.items()
-                 if any(p in name for p in parts))
+    for key, ms in kernel_ms(by_name).items():
         res[f"{key}_device_ms_per_step"] = ms
         print(f"  {key} device time {ms:.4f} ms/step  [{card}]")
     res["device_busy_ms_per_step"] = busy

@@ -13,8 +13,9 @@ Verlet list rebuild; the mesh tile assignment (sort) and the per-step slot
 refresh; spread + z-DFT (K2a, ``_spread_rhok_tiled``); Poisson + z-IDFT
 (``pppm_energy_u_zbin``); the force gather (K3, ``gather3_ad_zbin``); the
 block sweep (K1, correction fused); the b vector; the INV solve.  Then a
-``torch.profiler`` trace of a short window gives the device-busy share and
-the device time by kernel name; the table and the Chrome trace go to
+``torch.profiler`` trace of a short window gives the device-busy share,
+the device time by kernel name and each hand kernel's device time per
+step (K1, K2a, ...); the table and the Chrome trace go to
 ``chiprun_out/``.  Fails when no CUDA device is visible.
 """
 
@@ -29,7 +30,7 @@ import time
 
 import torch
 
-from .step_breakdown import _median_ms, device_busy
+from .step_breakdown import _median_ms, device_busy, kernel_ms
 
 CELL = dict(n_elyte=98304, nele_side=23, lz=240.0, lxy=120.0)
 
@@ -146,6 +147,9 @@ def main() -> int:
           f"runs slower under the profiler)")
     for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {ms:9.4f} ms/step  {cnt:6.1f}x  {key[:70]}")
+    for key, ms in kernel_ms(by_name).items():
+        res[f"{key}_device_ms_per_step"] = ms
+        print(f"  {key} device time {ms:.4f} ms/step  [{card}]")
     res["device_busy_ms_per_step"] = busy
     res["device_busy_share_of_chained_step"] = busy / wall
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]

@@ -9,7 +9,11 @@ exclusions on the deck's block path; K6 and not K4 with
 use_pallas_pair=False, whose correction energy from anions 2 A off the
 sheets agrees with the CPU float64 engine's; K2b on the mobile-electrode
 tiled mesh); K9, the window gather probe, equals its plain version
-exactly.  K5 on shuffled atoms (electrodes not first), its electrolyte
+exactly.  K1's packed rows equal their plain version, and K1 (unfused,
+fused, with exclusions) with its unions swept whole or in segments; K2a on
+slot rows of 1, 2 and 9 tiles per axis and on a tile over two staging
+passes; both bit-identical across two launches.  K5 on shuffled atoms
+(electrodes not first), its electrolyte
 order kernel equal to ``elyte_order_plain``; K4 also on clusters of 33
 and 100 atoms (ragged tiles), its tile-pair schedule kernel equal to
 ``tile_schedule_plain``, and K4 and K5 bit-identical across two
@@ -21,7 +25,7 @@ import pytest
 import torch
 
 from torch_cells import (S2, S3, charges_with_electrodes, il_small,
-                         il_small_file, x_close, x_near)
+                         il_small_file, tile_rows, x_close, x_near)
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-5
@@ -400,6 +404,69 @@ def test_block_pair_with_exclusions_on_card(cuda, tmp_path):
     st, _ = eng.run(eng.init_state(), 3, thermo_every=0)
     torch.cuda.synchronize()
     assert k1.launches.count == 4 and np.isfinite(float(st.energy))
+
+
+@pytest.mark.parametrize("split", ["auto", "whole_union"])
+def test_block_pair_pieces_on_card(cuda, tmp_path, monkeypatch, split):
+    """K1's packed rows equal their plain version; K1 unfused, fused and
+    with exclusions, with its blocks' unions swept whole or in segments,
+    against the plain version; two launches bit-identical."""
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+    if split == "whole_union":
+        monkeypatch.setattr(k1, "SWEEP_ITEMS_TARGET", 2)
+    system, md, conp, eng, x, q, _ = _tiled_cell(cuda, x_close)
+    isys, imd, ieng = _il_cell(cuda, tmp_path, pair_path="block")
+    ix = torch.as_tensor(isys.x0, dtype=torch.float32, device=cuda)
+    iq = torch.as_tensor(charges_with_electrodes(isys), dtype=torch.float32,
+                         device=cuda)
+    for sy, m, e, xx, qq in ((system, md, eng, x, q),
+                             (isys, imd, ieng, ix, iq)):
+        fuse = (e.ele_flag, e.elyte_flag, e.eta_tab, e.fo_tab)
+        pk = k1.pack_rows(xx, qq, e.type_idx, fuse[:2])
+        ref = k1.pack_rows_plain(xx, qq, e.type_idx, fuse[:2])
+        assert all(torch.equal(a, b) for a, b in zip(pk, ref))
+        nbr, _ = e.derived_state(xx)
+        seg, nseg = k1.block_segments(*nbr.bun.shape)
+        assert (nseg == 1) == (split == "whole_union")
+        kw = dict(box=e.ncfg.grid.box, periodic=e.ncfg.grid.periodic,
+                  cutoff=m.cutoff, g_ewald=e.conp.ksp.g_ewald,
+                  qqr2e=sy.units().qqr2e, exclusions=e.exclusions)
+        args = (xx, qq, e.type_idx, nbr.bun, nbr.brows, e.tables)
+        for cf in (None, fuse):
+            got = k1.block_pair(*args, conp_fuse=cf, **kw)
+            ref = k1.block_pair_plain(*args, conp_fuse=cf, **kw)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+            again = k1.block_pair(*args, conp_fuse=cf, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("ntx,nty,heavy", [(1, 1, None), (2, 2, None),
+                                           (9, 9, None), (2, 1, 2)])
+def test_spread_mesh_bins_on_card(cuda, ntx, nty, heavy):
+    """K2a on slot rows of 1, 2 and 9 tiles per axis with empty tiles and
+    origins in the drift margin, and on a full tile over two staging
+    passes, against its plain version; two launches bit-identical; the
+    pass capacity equals ``spread_pass_cap``."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    from lammps_user_conp2_tpu_torch.ops.pppm import TileGeom, rho_coeffs
+    geom = TileGeom(5, 2, 8, 8, 8, ntx, nty, 2, ntx * nty * 2, 40, False, 1)
+    kcap = k2.spread_pass_cap(geom)
+    assert build.load_library().conp2_spread_mesh_pass_cap(8, 8, 14) == kcap
+    if heavy is not None:
+        geom = geom._replace(cap=2 * kcap + 7)
+    rows = tile_rows(geom, seed=ntx + 10 * nty, heavy=heavy).to(
+        torch.float32).to(cuda)
+    cf = torch.as_tensor(rho_coeffs(5), dtype=torch.float32, device=cuda)
+    got = k2.spread_mesh(rows, cf, geom)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, k2.spread_mesh_plain(rows, cf, geom)) <= TOL
+    assert torch.equal(got, k2.spread_mesh(rows, cf, geom))
 
 
 @pytest.mark.parametrize("positions", [x_near, x_close],

@@ -82,3 +82,30 @@ def il_small(wl, path, deck="il_onelayer", n=0):
     IL_SMALL_MD in the MDConfig."""
     system, md, cfg = getattr(wl, deck)(n, data_path=str(path))
     return system, dataclasses.replace(md, **IL_SMALL_MD), cfg
+
+
+def tile_rows(geom, seed, *, empty=0.2, heavy=None):
+    """Random slot rows (T, 8, cap) float64 for a ``TileGeom``: each tile
+    holds a random count of atoms in its first slots (a share ``empty`` of
+    the tiles none), with origins over the whole patch range including the
+    drift margin, fractional offsets in [-1/2, 1/2] and about one charge
+    in five zero; the top z bin empty, as a slab's guard bins are; tile
+    ``heavy`` is full, every origin inside the tile."""
+    rng = np.random.default_rng(seed)
+    dm2 = 2 * geom.dm
+    rows = np.zeros((geom.t_tiles, 8, geom.cap))
+    for t in range(geom.t_tiles):
+        if t != heavy and (rng.random() < empty
+                           or t % geom.ntz == geom.ntz - 1):
+            continue
+        c = geom.cap if t == heavy else int(rng.integers(1, geom.cap + 1))
+        lo = geom.dm + 2 if t == heavy else 0
+        rows[t, 0, :c] = rng.integers(lo, geom.tlx + dm2 - lo, c)
+        rows[t, 1, :c] = rng.integers(lo, geom.tly + dm2 - lo, c)
+        rows[t, 2, :c] = rng.integers(0, geom.tlz + dm2, c)
+        rows[t, 3:6, :c] = rng.uniform(-0.5, 0.5, (3, c))
+        q = rng.standard_normal(c)
+        if t != heavy:
+            q[rng.random(c) < 0.2] = 0.0
+        rows[t, 6, :c] = q
+    return torch.as_tensor(rows)
