@@ -92,10 +92,14 @@ Unfused ionic-liquid cell, the phase-10 deck with
 CONP correction swept on its own (K6), as a user who asks for the unfused
 path gets it:
 
- 18. set-up; K6 against its plain version at this cell's shapes (2e-5 on
-     the forces and ecorr): at x0, where the ions sit beyond the clamped
-     Gaussian and every term is 0, and with the ions' z mapped to 1 A off
-     the inner sheets, where ecorr is not; timed there;
+ 18. set-up; K6, which searches the correction's own range r_corr (2.93
+     A of the 16 A cutoff), against its plain version over the full cutoff
+     at this cell's shapes (2e-5 on the forces and ecorr), two launches
+     bit-identical: at x0, where the ions sit beyond the clamped Gaussian
+     and every term is 0 (and K6's two z orders against their plain
+     version), with the ions' z mapped to 1 A off the inner sheets, and
+     with the anions nearest each wall 1.2 A off it, where ecorr is not;
+     timed at both (CUDA events and device time);
  19. the main path: 11 warm-up and 100 timed steps; K5, K6, K7 and K8
      launched every step, K4 never;
  20. 3 steps on the card against 3 on the CPU (float64) with phase 5's
@@ -120,6 +124,20 @@ read through the full inverse FFT and the tiled gather:
      walls; K1, K2a, K2b and K3 launched every step, >= 1 list rebuild;
  23. 2 steps on the card against 2 on the CPU (float64) with phase 9's
      bounds.
+
+Every main path runs ``Engine.run``, which replays the step as CUDA
+graphs; after each main-path phase a graph phase (4b, 8b, 12b, 16b, 19b,
+22b) holds the replayed step to the eager one (``Engine.step`` in a loop)
+from one state, 100 steps a run: five alternating (eager, graphed) pairs
+of ms/step on the host clock; eager vs eager and graphed vs eager on x, v,
+q and pe, bit for bit wherever two eager runs are bit for bit; the host
+syncs of a graphed run (none per step on the dense paths, one on the list
+paths); and a torch.profiler window of 100 replayed steps from the same
+state (so with the timed runs' list rebuilds): the device-busy share of
+the graphed step and each hand kernel's device time per launch
+(``device_ms_replay`` in the kernels line, per cell; the profile tables go
+to chiprun_out/graph_profile_<cell>.txt, the records to
+chiprun_out/graph_phases.json and to the {"graphs": [...]} line).
 
 Window gather probe, ``exp_vmem_gather`` (K9: R window gathers per lane,
 summed, from a window staged in shared memory) at its shapes (nb, W) =
@@ -267,12 +285,27 @@ def device_ms(fn, parts, reps=20, tag=None) -> float:
     return sum(per.values())
 
 
+# kernels line name -> (hand kernel id, launch counter name)
+KERNEL_IDS = {
+    "pair_forces_conp": ("K4", "pair_forces"),
+    "b_realspace": ("K5", "b_realspace"),
+    "block_pair_conp": ("K1", "block_pair"),
+    "spread_mesh": ("K2a", "spread_mesh"),
+    "spread_tiles": ("K2b", "spread_tiles"),
+    "gather3": ("K3", "gather3"),
+    "conp_correction": ("K6", "conp_correction"),
+    "shake_positions": ("K7", "shake_positions"),
+    "rattle_velocities": ("K8", "rattle_velocities"),
+    "window_gather": ("K9", "window_gather"),
+}
 # the CUDA kernels of each redesigned wrapper, for ``device_ms``
 K4_PARTS = ("pair_schedule", "pair_sweep", "pair_reduce")
 K5_PARTS = ("b_order_kernel", "b_rows_kernel")
 K1_PARTS = ("block_pack", "block_sweep", "block_force_reduce",
             "block_pair_reduce")
 K2A_PARTS = ("spread_mesh_kernel",)
+K6_PARTS = ("corr_order_kernel", "corr_ele_kernel", "corr_ely_kernel",
+            "corr_reduce")
 
 
 def compare(name, got, ref, tol=KERNEL_TOL):
@@ -481,6 +514,7 @@ def main() -> int:
     counters = {"pair_forces_conp": k4.launches, "b_realspace": k5.launches}
     _, _, _, launches = main_run("phase 4", eng, dict(x0=x_near), 10, 100,
                                  counters, conp.ne, card)
+    graph_phase("phase 4b", "mid", eng, dict(x0=x_near), card)
 
     # ---- phase 5: card (float32) against CPU (float64, plain path)
     card_vs_cpu("phase 5", eng, system, md, cfg, 3, x0=x_near)
@@ -519,9 +553,41 @@ def main() -> int:
     results["block_pair_conp"].update(
         ms_100k=r100k["ms"], host_ms_100k=r100k["host_ms"],
         device_ms_100k=r100k["device_ms"], bound_ms_100k=r100k["bound_ms"])
+    # each kernel's device time per launch under graph replay, per cell
+    # where the main path launches it (the graph phases' profiles)
+    for name, (kid, counter) in KERNEL_IDS.items():
+        per_cell = {}
+        for g in GRAPHS:
+            n = g["launches"].get(counter, 0)
+            if n and kid in g["kernel_device_ms_per_step"]:
+                per_cell[g["cell"]] = (g["kernel_device_ms_per_step"][kid]
+                                       * GRAPH_PROFILE_STEPS / n)
+        results[name]["device_ms_replay"] = per_cell
+    # rule 2's order: launches per step x (device ms per launch - bound),
+    # the bound at the cell's shapes where the kernels line has it
+    gaps = []
+    for name, (kid, counter) in KERNEL_IDS.items():
+        r = results[name]
+        for g in GRAPHS:
+            if g["cell"] not in r["device_ms_replay"]:
+                continue
+            b = r.get({"il": "bound_ms_il", "unfused_il": "bound_ms_il",
+                       "100k": "bound_ms_100k",
+                       "full_mesh": "bound_ms_100k"}.get(g["cell"], ""),
+                      r["bound_ms"])
+            per_step = g["launches"][counter] / GRAPH_PROFILE_STEPS
+            ms = r["device_ms_replay"][g["cell"]]
+            gaps.append((per_step * (ms - b), kid, g["cell"], ms, b,
+                         per_step))
+    print("rule 2 order, launches/step x (device ms per launch under replay "
+          "- bound ms): " + "; ".join(
+              f"{kid} {cell} {gap:.4f} ({n:.0f} x ({ms:.4f} - {b:.6f}))"
+              for gap, kid, cell, ms, b, n in sorted(gaps, reverse=True))
+          + f"  [{card}]")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_r1",
             "host_ms", "device_ms", "ms_il", "device_ms_il", "bound_ms_il",
-            "ms_100k", "host_ms_100k", "device_ms_100k", "bound_ms_100k")
+            "ms_100k", "host_ms_100k", "device_ms_100k", "bound_ms_100k",
+            "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -529,6 +595,10 @@ def main() -> int:
                     **{k: results[name][k] for k in keys
                        if k in results[name]})
                for name in replaces]
+    summary = json.dumps({"graphs": GRAPHS})
+    with open(os.path.join(OUT_DIR, "graph_phases.json"), "w") as fh:
+        fh.write(summary + "\n")
+    print(summary)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -685,6 +755,7 @@ def production_path(card, dev, results):
     print(f"phase 8: {rebuilds} list rebuilds in 110 steps")
     if rebuilds < 1:
         raise AssertionError("phase 8: no list rebuild")
+    graph_phase("phase 8b", "100k", eng, dict(x0=x_near), card)
 
     # ---- phase 9: card (float32) against CPU (float64, plain path)
     card_vs_cpu("phase 9", eng, system, md, cfg, 2, x0=x_near)
@@ -834,6 +905,7 @@ def il_path(card, dev, results):
                 "rattle_velocities": k78.rattle_launches}
     st, _, _, launches = main_run("phase 12", eng, {}, 11, 100, counters,
                                   conp.ne, card)
+    graph_phase("phase 12b", "il", eng, {}, card)
     res = constraint_residuals(cons, st.x, **kw)
     print(f"phase 12: constraint residual per slot (bond 1, bond 2, 1-3) "
           f"{['%.3e' % r for r in res]}")
@@ -902,6 +974,159 @@ def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):
     print(f"{tag}: {ms_step:.4f} ms/step ({1e3 / ms_step:.2f} steps/s), "
           f"{eng.system.natoms} atoms, float32  [{card}]")
     return st, th, ms_step, launches
+
+
+# graphed-vs-eager pairs per cell and the steps of each run: each run
+# starts from the same state
+GRAPH_PAIRS = 5
+GRAPH_STEPS = 100
+GRAPH_PROFILE_STEPS = GRAPH_STEPS
+GRAPHS = []
+
+
+def _state_diff(a, b):
+    """(bit-identical, max|dx|, max|dv|, max|dq|, |dpe|) of two states."""
+    d = [float((u.double() - w.double()).abs().max()) for u, w in
+         ((a.x, b.x), (a.v, b.v), (a.q, b.q), (a.energy, b.energy))]
+    same = all(torch.equal(u, w) for u, w in ((a.x, b.x), (a.v, b.v),
+                                              (a.q, b.q),
+                                              (a.energy, b.energy)))
+    return (same, *d)
+
+
+def graph_phase(tag, cell, eng, st_kw, card):
+    """The step replayed as CUDA graphs (``Engine.run``) against the eager
+    step (``Engine.step`` in a loop), from the same state, GRAPH_STEPS
+    steps per run: GRAPH_PAIRS alternating (eager, graphed) pairs on the
+    host clock; eager vs eager and graphed vs eager on x, v, q and pe (bit
+    for bit wherever two eager runs are); the host syncs of a graphed run
+    (torch.cuda.set_sync_debug_mode: none per step on the dense paths, one
+    on the list paths); a torch.profiler window of the same replayed steps
+    (the same list rebuilds): the device-busy share of the graphed step and
+    each hand kernel's device time per launch.  Appends the cell's record to
+    GRAPHS."""
+    import warnings
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    from lammps_user_conp2_tpu_torch.step_breakdown import (device_busy,
+                                                            kernel_of)
+    from torch.profiler import ProfilerActivity, profile
+
+    st0 = eng.init_state(**st_kw)
+    eng.run(st0, 2, thermo_every=0)              # captured (or reused)
+    torch.cuda.synchronize()
+    eager_ms, graph_ms, eager_out, graph_out = [], [], [], []
+    for _ in range(GRAPH_PAIRS):
+        t0 = time.perf_counter()
+        st = st0
+        for _ in range(GRAPH_STEPS):
+            st = eng.step(st)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) / GRAPH_STEPS * 1e3)
+        eager_out.append(st)
+        t0 = time.perf_counter()
+        st, _ = eng.run(st0, GRAPH_STEPS, thermo_every=0)
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t0) / GRAPH_STEPS * 1e3)
+        graph_out.append(st)
+    # every pair of runs: eager-eager, graphed-eager, graphed-graphed
+    ee = [_state_diff(eager_out[i], eager_out[j])
+          for i in range(GRAPH_PAIRS) for j in range(i + 1, GRAPH_PAIRS)]
+    ge = [_state_diff(g, e) for g in graph_out for e in eager_out]
+    gg = [_state_diff(graph_out[i], graph_out[j])
+          for i in range(GRAPH_PAIRS) for j in range(i + 1, GRAPH_PAIRS)]
+    stats = {}
+    for label, ds in (("eager_vs_eager", ee), ("graphed_vs_eager", ge),
+                      ("graphed_vs_graphed", gg)):
+        stats[label] = dict(
+            bit_identical=all(d[0] for d in ds),
+            max=[max(d[k] for d in ds) for k in range(1, 5)],
+            median=[float(np.median([d[k] for d in ds])) for k in
+                    range(1, 5)])
+        st_ = stats[label]
+        print(f"{tag}: {cell}, {GRAPH_STEPS} steps from one state, "
+              f"{label} ({len(ds)} pairs): bit-identical "
+              f"{st_['bit_identical']}; max / median |dx| "
+              f"{st_['max'][0]:.3e} / {st_['median'][0]:.3e}, |dv| "
+              f"{st_['max'][1]:.3e} / {st_['median'][1]:.3e}, |dq| "
+              f"{st_['max'][2]:.3e} / {st_['median'][2]:.3e}, |dpe| "
+              f"{st_['max'][3]:.3e} / {st_['median'][3]:.3e}")
+    ee_same = stats["eager_vs_eager"]["bit_identical"]
+    ge_same = stats["graphed_vs_eager"]["bit_identical"]
+    if ee_same and not ge_same:
+        raise AssertionError(f"{tag}: the graphed run differs from the "
+                             "eager run, which is bit-reproducible")
+    # where the eager step itself is not reproducible (atomic scatters),
+    # the typical graphed-vs-eager difference against the eager spread
+    within = all(g <= e for g, e in zip(stats["graphed_vs_eager"]["median"],
+                                        stats["eager_vs_eager"]["max"]))
+    print(f"{tag}: ms/step eager / graphed pairs " + ", ".join(
+        f"{e:.4f} / {g:.4f}" for e, g in zip(eager_ms, graph_ms))
+        + f"  [{card}]")
+    # host syncs of one graphed run
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.run(st0, GRAPH_STEPS, thermo_every=0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = {}
+    for w in caught:
+        if "called a synchronizing" in str(w.message):
+            loc = f"{os.path.basename(w.filename)}:{w.lineno}"
+            where[loc] = where.get(loc, 0) + 1
+    syncs = sum(where.values())
+    listed = eng.ncfg is not None
+    print(f"{tag}: {syncs} host syncs in a graphed run of {GRAPH_STEPS} "
+          f"steps ({'one per step allowed' if listed else 'none per step'},"
+          f" plus the end-of-run check): {where}")
+    if syncs > (GRAPH_STEPS if listed else 0) + 2:
+        raise AssertionError(f"{tag}: {syncs} host syncs in the graphed run")
+    if listed and syncs < GRAPH_STEPS:
+        raise AssertionError(f"{tag}: the sync count missed the flag reads")
+    # the profiled window, the timed runs' trajectory: busy share and
+    # device time per launch
+    before = {c.name: c.count for c in build.COUNTERS}
+    r0 = eng.rebuilds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(st0, GRAPH_PROFILE_STEPS, thermo_every=0)
+        torch.cuda.synchronize()
+    rebuilds = eng.rebuilds - r0
+    launched = {c.name: c.count - before[c.name] for c in build.COUNTERS
+                if c.count != before[c.name]}
+    busy, by_name = device_busy(prof, GRAPH_PROFILE_STEPS)
+    with open(os.path.join(OUT_DIR, f"graph_profile_{cell}.txt"), "w") as fh:
+        fh.write(card + "\n")
+        fh.write(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40))
+    per_kernel = {}
+    for name, (ms, cnt) in by_name.items():
+        key = kernel_of(name)
+        if key is not None:
+            ms0, c0 = per_kernel.get(key, (0.0, 0.0))
+            per_kernel[key] = (ms0 + ms, c0 + cnt)
+    nk = sum(c for _, c in by_name.values())
+    g_med = float(np.median(graph_ms))
+    share = busy / g_med
+    print(f"{tag}: graphed step {g_med:.4f} ms (median), device busy "
+          f"{busy:.4f} ms/step (union of kernel intervals over "
+          f"{GRAPH_PROFILE_STEPS} replayed steps, {rebuilds} list "
+          f"rebuilds), busy share {share:.3f}, "
+          f"{nk:.0f} device kernels per step; eager step "
+          f"{float(np.median(eager_ms)):.4f} ms  [{card}]")
+    for key, (ms, cnt) in sorted(per_kernel.items()):
+        print(f"    {key}: device {ms:.4f} ms/step in {cnt:.1f} CUDA kernels "
+              f"per step under replay")
+    GRAPHS.append(dict(
+        cell=cell, natoms=eng.system.natoms, eager_ms=eager_ms,
+        graph_ms=graph_ms, busy_ms=busy, busy_share=share,
+        kernels_per_step=nk, host_syncs=syncs, rebuilds_profiled=rebuilds,
+        diffs=stats, graph_within_eager_spread=within,
+        launches=launched, kernel_device_ms_per_step={
+            k: v[0] for k, v in per_kernel.items()}))
+    return per_kernel, launched
 
 
 def card_vs_cpu(tag, eng, system, md, cfg, nsteps, x0=None):
@@ -1013,6 +1238,7 @@ def bonded_path(card, dev, results):
                 "rattle_velocities": k78.rattle_launches}
     _, _, _, launches = main_run("phase 16", eng, {}, 11, 100, counters,
                                  conp.ne, card)
+    graph_phase("phase 16b", "bonded", eng, {}, card)
 
     # ---- phase 17: card (float32) against CPU (float64)
     card_vs_cpu("phase 17", eng, system, md, cfg, 3)
@@ -1061,26 +1287,59 @@ def unfused_path(card, dev, results):
                         * (zr - zl - 2.0))
     # at x0 the ions sit >= 4 A from the inner sheets, beyond the clamped
     # Gaussian (eta r < 5.8, r < 2.93 A): every term is 0 there.  The
-    # kernel's line is measured 1 A off the sheets, where it is not.
-    for tag, xx in (("at x0", system.x0), ("1 A off the sheets", x_close)):
+    # kernel's line is measured 1 A off the sheets (every ion's z mapped
+    # between the inner sheets' 1 A planes), and again with the anions
+    # nearest each wall moved 1.2 A off it (``near_sheet_positions``).
+    # K6 searches the correction's range r_corr; its plain version the
+    # full cutoff.
+    x_1p2 = workloads.near_sheet_positions(system, gap=1.2)
+    print(f"    conp_correction: r_corr {eng.r_corr:.6f} A of the "
+          f"{md.cutoff} A cutoff")
+    for tag, xx in (("at x0", system.x0), ("1 A off the sheets", x_close),
+                    ("1.2 A off the sheets", x_1p2)):
         x = torch.as_tensor(xx, dtype=torch.float32, device=dev)
         zsort = z_perm(x, system.box, system.periodic)
         args = (x, q, eng.type_idx, conp.ele_idx_t, eng.ele_flag,
                 eng.elyte_flag, eng.eta_tab, eng.fo_tab)
-        kern = lambda: k56.conp_correction(*args, zsort=zsort, **kw)
+        kern = lambda: k56.conp_correction(*args, zsort=zsort,
+                                           r_corr=eng.r_corr,
+                                           gtab=eng.corr_gtab, **kw)
         plain = lambda: k56.conp_correction_plain(*args, **kw)
         got = kern()
         torch.cuda.synchronize()
         rel, dabs = compare("conp_correction " + tag, got, plain())
+        same_bits("conp_correction " + tag, got, kern())
         print(f"    conp_correction {tag}: ecorr {float(got[1]):.4f}")
-    if not abs(float(got[1])) > 1e-3:
-        raise AssertionError("phase 18: ecorr off the sheets is ~0")
-    results["conp_correction"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                                      plain_ms=median_ms(plain, reps=5))
-    results["conp_correction"].update(bound(
-        (args, zsort), got, CORR_PAIR_FLOPS * pairs_within(
+        if tag == "at x0":
+            orders = k56.corr_orders(*zsort, eng.elyte_flag, eng.ele_flag)
+            ref = k56.corr_orders(zsort[0].cpu(), zsort[1].cpu(),
+                                  eng.elyte_flag.cpu(), eng.ele_flag.cpu())
+            if not all(torch.equal(a.cpu().long(), b.long()) and
+                       torch.equal(c.cpu(), d) for (a, c), (b, d) in
+                       zip(orders, ref)):
+                raise AssertionError("phase 18: K6's z orders differ from "
+                                     "their plain version")
+            print("    conp_correction: its electrolyte and electrode z "
+                  "orders equal their plain version")
+            continue
+        if not abs(float(got[1])) > 1e-3:
+            raise AssertionError(f"phase 18: ecorr {tag} is ~0")
+        r = dict(rel=rel, abs=dabs, ms=median_ms(kern),
+                 plain_ms=median_ms(plain, reps=5),
+                 device_ms=device_ms(kern, K6_PARTS, tag="conp_correction "
+                                     + tag), r_corr=eng.r_corr)
+        # the function needs the pairs within r_corr: beyond it every term
+        # is exactly 0
+        r.update(bound((args, zsort), got, CORR_PAIR_FLOPS * pairs_within(
             x[:conp.ne], x[conp.ne:], system.box, system.periodic,
-            md.cutoff ** 2)))
+            eng.r_corr ** 2)))
+        if tag.startswith("1 A"):
+            results["conp_correction"] = r
+        else:
+            results["conp_correction"].update(
+                ms_1p2=r["ms"], device_ms_1p2=r["device_ms"],
+                rel=max(rel, results["conp_correction"]["rel"]),
+                abs=max(dabs, results["conp_correction"]["abs"]))
     report("phase 18", results, ("conp_correction",), card)
 
     # ---- phase 19: the main path
@@ -1090,6 +1349,7 @@ def unfused_path(card, dev, results):
                 "rattle_velocities": k78.rattle_launches}
     _, _, _, launches = main_run("phase 19", eng, {}, 11, 100, counters,
                                  conp.ne, card, never=("pair_forces",))
+    graph_phase("phase 19b", "unfused_il", eng, {}, card)
 
     # ---- phase 20: card (float32) against CPU (float64), from anions 2 A
     # off the inner sheets: the engine's own K6 call sees nonzero terms
@@ -1188,6 +1448,7 @@ def fullmesh_path(card, dev, results):
     print(f"phase 22: {rebuilds} list rebuilds in 110 steps")
     if rebuilds < 1:
         raise AssertionError("phase 22: no list rebuild")
+    graph_phase("phase 22b", "full_mesh", eng, dict(x0=x_near), card)
 
     # ---- phase 23: card (float32) against CPU (float64)
     card_vs_cpu("phase 23", eng, system, md, cfg, 2, x0=x_near)

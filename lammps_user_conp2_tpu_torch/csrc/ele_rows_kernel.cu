@@ -41,23 +41,31 @@
 // conp_correction_pallas (body _corr_kernel), which the JAX engine runs when
 // the pair sweep does not fuse the correction.
 //
-// What bounds it on this card: the per-pair chain (exp, rsqrt, the A&S
-// polynomial with its division, one more division), evaluated twice per
-// pair; the inputs sit in L2.
+// What bounds it on this card: finding the pairs, not evaluating them.  With
+// the ETA widths (fo = 0) a term is exactly 0 once eta^2 r^2 >= ERFC_MAX^2:
+// at the ionic-liquid decks' eta, beyond 2.93 A of a 16 A cutoff, and most
+// of an electrode row's 16 A z window is its electrode's own sheets.  The
+// pairs that remain sit in L2 and take a few microseconds.
 //
-// Design: deterministic, no atomics.  Two passes over the same z-sorted
-// columns (zorder.z_perm), each row binary-searching its z windows as K5
-// does.  One warp owns one row: its lanes stride over the row's windows
-// and a fixed-order warp shuffle sums their partial forces (a thread per
-// row would give the il decks' 2,496 electrode rows ~40 blocks of 64 on 132
-// SMs, each thread walking ~10^3 columns).  Pass 1: a warp per electrode row sums the row's force over
-// the electrolyte columns, writes it once and adds the row's energy to a
-// per-block sum (fixed-order tree) reduced by a one-block second kernel.
-// Pass 2: a warp per atom in z order; an electrolyte atom sums the
-// reactions of the electrode columns in its windows and writes its row
-// once.  Both passes form each pair term from the electrode's side, op for
-// op (d = x_ele - x_ely with the plain version's minimum image and |d|^2,
-// common.cuh rsq_rn), so both sides of a pair are the same numbers.
+// Design: deterministic, no atomics, each row written once.  The
+// wrapper passes the correction's own range r_corr (ele_rows_kernel.py
+// correction_range: min(cutoff, ERFC_MAX / eta_min) with a 1e-5 margin when
+// every electrode x electrolyte fo is 0, else the cutoff), which sets the z
+// windows and the pair test; the kernel's ERFC_MAX gate is unchanged, so a
+// pair left out is a pair whose terms are exactly 0.  A first kernel (one
+// CTA, K5's fixed-order block scan run twice) compacts the step's shared z
+// order (zorder.z_perm) into the electrolyte's and the electrodes' z
+// orders, with their counts on the device, so no pass reads a column it
+// then drops.  Pass 1: a warp per electrode row binary-searches its z
+// windows in the electrolyte order (three on a periodic z, one per image),
+// its lanes stride over them, a fixed-order warp shuffle sums the row's
+// force, written once, and its energy goes to a per-block sum (fixed-order
+// tree) reduced by a one-block last kernel.  Pass 2: a warp per
+// electrolyte atom of the electrolyte order over its windows in the
+// electrode order, writing the reactions once.  Both passes form each pair
+// term from the electrode's side, op for op (d = x_ele - x_ely with the
+// plain version's minimum image and |d|^2, common.cuh rsq_rn), so both
+// sides of a pair are the same numbers.
 #include <cmath>
 #include <cstdint>
 
@@ -133,14 +141,16 @@ struct BArgs {
   float* b_out;            // (ne,)
 };
 
-// one CTA: the electrolyte's z order, the entries of the full z order
-// (perm, zs) whose atom has ely_f > 0, in the same order, into (cperm, czs),
-// and their count into *ncols.  Chunks of ORD_TB * ORD_ITEMS sorted
+// the entries of the full z order (perm, zs) whose atom has flag > 0, in
+// the same order, into (cperm, czs), and their count into *ncols; run by
+// one whole CTA of ORD_TB threads.  Chunks of ORD_TB * ORD_ITEMS sorted
 // positions; thread t takes ORD_ITEMS consecutive ones, and a fixed-order
 // block scan (warp shuffles, then the warp totals) places each kept entry.
-__global__ void __launch_bounds__(ORD_TB)
-b_order_kernel(const int64_t* perm, const float* zs, const float* ely_f,
-               int n, int* cperm, float* czs, int* ncols) {
+__device__ __forceinline__ void compact_order(const int64_t* perm,
+                                              const float* zs,
+                                              const float* flag, int n,
+                                              int* cperm, float* czs,
+                                              int* ncols) {
   __shared__ int wofs[ORD_TB / 32];
   __shared__ int chunk_total;
   const int tid = threadIdx.x;
@@ -155,7 +165,7 @@ b_order_kernel(const int64_t* perm, const float* zs, const float* ely_f,
       atom[i] = 0;
       if (k0 + i < n) {
         atom[i] = static_cast<int>(perm[k0 + i]);
-        if (ely_f[atom[i]] > 0.f) keep |= 1u << i;
+        if (flag[atom[i]] > 0.f) keep |= 1u << i;
       }
     }
     const int cnt = __popc(keep);
@@ -189,6 +199,13 @@ b_order_kernel(const int64_t* perm, const float* zs, const float* ely_f,
     __syncthreads();                        // wofs, chunk_total reused
   }
   if (tid == 0) *ncols = base;
+}
+
+// one CTA: the electrolyte's z order (K5's columns)
+__global__ void __launch_bounds__(ORD_TB)
+b_order_kernel(const int64_t* perm, const float* zs, const float* ely_f,
+               int n, int* cperm, float* czs, int* ncols) {
+  compact_order(perm, zs, ely_f, n, cperm, czs, ncols);
 }
 
 __global__ void __launch_bounds__(B_TB) b_rows_kernel(BArgs a) {
@@ -239,24 +256,37 @@ struct CorrArgs {
   const float* q;          // (n,)
   const int64_t* type;     // (n,)
   const int64_t* ele_idx;  // (ne,) electrode row -> atom index
-  const float* ele_f;      // (n,) 1 = electrode
-  const float* ely_f;      // (n,) 1 = electrolyte
   const float* gtab;       // (2, nt1, nt1) eta, fo
-  const int64_t* perm;     // (n,) sorted position -> atom index
-  const float* zs;         // (n,) sorted wrapped z keys
-  int n, ne, nt1;
+  const int* ely_perm;     // the electrolyte's atoms in z order (the first
+  const float* ely_zs;     // *ely_n entries) and their sorted z keys
+  const int* ely_n;
+  const int* ele_perm;     // the electrodes' atoms in z order (the first
+  const float* ele_zs;     // *ele_n entries) and their sorted z keys
+  const int* ele_n;
+  int ne, nt1;
   float bx, by, bz, ibx, iby, ibz;
   int px, py, pz;
-  float cutsq, zcut, qqr2e;
+  float cutsq, zcut, qqr2e;  // the correction's range r_corr, squared
   float* f_out;            // (n, 3) original order
   float* partials;         // (ceil(ne / C_WARPS),) per-block energy sums
 };
 
+// one CTA: the electrolyte's and the electrodes' z orders, both from the
+// step's shared z order (perm, zs), one after the other
+__global__ void __launch_bounds__(ORD_TB)
+corr_order_kernel(const int64_t* perm, const float* zs, const float* ely_f,
+                  const float* ele_f, int n, int* order) {
+  compact_order(perm, zs, ely_f, n, order, reinterpret_cast<float*>(order + n),
+                order + 4 * n);
+  compact_order(perm, zs, ele_f, n, order + 2 * n,
+                reinterpret_cast<float*>(order + 3 * n), order + 4 * n + 1);
+}
+
 // one (electrode e, electrolyte l) pair from the electrode's side: adds
 // F_el to f (the force on e; -F_el acts on l) and e_el to en when r is
-// within the cutoff
-__device__ __forceinline__ void corr_pair(const CorrArgs& a, int64_t ae,
-                                          int64_t al, float* f, float* en) {
+// within the correction's range
+__device__ __forceinline__ void corr_pair(const CorrArgs& a, int ae, int al,
+                                          float* f, float* en) {
   const float dx = min_image_rn(__fsub_rn(a.x[3 * ae], a.x[3 * al]), a.bx,
                                 a.ibx, a.px);
   const float dy = min_image_rn(__fsub_rn(a.x[3 * ae + 1], a.x[3 * al + 1]),
@@ -283,7 +313,8 @@ __device__ __forceinline__ void corr_pair(const CorrArgs& a, int64_t ae,
   f[2] += fpair * dz;
 }
 
-// pass 1: electrode rows against the electrolyte columns of their windows
+// pass 1: a warp per electrode row over the electrolyte columns of its z
+// windows
 __global__ void __launch_bounds__(C_TB) corr_ele_kernel(CorrArgs a) {
   __shared__ float sred[C_WARPS];
   const int lane = threadIdx.x & 31;
@@ -291,16 +322,15 @@ __global__ void __launch_bounds__(C_TB) corr_ele_kernel(CorrArgs a) {
   const int r = blockIdx.x * C_WARPS + w;
   float f[3] = {0.f, 0.f, 0.f};
   float en = 0.f;
-  int64_t ae = 0;
+  int ae = 0;
   if (r < a.ne) {
-    ae = a.ele_idx[r];
+    ae = static_cast<int>(a.ele_idx[r]);
     int lo[3], hi[3];
-    const int nwin = z_windows(a.zs, a.n, a.x[3 * ae + 2], a.bz, a.ibz, a.pz,
-                               a.zcut, lo, hi);
+    const int nwin = z_windows(a.ely_zs, *a.ely_n, a.x[3 * ae + 2], a.bz,
+                               a.ibz, a.pz, a.zcut, lo, hi);
     for (int win = 0; win < nwin; ++win) {
       for (int k = lo[win] + lane; k < hi[win]; k += 32) {
-        const int64_t al = a.perm[k];
-        if (a.ely_f[al] > 0.f) corr_pair(a, ae, al, f, &en);
+        corr_pair(a, ae, a.ely_perm[k], f, &en);
       }
     }
   }
@@ -324,23 +354,21 @@ __global__ void __launch_bounds__(C_TB) corr_ele_kernel(CorrArgs a) {
   }
 }
 
-// pass 2: electrolyte atoms (in z order) against the electrode columns of
-// their windows, the reactions of pass 1's pair terms
+// pass 2: a warp per electrolyte atom (in z order) over the electrode
+// columns of its z windows, the reactions of pass 1's pair terms
 __global__ void __launch_bounds__(C_TB) corr_ely_kernel(CorrArgs a) {
   const int lane = threadIdx.x & 31;
   const int k0 = blockIdx.x * C_WARPS + (threadIdx.x >> 5);
-  if (k0 >= a.n) return;                 // warp-uniform
-  const int64_t al = a.perm[k0];
-  if (!(a.ely_f[al] > 0.f)) return;      // warp-uniform
+  if (k0 >= *a.ely_n) return;            // warp-uniform
+  const int al = a.ely_perm[k0];
   float f[3] = {0.f, 0.f, 0.f};
   float en = 0.f;
   int lo[3], hi[3];
-  const int nwin = z_windows(a.zs, a.n, a.x[3 * al + 2], a.bz, a.ibz, a.pz,
-                             a.zcut, lo, hi);
+  const int nwin = z_windows(a.ele_zs, *a.ele_n, a.x[3 * al + 2], a.bz,
+                             a.ibz, a.pz, a.zcut, lo, hi);
   for (int win = 0; win < nwin; ++win) {
     for (int k = lo[win] + lane; k < hi[win]; k += 32) {
-      const int64_t ae = a.perm[k];
-      if (a.ele_f[ae] > 0.f) corr_pair(a, ae, al, f, &en);
+      corr_pair(a, a.ele_perm[k], al, f, &en);
     }
   }
   f[0] = warp_sum(f[0]);
@@ -377,8 +405,10 @@ extern "C" {
 int conp2_corr_rows() { return conp2::C_WARPS; }
 
 // f_out (n, 3) (rows neither electrode nor electrolyte are left as they
-// are: the caller zeroes f_out) and ecorr (1) in float32.  Returns
-// cudaGetLastError().
+// are: the caller zeroes f_out) and ecorr (1) in float32, over the pairs
+// with r^2 < cutsq, the correction's range; order is the workspace of the
+// two z orders (4n + 2 int32), partials the per-block energies
+// (ceil(ne / conp2_corr_rows())).  Returns cudaGetLastError().
 int conp2_conp_correction_f32(const float* x, const float* q,
                               const int64_t* type, const int64_t* ele_idx,
                               const float* ele_f, const float* ely_f,
@@ -386,20 +416,37 @@ int conp2_conp_correction_f32(const float* x, const float* q,
                               const float* zs, int n, int ne, int nt1,
                               float bx, float by, float bz, int px, int py,
                               int pz, float cutsq, float zcut, float qqr2e,
-                              float* f_out, float* partials, float* ecorr,
-                              void* stream) {
+                              int* order, float* f_out, float* partials,
+                              float* ecorr, void* stream) {
   if (n <= 0 || ne <= 0 || nt1 <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  conp2::CorrArgs a{x, q, type, ele_idx, ele_f, ely_f, gtab, perm, zs, n, ne,
-                    nt1, bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz, px, py,
-                    pz, cutsq, zcut, qqr2e, f_out, partials};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  conp2::corr_order_kernel<<<1, conp2::ORD_TB, 0, s>>>(perm, zs, ely_f,
+                                                       ele_f, n, order);
+  float* ordf = reinterpret_cast<float*>(order);
+  conp2::CorrArgs a{x, q, type, ele_idx, gtab, order, ordf + n, order + 4 * n,
+                    order + 2 * n, ordf + 3 * n, order + 4 * n + 1, ne, nt1,
+                    bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz, px, py, pz,
+                    cutsq, zcut, qqr2e, f_out, partials};
   const int nb_e = (ne + conp2::C_WARPS - 1) / conp2::C_WARPS;
   const int nb_a = (n + conp2::C_WARPS - 1) / conp2::C_WARPS;
   conp2::corr_ele_kernel<<<nb_e, conp2::C_TB, 0, s>>>(a);
   conp2::corr_ely_kernel<<<nb_a, conp2::C_TB, 0, s>>>(a);
   conp2::corr_reduce<<<1, conp2::C_REDUCE_TB, 0, s>>>(partials, nb_e, ecorr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the two z orders of K6 alone (its first kernel) into order (4n + 2
+// int32: the electrolyte's atom indices and keys, the electrodes' atom
+// indices and keys, the two counts).  Returns cudaGetLastError().
+int conp2_corr_order_i32(const int64_t* perm, const float* zs,
+                         const float* ely_f, const float* ele_f, int n,
+                         int* order, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  conp2::corr_order_kernel<<<1, conp2::ORD_TB, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      perm, zs, ely_f, ele_f, n, order);
   return static_cast<int>(cudaGetLastError());
 }
 

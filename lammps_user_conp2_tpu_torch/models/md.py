@@ -5,7 +5,9 @@ Step order (LAMMPS Verlet::run, FixConp::pre_force fix_conp.cpp:543-573):
   and mesh-tile rebuild] -> charge solve -> forces -> post-force CONP
   correction -> kick half -> [RATTLE] -> NHC half
 
-``step`` is a plain function of tensors and ``run`` a Python loop of steps.
+``step`` is a plain function of tensors, in three segments (``_pre``,
+``_rebuild``, ``_post``); ``run`` is a Python loop of steps on the CPU and
+replays the segments as CUDA graphs on the card (``models/graphs.py``).
 Two paths, chosen by ``build_engine`` as the JAX engine chooses them:
 
 * mid-size (N <= 8192 or a box under 4 cutoffs): the dense pair sweep (K4)
@@ -38,7 +40,7 @@ from ..ops import ewald as ewald_ops
 from ..ops import ewald_factored as ewf
 from ..ops import pppm as pppm_ops
 from ..ops.bonded import bonded_forces
-from ..ops.kernels.ele_rows_kernel import conp_correction
+from ..ops.kernels.ele_rows_kernel import conp_correction, correction_range
 from ..ops.kernels.pair_kernel import pair_forces
 from ..ops.kernels.shake_kernel import rattle_velocities, shake_positions
 from ..ops.neighbors import (block_pair_forces, build_neighbor_list,
@@ -49,6 +51,7 @@ from ..ops.pairs import (PairTables, dense_pair_forces, exclusions_tensors,
                          make_pair_tables)
 from ..utils.config import KSpaceStyle, MDConfig
 from ..utils.device import DEFAULT_DTYPE, resolve_device
+from . import graphs
 from .conp import ConpSolver
 from .electrodes import MY_PIS
 from .integrate import Integrator, group_temperature, make_nhc_params
@@ -84,6 +87,9 @@ class Engine(nn.Module):
         # the tiled mesh, and only while skin/2 fits the tile drift margin
         self.mesh_persist = mesh_persist
         self.rebuilds = 0                # Verlet-list rebuilds in step()
+        # graphs.StepGraphs by graphs.graph_key: the step's CUDA graphs at
+        # each set of capacities run() has met
+        self._step_graphs = {}
         self.dtype = dtype
         self.units = system.units()
         f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -113,7 +119,13 @@ class Engine(nn.Module):
             self.register_buffer("elyte_flag", f(conp.elyte_mask))
             self.register_buffer("eta_tab", f(kern.eta_ij))
             self.register_buffer("fo_tab", f(kern.fo_ij))
+            self.register_buffer("corr_gtab", torch.stack(
+                [self.eta_tab, self.fo_tab]).contiguous())
             self.register_buffer("self_diag", f(kern.self_diag))
+            # the range of the CONP correction's terms (K6 searches it)
+            self.r_corr = correction_range(
+                kern.eta_ij, kern.fo_ij, np.unique(system.type[conp.ele_idx]),
+                np.unique(system.type[conp.elyte_mask]), md.cutoff)
         # thermo groups: the solvent (or the first thermostat's group) and
         # the two electrodes
         sol = system.groups.get("sol")
@@ -295,7 +307,8 @@ class Engine(nn.Module):
                     x, q, self.type_idx, self.conp.ele_idx_t, self.ele_flag,
                     self.elyte_flag, self.eta_tab, self.fo_tab, box=box,
                     periodic=sys.periodic, cutoff=self.md.cutoff,
-                    qqr2e=u.qqr2e, zsort=self._zsort(kcache))
+                    qqr2e=u.qqr2e, zsort=self._zsort(kcache),
+                    r_corr=self.r_corr, gtab=self.corr_gtab)
                 f = f + fc
             qsq_ele = torch.sum(torch.where(
                 self.elecheck != 0, self.self_diag * q * q,
@@ -315,7 +328,11 @@ class Engine(nn.Module):
             tasg = pppm_ops.tile_assign(self.pppm_grid, x)
         return nbr, tasg
 
-    def step(self, state: MDState) -> MDState:
+    def _pre(self, state: MDState):
+        """The step up to the charge solve: thermostat half, kick, drift,
+        SHAKE and the Verlet skin check.  Returns (x, v, xi, vxi, flag):
+        ``flag`` is the () bool device tensor of the skin check (LAMMPS
+        Neighbor::check_distance), None without a list."""
         itg = self.integrator
         v, xi, vxi = itg.thermostat_half(state.v, state.nhc_xi, state.nhc_vxi)
         v = itg.kick(v, state.f)
@@ -325,16 +342,23 @@ class Engine(nn.Module):
                                     box=self.ksp_force.box,
                                     periodic=self.system.periodic)
             v = v + dv
-        nbr, tasg = state.nbr, state.tasg
+        flag = None
         if self.ncfg is not None:
-            # Verlet skin check (LAMMPS Neighbor::check_distance): one host
-            # sync per step.  The mesh-tile assignment shares the trigger.
-            if bool(needs_rebuild(self.ncfg, nbr, x)):
-                nbr, tasg = self.derived_state(x)
-                self.rebuilds += 1
-                # sticky overflow: a rebuild from NaN-poisoned positions
-                # must not clear it, so run() can see the cause
-                nbr.overflow = nbr.overflow | state.nbr.overflow
+            flag = needs_rebuild(self.ncfg, state.nbr, x)
+        return x, v, xi, vxi, flag
+
+    def _rebuild(self, x, nbr_old):
+        """``derived_state`` at x, with the list's overflow flag kept sticky:
+        a rebuild from NaN-poisoned positions must not clear it, so run()
+        can see the cause.  The mesh-tile assignment shares the trigger."""
+        nbr, tasg = self.derived_state(x)
+        nbr.overflow = nbr.overflow | nbr_old.overflow
+        return nbr, tasg
+
+    def _post(self, state: MDState, x, v, xi, vxi, nbr, tasg) -> MDState:
+        """The step from the charge solve on: solve, forces, kick, RATTLE,
+        thermostat half."""
+        itg = self.integrator
         q, scalar, kcache = state.q, state.scalar_out, None
         if self.conp is not None:
             q, scalar, kcache = self.conp.solve_full(x, q, nbr, self.ncfg,
@@ -348,6 +372,18 @@ class Engine(nn.Module):
         return MDState(x=x, v=v, q=q, f=f, step=state.step + 1, nhc_xi=xi,
                        nhc_vxi=vxi, scalar_out=scalar, energy=pe, nbr=nbr,
                        tasg=tasg)
+
+    def step(self, state: MDState) -> MDState:
+        """One eager step: ``_pre``, the host test of its skin flag (one
+        host sync per step on the list paths) and ``_rebuild`` when it is
+        set, then ``_post``.  ``run`` replays the same segments as CUDA
+        graphs on the card."""
+        x, v, xi, vxi, flag = self._pre(state)
+        nbr, tasg = state.nbr, state.tasg
+        if flag is not None and bool(flag):
+            nbr, tasg = self._rebuild(x, state.nbr)
+            self.rebuilds += 1
+        return self._post(state, x, v, xi, vxi, nbr, tasg)
 
     # -------------------------------------------------------------- setup
     def init_state(self, x0=None, v0=None, q0=None) -> MDState:
@@ -442,19 +478,26 @@ class Engine(nn.Module):
         each thermo key to a tensor of the rows taken every
         ``thermo_every`` steps (None when thermo_every is 0).
 
+        On the CPU a Python loop of ``step``.  On CUDA the step's segments
+        are replayed as CUDA graphs (``models/graphs.py``), captured once
+        per set of capacities; a capture or replay error raises.
+
         If the run ends NaN-poisoned through a list overflow (sticky
         ``nbr.overflow``) or on the tiled mesh, the capacity is grown, the
         derived state rebuilt from the entry state, and the whole run
         repeated (at most 3 times), as the JAX engine does."""
         def execute(st):
+            if graphs.replayed(st):
+                return graphs.step_graphs(self, st).run(st, nsteps,
+                                                        thermo_every)
             rows = []
             for i in range(nsteps):
                 st = self.step(st)
                 if thermo_every and (i + 1) % thermo_every == 0:
                     rows.append(self.thermo(st))
-            return st, rows
+            return st, stack_thermo(rows)
 
-        final, rows = execute(state)
+        final, th = execute(state)
         for _ in range(3):
             if math.isfinite(float(final.energy)):
                 break
@@ -466,16 +509,20 @@ class Engine(nn.Module):
             else:
                 break
             state = self._heal_state(state)
-            final, rows = execute(state)
-        if not thermo_every:
-            return final, None
-        th = {}
-        for k in (rows[0] if rows else {}):
-            if k == "step":
-                th[k] = torch.tensor([r[k] for r in rows])
-            else:
-                th[k] = torch.stack([r[k] for r in rows])
-        return final, th
+            final, th = execute(state)
+        return final, (th if thermo_every else None)
+
+
+def stack_thermo(rows) -> dict:
+    """The thermo rows of a run as one tensor per key (the steps on the
+    host); {} when the run took none."""
+    th = {}
+    for k in (rows[0] if rows else {}):
+        if k == "step":
+            th[k] = torch.tensor([r[k] for r in rows])
+        else:
+            th[k] = torch.stack([r[k] for r in rows])
+    return th
 
 
 def _check_supported(system: System, md: MDConfig) -> None:

@@ -96,7 +96,14 @@ def _neighbor_cells(grid: CellGrid):
 
 
 def neighbor_cells(grid: CellGrid, device):
-    """``_neighbor_cells`` as int64 / bool tensors on ``device``."""
+    """``_neighbor_cells`` as int64 / bool tensors on ``device``, copied
+    once per grid and device: the list rebuild runs inside a CUDA graph,
+    which cannot hold a copy from the host."""
+    return _neighbor_cells_on(grid, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=8)
+def _neighbor_cells_on(grid: CellGrid, device: str):
     nb, uniq = _neighbor_cells(grid)
     return (torch.as_tensor(nb, dtype=torch.int64, device=device),
             torch.as_tensor(uniq, device=device))

@@ -153,13 +153,13 @@ def _padded(x, q, type_idx, conp_fuse, exclusions):
     dtype = x.dtype
     dev = x.device
     cols = [x, q[:, None].to(dtype)]
-    sent = [1e6, 1e6, 1e6, 0.0]
     if conp_fuse is not None:
         # one flag channel: +1 electrode / -1 electrolyte / 0 neither
         cols.append((conp_fuse[0] - conp_fuse[1]).to(dtype)[:, None])
-        sent.append(0.0)
-    xqp = torch.cat([torch.cat(cols, dim=1),
-                     torch.tensor([sent], dtype=dtype, device=dev)])
+    # the pad row (1e6, 1e6, 1e6, 0[, 0]), filled on the device
+    sent = torch.zeros((1, len(cols) + 2), dtype=dtype, device=dev)
+    sent[:, :3] = 1e6
+    xqp = torch.cat([torch.cat(cols, dim=1), sent])
     tp = torch.cat([type_idx.to(torch.int64),
                     torch.zeros(1, dtype=torch.int64, device=dev)])
     exp = None

@@ -30,12 +30,20 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
 
+COUNTERS: list = []
+
+
 class LaunchCounter:
-    """Number of kernel launches a wrapper has made since the last reset."""
+    """Number of kernel launches a wrapper has made since the last reset.
+    The wrapper counts in Python, where it launches; a CUDA graph that
+    captured the launch replays it without Python, so the step's graph
+    runner (``models/graphs.py``) adds each graph's captured counts on
+    every replay.  ``COUNTERS`` holds every counter made."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.count = 0
@@ -117,8 +125,10 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_b_order_i32.restype = I
     lib.conp2_b_realspace_f32.restype = I
     lib.conp2_conp_correction_f32.argtypes = (
-        [P] * 9 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 4)
+        [P] * 9 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 3 + [P] * 5)
     lib.conp2_conp_correction_f32.restype = I
+    lib.conp2_corr_order_i32.argtypes = [P] * 4 + [I, P, P]
+    lib.conp2_corr_order_i32.restype = I
     lib.conp2_corr_rows.argtypes = []
     lib.conp2_corr_rows.restype = I
     lib.conp2_block_pair_f32.argtypes = (

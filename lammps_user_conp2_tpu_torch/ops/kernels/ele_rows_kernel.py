@@ -20,16 +20,20 @@ float32 tensors and take the plain versions for CPU tensors.  Neither
 kernel has a fixed capacity: every row searches its own z window, so
 nothing can overflow.  K5's windows hold electrolyte columns only: its
 first kernel compacts the shared z order to the electrolyte
-(``elyte_order``), K6 searches the order of every atom.
+(``elyte_order``).  K6's first kernel compacts it into the electrolyte's
+and the electrodes' orders (``corr_orders``): its electrode rows search
+the one, its electrolyte rows the other, within the correction's own range
+(``correction_range``), beyond which every term is exactly 0.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from ..erfc import erfcr_sqrt
+from ..erfc import ERFC_MAX, erfcr_sqrt
 from ..pairs import conp_correction_forces, gauss_table_kernels, min_image
 from . import build
 from .zorder import Z_MARGIN, z_perm
@@ -135,36 +139,94 @@ def b_realspace(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
     return b
 
 
+# relative margin of the correction's range beyond ERFC_MAX / eta: far
+# above float32 rounding of eta and r^2 (~1e-7), so a pair the kernel
+# leaves out has eta^2 r^2 >= ERFC_MAX^2 in float32 too
+R_CORR_MARGIN = 1e-5
+
+
+def correction_range(eta_tab, fo_tab, ele_types, ely_types, cutoff) -> float:
+    """r_corr, the distance beyond which every correction term between the
+    electrode types ``ele_types`` and the electrolyte types ``ely_types``
+    is exactly 0, in float64 from the (T+1, T+1) host tables: with every
+    such fo 0 (ETA widths) the terms carry the erfc clamp alone, 0 once
+    eta^2 r^2 >= ERFC_MAX^2, so r_corr = min(cutoff, ERFC_MAX / eta_min)
+    (1 + R_CORR_MARGIN); otherwise (EHGO's overlap term has no clamp) the
+    cutoff."""
+    cutoff = float(cutoff)
+    ix = np.ix_(np.asarray(ele_types, np.int64),
+                np.asarray(ely_types, np.int64))
+    eta = np.asarray(eta_tab, np.float64)[ix]
+    fo = np.asarray(fo_tab, np.float64)[ix]
+    if eta.size == 0 or np.any(fo != 0.0) or not np.all(eta > 0.0):
+        return cutoff
+    return min(cutoff, ERFC_MAX / float(eta.min()) * (1.0 + R_CORR_MARGIN))
+
+
 def conp_correction_plain(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab,
                           fo_tab, *, box, periodic, cutoff, qqr2e):
     """The electrode-row sweep of ``ops/pairs.conp_correction_forces`` with
-    the table kernels (the JAX package's XLA branch).  ``ele_f`` is not
-    read: the rows are ``ele_idx``."""
+    the table kernels (the JAX package's XLA branch), over every pair
+    within the full ``cutoff``.  ``ele_f`` is not read: the rows are
+    ``ele_idx``."""
     potential, force = gauss_table_kernels(eta_tab, fo_tab)
     return conp_correction_forces(x, q, ele_idx, ely_f > 0, force, potential,
                                   type_idx, box=box, periodic=periodic,
                                   cutoff=cutoff, qqr2e=qqr2e)
 
 
+def corr_orders(perm, zs, ely_f, ele_f):
+    """K6's first kernel alone on CUDA tensors: ((electrolyte atom
+    indices, keys), (electrode atom indices, keys)), each cut to its count
+    (one host sync: a test entry, not the step's); ``elyte_order_plain``
+    with each flag on the CPU."""
+    if perm.device.type == "cpu":
+        return (elyte_order_plain(perm, zs, ely_f),
+                elyte_order_plain(perm, zs, ele_f))
+    build.check_cuda("corr_orders", torch.float32, zs, ely_f, ele_f)
+    build.check_cuda("corr_orders", torch.int64, perm)
+    n = perm.shape[0]
+    order = torch.empty(4 * n + 2, dtype=torch.int32, device=perm.device)
+    build.check_status("corr_orders", build.load_library().conp2_corr_order_i32(
+        perm.data_ptr(), zs.data_ptr(), ely_f.data_ptr(), ele_f.data_ptr(), n,
+        order.data_ptr(), build.stream_ptr(perm.device)))
+    ml, me = (int(c) for c in order[4 * n:].cpu())
+    keys = order[:4 * n].view(torch.float32)
+    return ((order[:ml], keys[n:n + ml]),
+            (order[2 * n:2 * n + me], keys[3 * n:3 * n + me]))
+
+
+# K6's scratch (the two z orders and the per-block energies) per (device,
+# N, Ne), allocated at the first call and reused
+_CORR_SCRATCH = {}
+
+
 def conp_correction(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab, fo_tab, *,
-                    box, periodic, cutoff, qqr2e, zsort=None):
+                    box, periodic, cutoff, qqr2e, zsort=None, r_corr=None,
+                    gtab=None):
     """CONP Gaussian correction over (electrode, electrolyte) pairs within
     ``cutoff``: (f (N, 3), ecorr).  K6 for CUDA float32 tensors, the plain
-    version for CPU tensors.
+    version (which sweeps the full cutoff) for CPU tensors.
 
     x (N,3); q (N,); type_idx (N,) int64; ele_idx (Ne,) int64 the electrode
     rows; ele_f / ely_f (N,) 0/1 float flags of the electrodes (the rows of
     ``ele_idx``) and the electrolyte; eta_tab / fo_tab (T+1, T+1).
     ``zsort``: (perm, z_sorted) from ``zorder.z_perm`` at these positions
-    (computed here when None)."""
+    (computed here when None).  ``r_corr``: the range beyond which every
+    term is 0 (``correction_range``; None: the cutoff), which K6 searches
+    instead of the cutoff.  ``gtab``: eta_tab and fo_tab stacked
+    (2, T+1, T+1), as the engine keeps them (None: stacked here)."""
     kw = dict(box=box, periodic=periodic, cutoff=cutoff, qqr2e=qqr2e)
     if x.device.type == "cpu":
         return conp_correction_plain(x, q, type_idx, ele_idx, ele_f, ely_f,
                                      eta_tab, fo_tab, **kw)
     n = x.shape[0]
     ne = ele_idx.shape[0]
-    gtab = torch.stack([eta_tab, fo_tab]).contiguous()
+    if gtab is None:
+        gtab = torch.stack([eta_tab, fo_tab]).contiguous()
     nt1 = gtab.shape[1]
+    rc = float(cutoff) if r_corr is None else min(float(r_corr),
+                                                  float(cutoff))
     if zsort is None:
         zsort = z_perm(x, box, periodic)
     perm, zs = zsort
@@ -180,17 +242,21 @@ def conp_correction(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab, fo_tab, *,
         raise ValueError("conp_correction: tables must be (T+1, T+1) and "
                          "the electrode rows non-empty")
     lib = build.load_library()
+    key = (str(x.device), n, ne)
+    if key not in _CORR_SCRATCH:
+        nblk = -(-ne // lib.conp2_corr_rows())
+        _CORR_SCRATCH[key] = torch.empty(4 * n + 2 + nblk, dtype=torch.int32,
+                                         device=x.device)
+    scratch = _CORR_SCRATCH[key]
     f = torch.zeros((n, 3), dtype=x.dtype, device=x.device)
-    partials = torch.empty((-(-ne // lib.conp2_corr_rows()),),
-                           dtype=x.dtype, device=x.device)
     ecorr = torch.empty((1,), dtype=x.dtype, device=x.device)
     status = lib.conp2_conp_correction_f32(
         x.data_ptr(), q.data_ptr(), type_idx.data_ptr(), ele_idx.data_ptr(),
         ele_f.data_ptr(), ely_f.data_ptr(), gtab.data_ptr(), perm.data_ptr(),
         zs.data_ptr(), n, ne, nt1, *[float(v) for v in box],
-        *[int(bool(p)) for p in periodic], float(cutoff) ** 2,
-        float(cutoff) + Z_MARGIN, float(qqr2e), f.data_ptr(),
-        partials.data_ptr(), ecorr.data_ptr(), build.stream_ptr())
+        *[int(bool(p)) for p in periodic], rc * rc, rc + Z_MARGIN,
+        float(qqr2e), scratch.data_ptr(), f.data_ptr(),
+        scratch[4 * n + 2:].data_ptr(), ecorr.data_ptr(), build.stream_ptr())
     build.check_status("conp_correction", status)
     corr_launches.count += 1
     return f, ecorr[0]

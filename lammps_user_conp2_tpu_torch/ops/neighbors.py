@@ -254,9 +254,9 @@ def nlist_pair_rows(ncfg: NeighborConfig, x, q, xi, qi, idx_rows, lj_rows, *,
     (excl_idx, excl_val), applied per pair (LJ scaled by s, the Coulomb
     term minus (1 - s) qq/r), or None."""
     n = x.shape[0]
-    xqp = torch.cat([torch.cat([x, q[:, None].to(x.dtype)], dim=1),
-                     torch.tensor([[1e6, 1e6, 1e6, 0.0]], dtype=x.dtype,
-                                  device=x.device)])
+    sent = torch.zeros((1, 4), dtype=x.dtype, device=x.device)
+    sent[:, :3] = 1e6                                    # the pad row
+    xqp = torch.cat([torch.cat([x, q[:, None].to(x.dtype)], dim=1), sent])
     xqj = xqp[idx_rows]
     d = min_image(xi[:, None, :] - xqj[..., :3], ncfg.grid.box,
                   ncfg.grid.periodic)

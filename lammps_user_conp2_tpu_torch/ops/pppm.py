@@ -786,11 +786,14 @@ def _spread_rhok_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None):
 def _half_weights(grid: PPPMGrid, dtype, device):
     """Spectrum-doubling weights of the z half spectrum (kz = 0 and the
     even-nz Nyquist plane appear once)."""
-    w = np.full(grid.nz // 2 + 1, 2.0)
-    w[0] = 1.0
-    if grid.nz % 2 == 0:
-        w[-1] = 1.0
-    return torch.as_tensor(w, dtype=dtype, device=device)
+    def make():
+        w = np.full(grid.nz // 2 + 1, 2.0)
+        w[0] = 1.0
+        if grid.nz % 2 == 0:
+            w[-1] = 1.0
+        return w
+
+    return _devconst(grid, "half_weights", make, dtype, device)
 
 
 def _real_dtype(rhok):
@@ -832,6 +835,12 @@ def _delinv(grid: PPPMGrid):
             grid.nz / grid.zprd_grid)
 
 
+def _dev_delinv(grid: PPPMGrid, dtype, device):
+    """``_delinv`` as a (3,) device constant: a host-built tensor on the
+    step path would be a pageable copy, which a CUDA graph cannot hold."""
+    return _devconst(grid, "delinv", lambda: _delinv(grid), dtype, device)
+
+
 def _wrap_pad_xy(u, bw):
     """Periodic pad of the first two axes by bw."""
     u = torch.cat([u[-bw:], u, u[:bw]], dim=0)
@@ -851,8 +860,7 @@ def gather3_ad_zbin(grid: PPPMGrid, uz, x, slots: TileSlots = None):
     up = _wrap_pad_xy(uz.to(x.dtype), bw).contiguous()
     vals = pppm_gather.gather3(up, slots.rows,
                                _coeffs(grid, x.dtype, x.device), geom)
-    e = vals[slots.slot] * torch.tensor(_delinv(grid), dtype=x.dtype,
-                                        device=x.device)
+    e = vals[slots.slot] * _dev_delinv(grid, x.dtype, x.device)
     return _nan_where(slots.overflow, e)
 
 
@@ -994,8 +1002,8 @@ def gather3_ad(grid: PPPMGrid, u, x):
     gx = torch.sum(_wxy(DWX, WY) * t, dim=1)
     gy = torch.sum(_wxy(WX, DWY) * t, dim=1)
     gz = torch.sum(_wxy(WX, WY) * tz, dim=1)
-    return torch.stack([gx, gy, gz], dim=1) * torch.tensor(
-        _delinv(grid), dtype=x.dtype, device=x.device)
+    return torch.stack([gx, gy, gz], dim=1) * _dev_delinv(grid, x.dtype,
+                                                          x.device)
 
 
 def rfft3(grid: PPPMGrid, rho):
@@ -1049,7 +1057,8 @@ def pppm_energy_efield_from_k(grid: PPPMGrid, rhok):
     for ax, fkv in enumerate(_deriv_fk(grid)):
         shape = [1, 1, 1]
         shape[ax] = -1
-        ik = 1j * torch.as_tensor(fkv, dtype=rdt, device=dev).reshape(shape)
+        ik = 1j * _devconst(grid, ("deriv_fk", ax), lambda: fkv, rdt,
+                            dev).reshape(shape)
         out.append(irfft3(grid, -ik * phik) * scale)
     return e, tuple(out)
 
@@ -1092,8 +1101,8 @@ def _zplane_wz(grid: PPPMGrid, x, zp_inv):
         dx = m.to(dtype) + 0.5 - u
     offs = torch.arange(p, device=x.device) - (p - 1) // 2
     iz = torch.remainder(m[:, None] + offs[None, :], n)
-    zpi = torch.as_tensor(np.asarray(zp_inv), dtype=torch.int64,
-                          device=x.device)
+    zpi = _devconst(grid, ("zp_slot", np.asarray(zp_inv).tobytes()),
+                    lambda: zp_inv, torch.int64, x.device)
     slot = zpi[iz]                                   # (N, p)
     w = _horner_w(dx, _coeffs(grid, dtype, x.device))
     nplanes = int((np.asarray(zp_inv) >= 0).sum())

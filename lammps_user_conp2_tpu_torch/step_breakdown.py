@@ -1,7 +1,7 @@
 """Per-layer time of one MD step of the port on a CUDA device.
 
     python -m lammps_user_conp2_tpu_torch.step_breakdown [--steps 200]
-        [--cell mid|il|bonded]
+        [--cell mid|il|bonded|unfused]
 
 Builds a cell on the factored-Ewald path (float64 setup, float32 run):
 ``mid``, the 7,296-atom ``workloads.synthetic(6144, 24, lz=60, lxy=50)``
@@ -9,12 +9,15 @@ from ``near_wall_positions``; ``il``, ``workloads.il_onelayer(0)`` on the
 3,776-atom file of ``workloads.write_il_data``; or ``bonded``, the same
 deck on the 8,772-atom file ``write_il_data(n_pairs=1329, sheets=1,
 nx=27, ny=16)``, where the block Verlet list takes the pair forces (K1
-with the cations' special-bond exclusions); data files are written to
+with the cations' special-bond exclusions); or ``unfused``, the ``il``
+cell with ``MDConfig(use_pallas_pair=False)`` (the plain dense pair sweep
+and the correction on its own, K6); data files are written to
 ``--out``.  Times, with CUDA events and the median over repeats: the whole
 step; the b-vector assembly (phase tables, electrolyte structure factor,
 k-space readout, the real-space rows, slab term); the INV solve (A^-1 b
 and the charge update); the pair sweep with the fused CONP correction
-(K4, or K1 on ``bonded``); the factored-Ewald forces; on the il decks the
+(K4, or K1 on ``bonded``, or the plain dense sweep on ``unfused``); the
+factored-Ewald forces; on the il decks the
 SHAKE (K7) and RATTLE (K8) wrappers.  Then a torch.profiler trace of a
 short window gives the device-busy share of the step, the device time by
 kernel name and each hand kernel's device time per step; the table and
@@ -25,6 +28,7 @@ visible.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,26 +41,44 @@ CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
 BONDED = dict(n_pairs=1329, sheets=1, nx=27, ny=16)
 # the CUDA kernels of each hand kernel, by name: K1 and K2a both as
 # redesigned and in their first design, so that a profile of either
-# version sums the same function
+# version sums the same function (K6 kept its kernel names)
 KERNEL_PARTS = {
     "K1": ("block_pair_kernel", "block_pack", "block_sweep",
            "block_force_reduce", "block_pair_reduce"),
     "K2a": ("spread_mesh_kernel",),
+    "K2b": ("spread_tiles_kernel",),
+    "K3": ("gather3_kernel",),
     "K4": ("pair_schedule", "pair_sweep", "pair_reduce"),
     "K5": ("b_order_kernel", "b_rows_kernel"),
+    "K6": ("corr_order_kernel", "corr_ele_kernel", "corr_ely_kernel",
+           "corr_reduce"),
+    "K7": ("shake_kernel",),
+    "K8": ("rattle_kernel",),
+    "K9": ("window_gather_kernel",),
 }
+
+
+def kernel_of(name):
+    """The hand kernel (K1 ... K9) a device kernel of that name belongs to,
+    by the longest part it contains (K1's block_pair_reduce holds K4's
+    pair_reduce), or None."""
+    best = (0, None)
+    for key, parts in KERNEL_PARTS.items():
+        for p in parts:
+            if p in name and len(p) > best[0]:
+                best = (len(p), key)
+    return best[1]
 
 
 def kernel_ms(by_name):
     """{K: device ms per step} from ``device_busy``'s by-name table, for the
     hand kernels that ran."""
     out = {}
-    for key, parts in KERNEL_PARTS.items():
-        ms = sum(t for name, (t, _) in by_name.items()
-                 if any(p in name for p in parts))
-        if ms > 0.0:
-            out[key] = ms
-    return out
+    for name, (t, _) in by_name.items():
+        key = kernel_of(name)
+        if key is not None:
+            out[key] = out.get(key, 0.0) + t
+    return {k: v for k, v in out.items() if v > 0.0}
 
 
 def _median_ms(fn, reps=50, warmup=5):
@@ -103,7 +125,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--out", default="chiprun_out")
-    ap.add_argument("--cell", choices=("mid", "il", "bonded"), default="mid")
+    ap.add_argument("--cell", choices=("mid", "il", "bonded", "unfused"),
+                    default="mid")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("step_breakdown: no CUDA device visible")
@@ -112,6 +135,7 @@ def main() -> int:
     from .models.md import build_engine
     from .ops import ewald_factored as ewf
     from .ops.neighbors import block_pair_forces
+    from .ops.pairs import dense_pair_forces
     from .ops.kernels.pair_kernel import pair_forces
     from .ops.kernels.shake_kernel import rattle_velocities, shake_positions
 
@@ -119,12 +143,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda:0")
-    if args.cell in ("il", "bonded"):
+    if args.cell in ("il", "bonded", "unfused"):
         os.makedirs(args.out, exist_ok=True)
         kw, fname = ((BONDED, "il_8772.data") if args.cell == "bonded"
                      else ({}, "il_3776.data"))
         system, md, cfg = workloads.il_onelayer(0, data_path=(
             workloads.write_il_data(os.path.join(args.out, fname), **kw)))
+        if args.cell == "unfused":
+            md = dataclasses.replace(md, use_pallas_pair=False)
         x0 = None
     else:
         system, md, cfg = workloads.synthetic(**CELL)
@@ -139,7 +165,12 @@ def main() -> int:
     b, kcache = conp.b_vector_full(x, q, *lists)
     fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
     tabs, sre, sie, zsort = kcache
-    if eng.ncfg is None:
+    if md.use_pallas_pair is False:
+        pair = ("dense pair sweep (plain, unfused)", lambda: dense_pair_forces(
+            x, q, eng.type_idx, eng.tables, eng.exclusions, box=system.box,
+            periodic=system.periodic, cutoff=md.cutoff,
+            g_ewald=conp.ksp.g_ewald, qqr2e=u.qqr2e))
+    elif eng.ncfg is None:
         pair = ("pair_sweep K4 (fused CONP)", lambda: pair_forces(
             x, q, eng.type_idx, eng.tables, None, box=system.box,
             periodic=system.periodic, cutoff=md.cutoff,

@@ -17,7 +17,14 @@ passes; both bit-identical across two launches.  K5 on shuffled atoms
 order kernel equal to ``elyte_order_plain``; K4 also on clusters of 33
 and 100 atoms (ragged tiles), its tile-pair schedule kernel equal to
 ``tile_schedule_plain``, and K4 and K5 bit-identical across two
-launches.  Needs a CUDA device: skipped on the CPU.  Run on the card with
+launches.  The step replayed as CUDA graphs (``Engine.run``) equals the
+eager steps bit for bit wherever two eager runs are (mid-size, tiled list,
+ionic-liquid and unfused cells), with the launch counters reading as after
+eager steps, no host sync per step on the dense path and one on the list
+path, and new graphs captured after a capacity growth; K6 over the
+correction's range against its plain version over the full cutoff with the
+anions 1 and 1.2 A off the sheets, bit-identical across two launches.
+Needs a CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
 import numpy as np
@@ -594,3 +601,158 @@ def test_window_gather_matches_plain_on_card(cuda, nb, W):
     assert float((got - k9.window_gather_plain(win, idx, 8)).abs().max()) == 0.0
     with pytest.raises(TypeError):
         k9.window_gather(win.double(), idx, 8)
+
+
+# ---------------------------------------------------------------- graphs
+def _steps(eng, st, n):
+    for _ in range(n):
+        st = eng.step(st)
+    return st
+
+
+def _graph_cell(cuda, cell, tmp_path, monkeypatch):
+    """(engine, init_state kwargs) of a cell for the graph tests."""
+    if cell == "mid":
+        system, md, conp, eng, x, q = _cell(cuda, x_near)
+        return eng, dict(x0=x.cpu().numpy())
+    if cell == "tiled":
+        from lammps_user_conp2_tpu_torch.ops import pppm as P
+        monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+        system, md, conp, eng, x, q, _ = _tiled_cell(cuda, x_near)
+        return eng, dict(x0=x.cpu().numpy())
+    from lammps_user_conp2_tpu_torch import workloads
+    system, md, eng = _il_cell(cuda, tmp_path,
+                               use_pallas_pair=(cell != "unfused"))
+    if cell == "unfused":
+        return eng, dict(x0=workloads.near_sheet_positions(system, gap=2.0,
+                                                           count=4))
+    return eng, {}
+
+
+def _diff(a, b):
+    return max(float((u - w).abs().max()) for u, w in
+               ((a.x, b.x), (a.v, b.v), (a.q, b.q), (a.energy, b.energy)))
+
+
+def _same(a, b):
+    return all(torch.equal(u, w) for u, w in
+               ((a.x, b.x), (a.v, b.v), (a.q, b.q), (a.energy, b.energy)))
+
+
+@pytest.mark.parametrize("cell", ["mid", "tiled", "il", "unfused"])
+def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
+                                          monkeypatch):
+    """``Engine.run`` replays CUDA graphs: 20 replayed steps equal 20 eager
+    steps bit for bit wherever two eager runs are bit for bit (else both
+    differences stay below 1e-3), the thermo rows included."""
+    eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
+    st0 = eng.init_state(**kw)
+    e1 = _steps(eng, st0, 20)
+    e2 = _steps(eng, st0, 20)
+    g, th = eng.run(st0, 20, thermo_every=10)
+    torch.cuda.synchronize()
+    assert len(eng._step_graphs) == 1
+    if _same(e1, e2):
+        assert _same(g, e1)
+        assert float(th["pe"][-1]) == float(e1.energy)
+    else:
+        assert _diff(e1, e2) <= 1e-3 and _diff(g, e1) <= 1e-3
+    assert th["step"].tolist() == [10, 20]
+    assert np.isfinite(float(g.energy))
+
+
+def test_launch_counters_under_replay_on_card(cuda, tmp_path):
+    """The counters read after replayed steps what they read after eager
+    ones: the captures count nothing, every replay counts its launches."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+    system, md, eng = _il_cell(cuda, tmp_path)
+    counters = (k4.launches, k5.launches, k78.shake_launches,
+                k78.rattle_launches)
+    for c in counters:
+        c.reset()
+    st = eng.init_state()
+    st, _ = eng.run(st, 3, thermo_every=0)            # captures, replays 3
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [4, 4, 3, 3]
+    st, _ = eng.run(st, 5, thermo_every=1)
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [9, 9, 8, 8]
+
+
+@pytest.mark.parametrize("cell", ["mid", "tiled"])
+def test_graphed_run_host_syncs_on_card(cuda, cell, tmp_path, monkeypatch):
+    """No host sync per replayed step on the dense path, one (the skin
+    flag) on the list path, beside the end-of-run finiteness check."""
+    import warnings
+    eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
+    st0 = eng.init_state(**kw)
+    eng.run(st0, 2, thermo_every=0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.run(st0, 10, thermo_every=5)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) <= (10 if eng.ncfg is not None else 0) + 1, syncs
+
+
+def test_recapture_after_capacity_growth_on_card(cuda, monkeypatch):
+    """A grown list capacity keys new graphs, captured on the next run,
+    which equals the eager steps at the new capacity."""
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+    system, md, conp, eng, x, q, _ = _tiled_cell(cuda, x_near)
+    st0 = eng.init_state(x0=x.cpu().numpy())
+    eng.run(st0, 3, thermo_every=0)
+    k0 = eng.ncfg.k_max
+    eng._grow_neighbor_capacity()
+    st1 = eng._heal_state(st0)
+    assert st1.nbr.idx.shape[1] == 2 * k0
+    g, _ = eng.run(st1, 5, thermo_every=0)
+    e1, e2 = _steps(eng, st1, 5), _steps(eng, st1, 5)
+    torch.cuda.synchronize()
+    assert len(eng._step_graphs) == 2
+    assert _same(g, e1) if _same(e1, e2) else _diff(g, e1) <= 1e-3
+
+
+@pytest.mark.parametrize("gap", [1.0, 1.2])
+def test_k6_near_sheets_matches_plain_on_card(cuda, tmp_path, gap):
+    """K6 over the correction's range (r_corr) against its plain version
+    over the full cutoff, anions ``gap`` A off the inner sheets: 2e-5, two
+    launches bit-identical; its two z orders equal their plain version."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k6
+    from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
+    system, md, eng = _il_cell(cuda, tmp_path, use_pallas_pair=False)
+    assert eng.r_corr < md.cutoff
+    x = torch.as_tensor(workloads.near_sheet_positions(system, gap=gap,
+                                                       count=4),
+                        dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(charges_with_electrodes(system), dtype=torch.float32,
+                        device=cuda)
+    zsort = z_perm(x, system.box, system.periodic)
+    args = (x, q, eng.type_idx, eng.conp.ele_idx_t, eng.ele_flag,
+            eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              qqr2e=system.units().qqr2e)
+    got = k6.conp_correction(*args, zsort=zsort, r_corr=eng.r_corr,
+                             gtab=eng.corr_gtab, **kw)
+    again = k6.conp_correction(*args, zsort=zsort, r_corr=eng.r_corr,
+                               gtab=eng.corr_gtab, **kw)
+    ref = k6.conp_correction_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert abs(float(ref[1])) > 1e-3
+    for g, a, r in zip(got, again, ref):
+        assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+        assert torch.equal(g, a)
+    orders = k6.corr_orders(*zsort, eng.elyte_flag, eng.ele_flag)
+    plain = k6.corr_orders(zsort[0].cpu(), zsort[1].cpu(),
+                           eng.elyte_flag.cpu(), eng.ele_flag.cpu())
+    for (i, z), (pi, pz) in zip(orders, plain):
+        assert torch.equal(i.cpu().long(), pi) and torch.equal(z.cpu(), pz)
