@@ -54,8 +54,13 @@ mid-size path with SHAKE/RATTLE, K7 and K8):
  11. K7 (SHAKE) and K8 (RATTLE) against their plain versions, float32, at
      the cell's shapes, from a drift step of the deck's velocities plus
      noise with one cation across the periodic x face: max|kernel - plain|
-     / max|plain| <= 5e-5 on x, dv and v; the constraint residual after K7
-     no worse than after the plain version; median times.  K4 (with the
+     = 0 on x, dv and v, two launches bit-identical; the constraint
+     residual after K7 no worse than after the plain version; median
+     times, device time per call, the CUDA kernels in one call (one each),
+     the chain floor (the first cluster alone, m = 1: device time per
+     launch of 100 launches replayed in a CUDA graph; ``floor_ms``) and
+     the phase-clock split measured while the kernels were designed
+     (K78_PHASE_SPLIT).  K4 (with the
      cations' special-bond exclusions, fused correction) and K5 against
      their plain versions at this cell's shapes (2e-5), two launches
      bit-identical, timed with their bounds (``ms_il``, ``bound_ms_il`` in
@@ -169,7 +174,8 @@ this script.  K1, K2a, K4 and K5 also carry ``host_ms`` (the wrapper's
 host time per call, on the host clock) and ``device_ms`` (their CUDA
 kernels' device time per call, torch.profiler: K1's packing, sweep and
 reductions, K2a's one, K4's three, K5's two, the compaction of the z
-order to the electrolyte included).  The il cell's figures carry
+order to the electrolyte included); K7 and K8 ``device_ms`` (one kernel
+each), ``kernels_per_call`` and ``floor_ms``.  The il cell's figures carry
 the suffix ``_il``.  Every kernel's line carries its bound: the larger
 of the bytes it must move (its input tensors read once, its outputs
 written once) over 3.35 TB/s and the operations this run's data needs
@@ -198,6 +204,16 @@ CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
 T_START = time.perf_counter()
 KERNEL_TOL = 2e-5
 SHAKE_TOL = 5e-5          # tools/kernel_oracle.py:278-279
+# where a K7 and a K8 update spent their cycles at the il cell, from a
+# clock64 phase probe of the kernels while they were redesigned (not kept)
+K78_PHASE_SPLIT = (
+    "K7/K8 phase clocks (clock64 cycles of the median thread at the il cell, "
+    "NVIDIA H100 80GB HBM3, 700 W): the first K7 loads in 2,130, runs its "
+    "36 updates in 15,641 (435 each) and writes in 1,723; the redesign "
+    "loads in 1,994, updates in 4,301 (119 each: 431 with runtime columns "
+    "and the exact minimum image, 310 with compile-time columns, 234 "
+    "hoisted) and writes in 925 (1,338 dividing dv by dt); K8 loads in "
+    "1,622 and updates in 3,160 (88 each, 187 with runtime columns)")
 # the bonds' residual max|r^2 - d^2|/d^2 at step 111 of il_onelayer(0) on
 # the default write_il_data file, CPU float64: ``python -m
 # lammps_user_conp2_tpu_torch.shake_residual --cell full --device cpu
@@ -264,8 +280,11 @@ def host_ms(fn, reps=50) -> float:
 
 def device_ms(fn, parts, reps=20, tag=None) -> float:
     """Device time per call of the CUDA kernels whose names contain one of
-    ``parts`` (torch.profiler over ``reps`` calls); with ``tag``, each
-    part's share is printed."""
+    ``parts`` (torch.profiler over ``reps`` calls): per part, the median
+    record times the records per call, rounded (the profiler can drop
+    records, which a plain sum over ``reps`` would read as a faster
+    kernel); with ``tag``, each part's share and record count is
+    printed."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -273,15 +292,17 @@ def device_ms(fn, parts, reps=20, tag=None) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    per = dict.fromkeys(parts, 0.0)
+    rec = {p: [] for p in parts}
     for e in prof.events():
         if e.device_type.name == "CUDA":
             for p in parts:
                 if p in e.name:
-                    per[p] += e.time_range.elapsed_us() / reps / 1e3
+                    rec[p].append(e.time_range.elapsed_us() / 1e3)
+    per = {p: float(np.median(t)) * max(1, round(len(t) / reps)) if t
+           else 0.0 for p, t in rec.items()}
     if tag:
         print(f"    {tag}: device ms per call " + ", ".join(
-            f"{p} {t:.4f}" for p, t in per.items()))
+            f"{p} {per[p]:.4f} ({len(rec[p])} records)" for p in parts))
     return sum(per.values())
 
 
@@ -306,6 +327,9 @@ K1_PARTS = ("block_pack", "block_sweep", "block_force_reduce",
 K2A_PARTS = ("spread_mesh_kernel",)
 K6_PARTS = ("corr_order_kernel", "corr_ele_kernel", "corr_ely_kernel",
             "corr_reduce")
+# K7 and K8 as redesigned (one launch per call) and in their first design
+K7_PARTS = ("shake_rows_kernel", "shake_kernel")
+K8_PARTS = ("rattle_rows_kernel", "rattle_kernel")
 
 
 def compare(name, got, ref, tol=KERNEL_TOL):
@@ -587,7 +611,8 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_r1",
             "host_ms", "device_ms", "ms_il", "device_ms_il", "bound_ms_il",
             "ms_100k", "host_ms_100k", "device_ms_100k", "bound_ms_100k",
-            "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr")
+            "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr",
+            "floor_ms", "kernels_per_call")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -818,6 +843,10 @@ def il_path(card, dev, results):
     rel, dabs = compare("shake_positions x", (x,), (px,), SHAKE_TOL)
     dv_err = float((dv - pdv).abs().max())
     dv_rel = dv_err / float(pdv.abs().max())
+    if not (torch.equal(x, px) and torch.equal(dv, pdv)):
+        raise AssertionError("phase 11: K7 differs from its plain version "
+                             f"(x {dabs:.3e}, dv {dv_err:.3e})")
+    same_bits("shake_positions", (x, dv), kern())
     cons64 = build_constraints(system, md.shake, dtype=torch.float64,
                                device=dev)
     _, dv64 = k78.shake_positions_plain(cons64, xn.double(), xo.double(),
@@ -834,22 +863,43 @@ def il_path(card, dev, results):
     if not max(res_k) <= max(res_p) + 1e-6:
         raise AssertionError("phase 11: K7 leaves a larger residual")
     work = m * k78.ITERS * cc
+    # what the function needs: x_new whole, the clustered rows of x_old,
+    # the cluster tables (not this design's records or free-row table)
+    rows = cons.atoms[cons.amask].long()
+    tables = (cons.atoms, cons.ci, cons.cj, cons.invm, cons.cmask)
     results["shake_positions"] = dict(
         rel=max(rel, dv_rel), abs=max(dabs, dv_err), ms=median_ms(kern),
-        plain_ms=median_ms(plain, reps=5))
+        plain_ms=median_ms(plain, reps=5),
+        device_ms=device_ms(kern, K7_PARTS, tag="shake_positions"),
+        kernels_per_call=kernels_per_call("shake_positions", kern))
     results["shake_positions"].update(bound(
-        (xn, xo, cons.atoms, cons.amask, cons.ci, cons.cj, cons.invm,
-         cons.dist2, cons.cmask), (x, dv), SHAKE_SLOT_FLOPS * work))
+        (xn, xo[rows], tables, cons.dist2), (x, dv),
+        SHAKE_SLOT_FLOPS * work))
     kern = lambda: k78.rattle_velocities(cons, x, v, **kw)
     plain = lambda: k78.rattle_velocities_plain(cons, x, v, **kw)
     got = kern()
     torch.cuda.synchronize()
-    rel, dabs = compare("rattle_velocities v", (got,), (plain(),), SHAKE_TOL)
-    results["rattle_velocities"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                                        plain_ms=median_ms(plain, reps=5))
+    pv = plain()
+    rel, dabs = compare("rattle_velocities v", (got,), (pv,), SHAKE_TOL)
+    if not torch.equal(got, pv):
+        raise AssertionError("phase 11: K8 differs from its plain version "
+                             f"({dabs:.3e})")
+    same_bits("rattle_velocities", (got,), (kern(),))
+    results["rattle_velocities"] = dict(
+        rel=rel, abs=dabs, ms=median_ms(kern),
+        plain_ms=median_ms(plain, reps=5),
+        device_ms=device_ms(kern, K8_PARTS, tag="rattle_velocities"),
+        kernels_per_call=kernels_per_call("rattle_velocities", kern))
     results["rattle_velocities"].update(bound(
-        (x, v, cons.atoms, cons.amask, cons.ci, cons.cj, cons.invm,
-         cons.cmask), got, RATTLE_SLOT_FLOPS * work))
+        (v, x[rows], tables), got, RATTLE_SLOT_FLOPS * work))
+    for name, ms in chain_floor(cons, xn, xo, v, md.dt, kw).items():
+        results[name]["floor_ms"] = ms
+        r = results[name]
+        print(f"phase 11: {name:20s} device {r['device_ms']:.4f} ms per "
+              f"call in {r['kernels_per_call']} CUDA kernel; chain floor "
+              f"(m = 1, 100 launches replayed in a graph) {ms:.4f} ms per "
+              f"launch; roofline bound {r['bound_ms']:.6f} ms  [{card}]")
+    print("phase 11: " + K78_PHASE_SPLIT)
     # K4 (exclusions applied per pair) and K5 at this cell's shapes
     q_np = system.q0.copy()
     q_np[system.ele_mask] = 0.05 * rng.standard_normal(conp.ne)
@@ -938,6 +988,86 @@ def il_path(card, dev, results):
     print(f"phase 13: 11 steps matched the float64 CPU run "
           f"({time.perf_counter() - t0:.1f} s)")
     return {k: launches[k] for k in ("shake_positions", "rattle_velocities")}
+
+
+def kernels_per_call(name, fn) -> int:
+    """CUDA kernels in a torch.profiler trace of one call; raises unless
+    there is exactly one.  A trace with no kernel records (the profiler
+    can lose them) is taken again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        if names:
+            break
+    print(f"    {name}: {len(names)} CUDA kernel(s) in one call: "
+          + ", ".join(n[:60] for n in names))
+    if len(names) != 1:
+        raise AssertionError(f"{name}: {len(names)} kernels in one call")
+    return len(names)
+
+
+def one_cluster(cons, *arrays):
+    """The first cluster alone: its table over its own rows (no free rows)
+    and those rows of each array."""
+    from lammps_user_conp2_tpu_torch.models.shake import ShakeConstraints
+    valid = cons.amask[0].cpu().numpy()
+    rows = cons.atoms[0].long()[cons.amask[0]]
+    local = np.where(valid, np.cumsum(valid) - 1, 0)[None]
+    one = ShakeConstraints(
+        local, valid[None], cons.ci[:1].cpu().numpy(),
+        cons.cj[:1].cpu().numpy(), cons.dist2[:1].double().cpu().numpy(),
+        cons.cmask[:1].cpu().numpy(), cons.invm[:1].double().cpu().numpy(),
+        np.zeros((0, 2), np.int64), natoms=int(valid.sum()),
+        dtype=cons.invm.dtype, device=cons.invm.device)
+    if one.free_rows.numel():
+        raise AssertionError("one_cluster: free rows left")
+    return (one,) + tuple(a[rows].contiguous() for a in arrays)
+
+
+def chain_floor(cons, xn, xo, v, dt, kw) -> dict:
+    """K7's and K8's device ms per launch on the first cluster alone (m = 1,
+    its own rows, no free rows): 100 launches captured in one CUDA graph,
+    replayed, the median launch of the profiled replay (the profiler may
+    drop some of a replay's kernel records: at least half must come back).
+    Below a launch the roofline bound says nothing; this floor is the
+    chain's own."""
+    from torch.profiler import ProfilerActivity, profile
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+    one, xn1, xo1, v1 = one_cluster(cons, xn, xo, v)
+    out = {}
+    for name, fn in (
+            ("shake_positions",
+             lambda: k78.shake_positions(one, xn1, xo1, dt, **kw)),
+            ("rattle_velocities",
+             lambda: k78.rattle_velocities(one, xn1, v1, **kw))):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(100):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        ts = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type.name == "CUDA"]
+        if not 50 <= len(ts) <= 100:
+            raise AssertionError(f"{name}: {len(ts)} kernel records of a "
+                                 "graph of 100 launches")
+        out[name] = float(np.median(ts)) / 1e3
+    return out
 
 
 def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):

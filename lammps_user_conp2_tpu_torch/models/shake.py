@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.kernels.shake_kernel import free_rows, pack_records
 from ..ops.pairs import min_image
 from ..utils.device import DEFAULT_DTYPE, resolve_device
 
@@ -37,10 +38,14 @@ class ShakeConstraints(nn.Module):
     bool valid; ci, cj (M, C) int32 cluster-local columns of each
     constraint's pair; dist2 (M, C) target squared distances (1 in
     padding); cmask (M, C) bool; invm (M, K) inverse masses (0 in padding).
-    ``pair_atoms`` (ncons, 2) stays on the host."""
+    ``pair_atoms`` (ncons, 2) stays on the host.  For the K7/K8 kernels,
+    built once here: ``rec`` (M, W) int32, the packed cluster records, and
+    ``code``, the slot code all clusters share or -1
+    (``shake_kernel.pack_records``); ``free_rows`` int32, the rows of the
+    ``natoms`` atoms in no cluster (``shake_kernel.free_rows``)."""
 
     def __init__(self, atoms, amask, ci, cj, dist2, cmask, invm, pair_atoms,
-                 *, dtype, device):
+                 *, natoms, dtype, device):
         super().__init__()
         i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
         f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
@@ -52,6 +57,12 @@ class ShakeConstraints(nn.Module):
         self.register_buffer("dist2", f(dist2))
         self.register_buffer("cmask", b(cmask))
         self.register_buffer("invm", f(invm))
+        rec, self.code = pack_records(atoms, amask, ci, cj, dist2, cmask,
+                                      invm)
+        self.register_buffer("rec", i32(rec))
+        self.register_buffer("free_rows", i32(free_rows(atoms, amask,
+                                                        natoms)))
+        self.natoms = natoms
         self.pair_atoms = np.asarray(pair_atoms, np.int64)
         self.ncons = len(self.pair_atoms)
 
@@ -146,7 +157,7 @@ def build_constraints(system, shake_cfg, *, dtype=DEFAULT_DTYPE,
             cmask[m, s] = True
     invm = np.where(amask, 1.0 / system.mass[atoms], 0.0)
     return ShakeConstraints(atoms, amask, ci, cj, dist2, cmask, invm, pairs,
-                            dtype=dtype, device=device)
+                            natoms=system.natoms, dtype=dtype, device=device)
 
 
 def constraint_residuals(cons: ShakeConstraints, x, *, box,

@@ -145,10 +145,10 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_gather3_f32.argtypes = [P] * 3 + [I] * 8 + [P, P]
     lib.conp2_gather3_f32.restype = I
     lib.conp2_shake_positions_f32.argtypes = (
-        [P] * 9 + [I] * 3 + [F] + [F] * 3 + [I] * 3 + [P] * 3)
+        [P] * 4 + [I] * 5 + [F] + [F] * 3 + [I] * 3 + [P] * 3)
     lib.conp2_shake_positions_f32.restype = I
     lib.conp2_rattle_velocities_f32.argtypes = (
-        [P] * 8 + [I] * 3 + [F] * 3 + [I] * 3 + [P] * 2)
+        [P] * 4 + [I] * 5 + [F] * 3 + [I] * 3 + [P] * 2)
     lib.conp2_rattle_velocities_f32.restype = I
     lib.conp2_window_gather_f32.argtypes = [P, P] + [I] * 4 + [P, P]
     lib.conp2_window_gather_f32.restype = I

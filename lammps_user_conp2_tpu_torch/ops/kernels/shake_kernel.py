@@ -20,20 +20,90 @@ valid columns only, dv = (x - x_new) / dt over all atoms.
 
 ``shake_positions`` and ``rattle_velocities`` launch their kernel for CUDA
 float32 tensors, take the plain version for CPU tensors and raise for
-anything else.
+anything else.  On the card each call is one launch that writes every row
+of its outputs once: the clusters' valid rows from the packed cluster
+records (``pack_records``), the free rows copied from the input through
+the free-row table (``free_rows``); both are built once, at setup, by
+``models.shake.ShakeConstraints``.  SHAKE's dv is (x - x_new) times 1/dt
+formed in double and rounded to float32, which is how PyTorch divides a
+CUDA float32 tensor by a Python float, so it equals the plain version's
+on the card bit for bit at any dt.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..pairs import min_image
 from . import build
 
 ITERS = 12   # the JAX package's fixed sweep count (models/shake.py)
+# the slot code of a cluster whose slots are (0,1), (1,2), (0,2), all
+# constrained (the il decks' cations): the one csrc/shake_kernel.cu
+# instantiates with its columns known at compile time (SH_LINEAR3)
+LINEAR3_CODE = (0 | 1 << 2 | 1 << 4) | (1 | 2 << 2 | 1 << 4) << 5 | (
+    0 | 2 << 2 | 1 << 4) << 10
 
 shake_launches = build.LaunchCounter("shake_positions")
 rattle_launches = build.LaunchCounter("rattle_velocities")
+
+
+def record_len(c: int) -> int:
+    """int32 words of one packed cluster record with ``c`` slots: the atom
+    ids (4), (code, amask bits, 0, 0), per slot (imi, imj, 2 (imi + imj),
+    d^2), the slots' imi + imj padded to a multiple of 4."""
+    return 4 * (2 + c + (c + 3) // 4)
+
+
+def pack_records(atoms, amask, ci, cj, dist2, cmask, invm):
+    """(records, code): one int32 row of ``record_len(C)`` words per
+    cluster, float fields stored as float32 bits, each formed in float32 as
+    the kernels form them (imi + imj, then times 2); code is the slot code
+    every cluster shares (slot s: si | sj << 2 | cmask << 4 at bit 5 s),
+    or -1.  Padding atom columns repeat column 0 (at most 4 columns)."""
+    atoms = np.asarray(atoms, np.int64)
+    amask = np.asarray(amask, bool)
+    ci = np.asarray(ci, np.int64)
+    cj = np.asarray(cj, np.int64)
+    cmask = np.asarray(cmask, bool)
+    m, k = atoms.shape
+    c = ci.shape[1]
+    if k > 4 or c > 6 or ci.max(initial=0) > 3 or cj.max(initial=0) > 3:
+        raise ValueError(f"shake clusters of {k} atoms and {c} slots: the "
+                         "records hold at most 4 atoms and 6 slots")
+    invm32 = np.asarray(invm, np.float32)
+    imi = np.take_along_axis(invm32, ci, 1)
+    imj = np.take_along_axis(invm32, cj, 1)
+    isum = imi + imj                               # float32, rounded once
+    rec = np.zeros((m, record_len(c) // 4, 4), np.int32)
+    rec[:, 0, :k] = atoms
+    rec[:, 0, k:] = atoms[:, :1]
+    codes = np.zeros(m, np.int64)
+    for s in range(c):
+        codes |= (ci[:, s] | cj[:, s] << 2 | cmask[:, s].astype(np.int64)
+                  << 4) << (5 * s)
+    rec[:, 1, 0] = codes
+    rec[:, 1, 1] = (amask.astype(np.int64) << np.arange(k)).sum(1)
+    f = rec.view(np.float32)
+    f[:, 2:2 + c] = np.stack([imi, imj, np.float32(2.0) * isum,
+                              np.asarray(dist2, np.float32)], axis=-1)
+    for s in range(c):
+        f[:, 2 + c + s // 4, s % 4] = isum[:, s]
+    code = int(codes[0]) if m and (codes == codes[0]).all() else -1
+    return rec.reshape(m, -1), code
+
+
+def free_rows(atoms, amask, natoms):
+    """int32, ascending: the free rows, the atoms of ``natoms`` in no
+    cluster's valid columns.  Raises if an atom is in two clusters' valid
+    columns or outside the atoms."""
+    taken = np.asarray(atoms, np.int64)[np.asarray(amask, bool)]
+    count = np.bincount(taken, minlength=natoms)
+    if count.shape[0] > natoms or (count > 1).any():
+        raise ValueError("shake clusters must be disjoint and inside the "
+                         f"{natoms} atoms")
+    return np.flatnonzero(count == 0).astype(np.int32)
 
 
 def _dot(a, b):
@@ -103,35 +173,44 @@ def rattle_velocities_plain(cons, x, v, *, box, periodic):
 
 
 def _check(name, cons, *arrays):
-    build.check_cuda(name, torch.float32, *arrays, cons.invm, cons.dist2)
-    build.check_cuda(name, torch.int32, cons.atoms, cons.ci, cons.cj)
-    build.check_cuda(name, torch.bool, cons.amask, cons.cmask)
+    build.check_cuda(name, torch.float32, *arrays)
+    build.check_cuda(name, torch.int32, cons.rec, cons.free_rows)
     n = arrays[0].shape[0]
     if any(a.shape != (n, 3) for a in arrays):
         raise ValueError(f"{name}: expected (N, 3) positions/velocities")
+    if n != cons.natoms:
+        raise ValueError(f"{name}: {n} rows, but the free-row table is for "
+                         f"{cons.natoms} atoms")
+    if cons.rec.data_ptr() % 16:
+        raise ValueError(f"{name}: the cluster records are not 16-byte "
+                         "aligned")
 
 
 def _geometry(box, periodic):
     return [float(b) for b in box] + [int(bool(p)) for p in periodic]
 
 
+def _shape(cons):
+    """(M, free rows, K, C, code): the launch's table sizes."""
+    m, k = cons.atoms.shape
+    return m, cons.free_rows.shape[0], k, cons.ci.shape[1], cons.code
+
+
 def shake_positions(cons, x_new, x_old, dt, *, box, periodic):
     """SHAKE: returns (x, dv = (x - x_new)/dt).  x_new, x_old (N, 3): the
     positions after and before the drift; ``cons`` the
-    ``models.shake.ShakeConstraints`` tables on the same device."""
+    ``models.shake.ShakeConstraints`` tables on the same device.  On the
+    card: one launch writes every row of x and dv."""
     if x_new.device.type == "cpu":
         return shake_positions_plain(cons, x_new, x_old, dt, box=box,
                                      periodic=periodic)
     _check("shake_positions", cons, x_new, x_old)
-    m, k = cons.atoms.shape
-    x = x_new.clone()
-    dv = torch.zeros_like(x_new)
+    x = torch.empty_like(x_new)
+    dv = torch.empty_like(x_new)
     lib = build.load_library()
     status = lib.conp2_shake_positions_f32(
-        x_new.data_ptr(), x_old.data_ptr(), cons.atoms.data_ptr(),
-        cons.amask.data_ptr(), cons.ci.data_ptr(), cons.cj.data_ptr(),
-        cons.invm.data_ptr(), cons.dist2.data_ptr(), cons.cmask.data_ptr(),
-        m, k, cons.ci.shape[1], float(dt),
+        x_new.data_ptr(), x_old.data_ptr(), cons.rec.data_ptr(),
+        cons.free_rows.data_ptr(), *_shape(cons), 1.0 / float(dt),
         *_geometry(box, periodic), x.data_ptr(), dv.data_ptr(),
         build.stream_ptr())
     build.check_status("shake_positions", status)
@@ -141,18 +220,17 @@ def shake_positions(cons, x_new, x_old, dt, *, box, periodic):
 
 def rattle_velocities(cons, x, v, *, box, periodic):
     """RATTLE: v (N, 3) with the relative velocities along each constraint
-    removed at positions x (N, 3)."""
+    removed at positions x (N, 3).  On the card: one launch writes every
+    row of the result."""
     if v.device.type == "cpu":
         return rattle_velocities_plain(cons, x, v, box=box, periodic=periodic)
     _check("rattle_velocities", cons, x, v)
-    m, k = cons.atoms.shape
-    out = v.clone()
+    out = torch.empty_like(v)
     lib = build.load_library()
     status = lib.conp2_rattle_velocities_f32(
-        x.data_ptr(), v.data_ptr(), cons.atoms.data_ptr(),
-        cons.amask.data_ptr(), cons.ci.data_ptr(), cons.cj.data_ptr(),
-        cons.invm.data_ptr(), cons.cmask.data_ptr(), m, k, cons.ci.shape[1],
-        *_geometry(box, periodic), out.data_ptr(), build.stream_ptr())
+        x.data_ptr(), v.data_ptr(), cons.rec.data_ptr(),
+        cons.free_rows.data_ptr(), *_shape(cons), *_geometry(box, periodic),
+        out.data_ptr(), build.stream_ptr())
     build.check_status("rattle_velocities", status)
     rattle_launches.count += 1
     return out

@@ -39,8 +39,8 @@ import torch
 
 CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
 BONDED = dict(n_pairs=1329, sheets=1, nx=27, ny=16)
-# the CUDA kernels of each hand kernel, by name: K1 and K2a both as
-# redesigned and in their first design, so that a profile of either
+# the CUDA kernels of each hand kernel, by name: K1, K2a, K7 and K8 both
+# as redesigned and in their first design, so that a profile of either
 # version sums the same function (K6 kept its kernel names)
 KERNEL_PARTS = {
     "K1": ("block_pair_kernel", "block_pack", "block_sweep",
@@ -52,8 +52,8 @@ KERNEL_PARTS = {
     "K5": ("b_order_kernel", "b_rows_kernel"),
     "K6": ("corr_order_kernel", "corr_ele_kernel", "corr_ely_kernel",
            "corr_reduce"),
-    "K7": ("shake_kernel",),
-    "K8": ("rattle_kernel",),
+    "K7": ("shake_rows_kernel", "shake_kernel"),
+    "K8": ("rattle_rows_kernel", "rattle_kernel"),
     "K9": ("window_gather_kernel",),
 }
 

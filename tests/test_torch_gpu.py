@@ -23,7 +23,11 @@ ionic-liquid and unfused cells), with the launch counters reading as after
 eager steps, no host sync per step on the dense path and one on the list
 path, and new graphs captured after a capacity growth; K6 over the
 correction's range against its plain version over the full cutoff with the
-anions 1 and 1.2 A off the sheets, bit-identical across two launches.
+anions 1 and 1.2 A off the sheets, bit-identical across two launches;
+K7 and K8 equal to their plain versions bit for bit (every LAMMPS cluster
+shape, the il decks' cation, clusters across the periodic face, a cluster
+within 1e-6 of a minimum-image tie, unaligned arrays, the il and bonded
+cells), two launches alike, one CUDA kernel per call.
 Needs a CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
@@ -31,8 +35,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_cells import (S2, S3, charges_with_electrodes, il_small,
-                         il_small_file, tile_rows, x_close, x_near)
+from torch_cells import (S2, S3, SHAKE_SHAPES, charges_with_electrodes,
+                         il_small, il_small_file, shake_case, tile_rows,
+                         x_close, x_near)
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-5
@@ -373,6 +378,125 @@ def test_pair_kernel_with_exclusions_on_card(cuda, tmp_path):
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
+
+
+def _k78_case(cuda, case, unaligned=False):
+    """(cons, x_new, x_old, v, kw) on the card from a ``shake_case``; with
+    ``unaligned`` the arrays start 4 bytes into their buffers."""
+    from lammps_user_conp2_tpu_torch.models.shake import ShakeConstraints
+    cons = ShakeConstraints(*case["tables"], natoms=case["natoms"],
+                            dtype=torch.float32, device=cuda)
+
+    def t(a):
+        a = torch.as_tensor(a, dtype=torch.float32, device=cuda)
+        if not unaligned:
+            return a
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        return out
+
+    kw = dict(box=case["box"], periodic=case["periodic"])
+    return cons, t(case["x_new"]), t(case["x_old"]), t(case["v"]), kw
+
+
+def _k78_bits(cons, xn, xo, v, dt, kw):
+    """K7 and K8 against their plain versions, bit for bit, and two
+    launches bit for bit."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k
+    x, dv = k.shake_positions(cons, xn, xo, dt, **kw)
+    px, pdv = k.shake_positions_plain(cons, xn, xo, dt, **kw)
+    vk = k.rattle_velocities(cons, px, v, **kw)
+    pv = k.rattle_velocities_plain(cons, px, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(x, px) and torch.equal(dv, pdv)
+    assert torch.equal(vk, pv)
+    x2, dv2 = k.shake_positions(cons, xn, xo, dt, **kw)
+    assert torch.equal(x2, x) and torch.equal(dv2, dv)
+    assert torch.equal(k.rattle_velocities(cons, px, v, **kw), vk)
+
+
+@pytest.mark.parametrize("kind", ["interior", "straddle", "near_tie"])
+@pytest.mark.parametrize("shape", list(SHAKE_SHAPES))
+def test_k7k8_bit_identical_on_card(cuda, shape, kind):
+    """Every LAMMPS cluster shape, the il decks' linear cation (compile-time
+    columns) and a mixed, padded table; clusters across the periodic x
+    face; a cluster with |d / L| within 1e-6 of 1/2 (the exact rerun);
+    dt = 2 fs, the decks'."""
+    cons, xn, xo, v, kw = _k78_case(cuda, shake_case(shape, kind, seed=4))
+    _k78_bits(cons, xn, xo, v, 2.0, kw)
+
+
+def test_k7k8_unaligned_rows_on_card(cuda):
+    """Arrays that do not start on 16 bytes."""
+    cons, xn, xo, v, kw = _k78_case(cuda, shake_case("mixed", "straddle",
+                                                     seed=5), unaligned=True)
+    assert xn.data_ptr() % 16 != 0
+    _k78_bits(cons, xn, xo, v, 2.0, kw)
+
+
+@pytest.mark.parametrize("cell", ["il", "bonded"])
+def test_k7k8_bit_identical_at_cells(cuda, tmp_path, cell):
+    """The 3,776-atom il cell (its cations take the compile-time columns)
+    and the 8,772-atom bonded cell, from phase 11's inputs of
+    chip_smoke.py (a drift step with noise, one cation across x)."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.shake import build_constraints
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k
+    extra = {} if cell == "il" else dict(n_pairs=1329, sheets=1, nx=27,
+                                         ny=16)
+    path = workloads.write_il_data(str(tmp_path / "il.data"), **extra)
+    system, md, _ = workloads.il_onelayer(0, data_path=path)
+    cons = build_constraints(system, md.shake, dtype=torch.float32,
+                             device=cuda)
+    assert cons.code == k.LINEAR3_CODE
+    rng = np.random.default_rng(11)
+    x_old = np.array(system.x0)
+    cats = np.flatnonzero(system.groups["bmi"]).reshape(-1, 3)
+    dx = x_old[cats[:, 2], 0] - x_old[cats[:, 0], 0]
+    dx -= system.box[0] * np.round(dx / system.box[0])
+    cat = cats[np.argmax(np.abs(dx))]
+    x_old[cat, 0] = (x_old[cat, 0] - x_old[cat[1], 0] + 0.2) % system.box[0]
+    v_np = system.v0 + rng.normal(0.0, 0.005, x_old.shape)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    _k78_bits(cons, t(x_old + md.dt * v_np), t(x_old),
+              t(v_np + rng.normal(0.0, 0.005, x_old.shape)), md.dt,
+              dict(box=system.box, periodic=system.periodic))
+
+
+def test_k7_dv_at_a_dt_not_a_power_of_two(cuda):
+    """dt = 1.7 fs, where neither the IEEE division nor a multiply by
+    1.0f / 1.7f rounds as PyTorch's CUDA division by a Python float (a
+    multiply by 1 / dt formed in double, rounded to float32): K7's x and
+    dv equal the plain version's bit for bit, as does K8."""
+    cons, xn, xo, v, kw = _k78_case(cuda, shake_case("mixed", "straddle",
+                                                     seed=6))
+    _k78_bits(cons, xn, xo, v, 1.7, kw)
+
+
+def test_k7k8_one_kernel_per_call(cuda):
+    """A torch.profiler trace of one shake_positions call and of one
+    rattle_velocities call shows one CUDA kernel each (no copy, no fill).
+    The profiler can return a trace with no kernel records: such a trace
+    is taken again (up to five times); the first trace with records must
+    hold exactly one."""
+    from torch.profiler import ProfilerActivity, profile
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k
+    cons, xn, xo, v, kw = _k78_case(cuda, shake_case("mixed", "interior"))
+    x, _ = k.shake_positions(cons, xn, xo, 2.0, **kw)
+    k.rattle_velocities(cons, x, v, **kw)
+    torch.cuda.synchronize()
+    for call in (lambda: k.shake_positions(cons, xn, xo, 2.0, **kw),
+                 lambda: k.rattle_velocities(cons, x, v, **kw)):
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type.name == "CUDA"]
+            if names:
+                break
+        assert len(names) == 1 and "rows_kernel" in names[0], names
 
 
 def test_il_engine_launches_shake_kernels(cuda, tmp_path):

@@ -109,3 +109,93 @@ def tile_rows(geom, seed, *, empty=0.2, heavy=None):
             q[rng.random(c) < 0.2] = 0.0
         rows[t, 6, :c] = q
     return torch.as_tensor(rows)
+
+
+# hand-built SHAKE tables, one per LAMMPS cluster shape (fix shake's
+# shake2, shake3, shake4 and shake3angle, central atom first), the il
+# decks' linear 3-site cation (slots (0,1), (1,2), (0,2)) and a table that
+# mixes every shape, padded as ``models.shake.build_constraints`` pads it
+SHAKE_SHAPES = {
+    "shake2": [[(0, 1)]],
+    "shake3": [[(0, 1), (0, 2)]],
+    "shake4": [[(0, 1), (0, 2), (0, 3)]],
+    "shake3angle": [[(0, 1), (0, 2), (1, 2)]],
+    "linear3": [[(0, 1), (1, 2), (0, 2)]],
+    "mixed": [[(0, 1)], [(0, 1), (0, 2)], [(0, 1), (0, 2), (0, 3)],
+              [(0, 1), (0, 2), (1, 2)]],
+}
+SHAKE_BOX = (19.0, 21.0, 30.0)
+SHAKE_PERIODIC = (True, True, False)
+
+
+def shake_case(shape, kind="interior", seed=0, nclusters=24, nfree=37):
+    """A hand-built SHAKE system: dict(tables=(atoms, amask, ci, cj, dist2,
+    cmask, invm, pairs), natoms, x_old, x_new, v, box, periodic), float64
+    numpy.  Clusters of ``SHAKE_SHAPES[shape]`` in turn, bonds of 1-1.6 A
+    from the first atom (chained for linear3), ``nfree`` unconstrained
+    atoms, every row order shuffled; x_old satisfies the constraints,
+    x_new is x_old plus 0.05 A noise.  ``kind``: "interior"; "straddle",
+    every cluster's first atom 0.2 A inside the periodic x face, the rest
+    across it; "near_tie", one more two-atom cluster whose x_new and x_old
+    bond lies along x with |d / L| = 0.5 - 1e-6."""
+    rng = np.random.default_rng(seed)
+    box = np.array(SHAKE_BOX)
+    shapes = SHAKE_SHAPES[shape]
+    clusters = [shapes[i % len(shapes)] for i in range(nclusters)]
+    if kind == "near_tie":
+        clusters.append([(0, 1)])
+    sizes = [1 + max(j for _, j in c) for c in clusters]
+    natoms = sum(sizes) + nfree
+    perm = rng.permutation(natoms)
+    x = np.empty((natoms, 3))
+    x[:] = rng.uniform((0, 0, 3), (box[0], box[1], box[2] - 3), (natoms, 3))
+    K = max(sizes)
+    C = max(len(c) for c in clusters)
+    M = len(clusters)
+    atoms = np.zeros((M, K), np.int64)
+    amask = np.zeros((M, K), bool)
+    ci = np.zeros((M, C), np.int64)
+    cj = np.zeros((M, C), np.int64)
+    dist2 = np.ones((M, C))
+    cmask = np.zeros((M, C), bool)
+    pairs = []
+    start = 0
+    near = kind == "near_tie"
+    for m, (cons, k) in enumerate(zip(clusters, sizes)):
+        rows = perm[start:start + k]
+        start += k
+        base = rng.uniform((0, 0, 5), (box[0], box[1], box[2] - 5))
+        if kind == "straddle":
+            base[0] = 0.2
+        pos = [base]
+        for a in range(1, k):
+            u = rng.normal(size=3)
+            u /= np.linalg.norm(u)
+            prev = pos[a - 1] if shape == "linear3" else pos[0]
+            pos.append(prev + rng.uniform(1.0, 1.6) * u)
+        if near and m == M - 1:
+            pos = [base, base + np.array([(0.5 - 1e-6) * box[0], 0.0, 0.0])]
+        pos = np.array(pos)
+        pos[:, 0] %= box[0]
+        pos[:, 1] %= box[1]
+        x[rows] = pos
+        atoms[m, :k] = rows
+        atoms[m, k:] = rows[0]
+        amask[m, :k] = True
+        for s, (i, j) in enumerate(cons):
+            d = pos[i] - pos[j]
+            d[:2] -= box[:2] * np.round(d[:2] / box[:2])
+            ci[m, s], cj[m, s] = i, j
+            dist2[m, s] = float(d @ d)
+            cmask[m, s] = True
+            pairs.append((rows[i], rows[j]))
+    mass = rng.uniform(1.0, 16.0, natoms)
+    invm = np.where(amask, 1.0 / mass[atoms], 0.0)
+    x_new = x + rng.normal(0.0, 0.05, x.shape)
+    if near:
+        x_new[atoms[-1]] = x[atoms[-1]]
+    x_new[:, :2] %= box[:2]
+    v = rng.normal(0.0, 0.01, x.shape)
+    return dict(tables=(atoms, amask, ci, cj, dist2, cmask, invm, pairs),
+                natoms=natoms, x_old=x, x_new=x_new, v=v,
+                box=tuple(box), periodic=SHAKE_PERIODIC)
