@@ -134,8 +134,9 @@ Every main path runs ``Engine.run``, which replays the step as CUDA
 graphs; after each main-path phase a graph phase (4b, 8b, 12b, 16b, 19b,
 22b) holds the replayed step to the eager one (``Engine.step`` in a loop)
 from one state, 100 steps a run: five alternating (eager, graphed) pairs
-of ms/step on the host clock; eager vs eager and graphed vs eager on x, v,
-q and pe, bit for bit wherever two eager runs are bit for bit; the host
+of ms/step on the host clock; eager vs eager, graphed vs eager and graphed
+vs graphed on x, v, q and pe, bit for bit at every cell (no step path adds
+floats with atomics); the host
 syncs of a graphed run (none per step on the dense paths, one on the list
 paths); and a torch.profiler window of 100 replayed steps from the same
 state (so with the timed runs' list rebuilds): the device-busy share of
@@ -149,10 +150,14 @@ summed, from a window staged in shared memory) at its shapes (nb, W) =
 (32, 2048), (32, 4096), (8, 8192), and the global-memory gather
 ``exp_gather_chunk`` it is measured against:
 
- 24. K9 against its plain version at the three shapes, R = 8 (2e-5; both
-     add the same float32 terms in order, so the error is 0), timed at
-     (32, 2048); at R = 1, where the function is one ``torch.gather``, K9
-     against and timed beside that call;
+ 24. K9 against its plain version at the three shapes, R = 8, 1 and 3,
+     bit for bit (both add the same float32 terms in order); two launches
+     bit-identical, one CUDA kernel per call; at each shape and R = 8 and
+     1 its ms per call between CUDA events and its device ms per call
+     (torch.profiler) beside the shape's bound (``k9_times.measure``; the
+     ``shapes`` list of its kernels line), and at R = 1, where the
+     function is one ``torch.gather``, K9 against that call bit for bit
+     and faster than it on the device;
  25. the probe's chained steps at the three shapes (ms, ns/row,
      ns/element); K9 must have launched; then the global-memory gather's
      ns/row (random and local indices, one-shot and in 4/8/16 chunks by
@@ -612,7 +617,7 @@ def main() -> int:
             "host_ms", "device_ms", "ms_il", "device_ms_il", "bound_ms_il",
             "ms_100k", "host_ms_100k", "device_ms_100k", "bound_ms_100k",
             "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr",
-            "floor_ms", "kernels_per_call")
+            "floor_ms", "kernels_per_call", "shapes")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -990,26 +995,29 @@ def il_path(card, dev, results):
     return {k: launches[k] for k in ("shake_positions", "rattle_velocities")}
 
 
-def kernels_per_call(name, fn) -> int:
-    """CUDA kernels in a torch.profiler trace of one call; raises unless
-    there is exactly one.  A trace with no kernel records (the profiler
-    can lose them) is taken again, up to five times."""
+def kernels_per_call(name, fn, reps=1) -> int:
+    """CUDA kernels per call in a torch.profiler trace of ``reps`` calls;
+    raises unless there is exactly one per call.  A trace with no kernel
+    records (the profiler can lose them) is taken again, up to five
+    times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type.name == "CUDA"]
         if names:
             break
-    print(f"    {name}: {len(names)} CUDA kernel(s) in one call: "
-          + ", ".join(n[:60] for n in names))
-    if len(names) != 1:
-        raise AssertionError(f"{name}: {len(names)} kernels in one call")
-    return len(names)
+    print(f"    {name}: {len(names)} CUDA kernel(s) in {reps} call(s): "
+          + ", ".join(sorted({n[:60] for n in names})))
+    if len(names) != reps:
+        raise AssertionError(f"{name}: {len(names)} kernels in {reps} "
+                             "calls")
+    return len(names) // reps
 
 
 def one_cluster(cons, *arrays):
@@ -1128,8 +1136,8 @@ def graph_phase(tag, cell, eng, st_kw, card):
     """The step replayed as CUDA graphs (``Engine.run``) against the eager
     step (``Engine.step`` in a loop), from the same state, GRAPH_STEPS
     steps per run: GRAPH_PAIRS alternating (eager, graphed) pairs on the
-    host clock; eager vs eager and graphed vs eager on x, v, q and pe (bit
-    for bit wherever two eager runs are); the host syncs of a graphed run
+    host clock; eager vs eager, graphed vs eager and graphed vs graphed on
+    x, v, q and pe, all bit for bit; the host syncs of a graphed run
     (torch.cuda.set_sync_debug_mode: none per step on the dense paths, one
     on the list paths); a torch.profiler window of the same replayed steps
     (the same list rebuilds): the device-busy share of the graphed step and
@@ -1180,15 +1188,19 @@ def graph_phase(tag, cell, eng, st_kw, card):
               f"{st_['max'][1]:.3e} / {st_['median'][1]:.3e}, |dq| "
               f"{st_['max'][2]:.3e} / {st_['median'][2]:.3e}, |dpe| "
               f"{st_['max'][3]:.3e} / {st_['median'][3]:.3e}")
-    ee_same = stats["eager_vs_eager"]["bit_identical"]
-    ge_same = stats["graphed_vs_eager"]["bit_identical"]
-    if ee_same and not ge_same:
-        raise AssertionError(f"{tag}: the graphed run differs from the "
-                             "eager run, which is bit-reproducible")
-    # where the eager step itself is not reproducible (atomic scatters),
-    # the typical graphed-vs-eager difference against the eager spread
-    within = all(g <= e for g, e in zip(stats["graphed_vs_eager"]["median"],
-                                        stats["eager_vs_eager"]["max"]))
+    for label, st_ in stats.items():
+        if not st_["bit_identical"]:
+            raise AssertionError(f"{tag}: {cell}, {label} differ: the step "
+                                 "is not bit-reproducible")
+    # the thermo rows of a graphed run: its last pe is the eager state's
+    st_th, th = eng.run(st0, GRAPH_STEPS, thermo_every=GRAPH_STEPS // 10)
+    torch.cuda.synchronize()
+    if not (_state_diff(st_th, eager_out[0])[0]
+            and float(th["pe"][-1]) == float(eager_out[0].energy)):
+        raise AssertionError(f"{tag}: {cell}, the graphed run with thermo "
+                             "rows differs from the eager run")
+    print(f"{tag}: {cell}, a graphed run with {len(th['pe'])} thermo rows: "
+          "state and last pe bit-identical to the eager run's")
     print(f"{tag}: ms/step eager / graphed pairs " + ", ".join(
         f"{e:.4f} / {g:.4f}" for e, g in zip(eager_ms, graph_ms))
         + f"  [{card}]")
@@ -1253,7 +1265,7 @@ def graph_phase(tag, cell, eng, st_kw, card):
         cell=cell, natoms=eng.system.natoms, eager_ms=eager_ms,
         graph_ms=graph_ms, busy_ms=busy, busy_share=share,
         kernels_per_step=nk, host_syncs=syncs, rebuilds_profiled=rebuilds,
-        diffs=stats, graph_within_eager_spread=within,
+        diffs=stats,
         launches=launched, kernel_device_ms_per_step={
             k: v[0] for k, v in per_kernel.items()}))
     return per_kernel, launched
@@ -1588,35 +1600,57 @@ def fullmesh_path(card, dev, results):
 def gather_probe_path(card, dev, results):
     """Phases 24-25, the window gather probe; fills ``results`` for K9 and
     returns its launch count from the probe run."""
-    from lammps_user_conp2_tpu_torch import exp_gather_chunk, exp_vmem_gather
+    from lammps_user_conp2_tpu_torch import (exp_gather_chunk,
+                                             exp_vmem_gather, k9_times)
     from lammps_user_conp2_tpu_torch.ops.kernels import vmem_gather as k9
 
-    # ---- phase 24: K9 against its plain version at the probe's shapes
-    worst_rel = worst_abs = 0.0
-    for nb, W in exp_vmem_gather.PROBE_SHAPES:
-        win, idx = exp_vmem_gather.probe_inputs(nb, W, dev)
-        kern = lambda: k9.window_gather(win, idx, 8)
-        plain = lambda: k9.window_gather_plain(win, idx, 8)
-        got = kern()
-        torch.cuda.synchronize()
-        rel, dabs = compare(f"window_gather ({nb}, {W}), R=8, cols "
-                            f"{k9.window_cols(W)}", (got,), (plain(),))
-        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, dabs)
-        if (nb, W) == exp_vmem_gather.PROBE_SHAPES[0]:
-            r = dict(ms=median_ms(kern), plain_ms=median_ms(plain, reps=5))
-            r.update(bound((win, idx), got, 8 * got.numel()))
-            # at R = 1 the function is one torch.gather: the yardstick
-            kern1 = lambda: k9.window_gather(win, idx, 1)
-            lib = lambda: torch.gather(win, 1, idx)
-            compare("window_gather R=1 vs torch.gather", (kern1(),), (lib(),))
-            r.update(ms_r1=median_ms(kern1), library_ms=median_ms(lib))
-            bound_r1 = bound((win, idx), got, got.numel())
-    results["window_gather"] = dict(rel=worst_rel, abs=worst_abs, **r)
+    # ---- phase 24: K9 against its plain version at the probe's shapes,
+    # bit for bit, and its times beside each shape's bound and, at R = 1,
+    # torch.gather's (k9_times.measure)
+    shapes = k9_times.measure(k9, exp_vmem_gather, dev, rs=(8, 1, 3))
+    for row in shapes:
+        plan = k9.window_plan(row["nb"], row["W"],
+                              torch.cuda.get_device_properties(
+                                  dev).multi_processor_count)
+        print(f"phase 24: window_gather ({row['nb']}, {row['W']}), {plan.cols} "
+              f"lanes per item, a ring of {plan.slots} slots of "
+              f"{plan.box_bytes} B ({plan.nbox} per window), "
+              f"{plan.grid} CTAs over {plan.items} items: max|kernel - plain|"
+              f" R=8 {row['err_r8']:.1e}, R=1 {row['err_r1']:.1e}, R=3 "
+              f"{row['err_r3']:.1e}; R=8 {row['ms_r8']:.4f} ms (device "
+              f"{row['device_ms_r8']:.4f}), R=1 {row['ms_r1']:.4f} (device "
+              f"{row['device_ms_r1']:.4f}), torch.gather "
+              f"{row['library_ms']:.4f} (device "
+              f"{row['library_device_ms']:.4f}), bound "
+              f"{row['bound_ms']:.6f} ms (bytes)  [{card}]")
+        if max(row["err_r8"], row["err_r1"], row["err_r3"]) != 0.0:
+            raise AssertionError("phase 24: window_gather differs from its "
+                                 "plain version")
+        if not row["device_ms_r1"] < row["library_device_ms"]:
+            raise AssertionError("phase 24: window_gather at R = 1 is not "
+                                 "faster than torch.gather")
+    nb, W = exp_vmem_gather.PROBE_SHAPES[0]
+    win, idx = exp_vmem_gather.probe_inputs(nb, W, dev)
+    got = k9.window_gather(win, idx, 8)
+    same_bits("window_gather", (got,), (k9.window_gather(win, idx, 8),))
+    # ten calls a trace: single-call traces of K9 came back empty five
+    # times running after phase 24's timing traces
+    kernels_per_call("window_gather", lambda: k9.window_gather(win, idx, 8),
+                     reps=10)
+    compare("window_gather R=1 vs torch.gather",
+            (k9.window_gather(win, idx, 1),), (torch.gather(win, 1, idx),),
+            0.0)
+    err = max(row[f"err_r{R}"] for row in shapes for R in (8, 1, 3))
+    r = dict(rel=err, abs=err, ms=shapes[0]["ms_r8"],
+             plain_ms=median_ms(lambda: k9.window_gather_plain(win, idx, 8),
+                                reps=5),
+             ms_r1=shapes[0]["ms_r1"], device_ms=shapes[0]["device_ms_r8"],
+             shapes=shapes)
+    r.update(bound((win, idx), got, 8 * got.numel()))
+    r["library_ms"] = shapes[0]["library_ms"]
+    del win, idx, got
+    results["window_gather"] = r
     report("phase 24", results, ("window_gather",), card)
-    print(f"phase 24: window_gather at {exp_vmem_gather.PROBE_SHAPES[0]} R=1 "
-          f"{r['ms_r1']:.4f} ms, "
-          f"torch.gather {r['library_ms']:.4f} ms, bound "
-          f"{bound_r1['bound_ms']:.6f} ms ({bound_r1['bound_by']})  [{card}]")
 
     # ---- phase 25: the port's probe (chained steps through K9) and the
     # global-memory gather it is measured against

@@ -39,7 +39,7 @@ from torch import nn
 from ..ops import ewald as ewald_ops
 from ..ops import ewald_factored as ewf
 from ..ops import pppm as pppm_ops
-from ..ops.bonded import bonded_forces
+from ..ops.bonded import bonded_forces, term_table
 from ..ops.kernels.ele_rows_kernel import conp_correction, correction_range
 from ..ops.kernels.pair_kernel import pair_forces
 from ..ops.kernels.shake_kernel import rattle_velocities, shake_positions
@@ -113,6 +113,9 @@ class Engine(nn.Module):
             self.register_buffer("angles", i64(system.angles))
             self.register_buffer("bond_coeffs", f(system.bond_coeffs))
             self.register_buffer("angle_coeffs", f(system.angle_coeffs))
+            # the fixed-order sum of the bonded terms (no atomic scatter)
+            self.register_buffer("bonded_tab", term_table(
+                system.bonds, system.angles, system.natoms).to(device))
         if conp is not None:
             kern = conp.kernels
             self.register_buffer("ele_flag", f(system.elecheck != 0))
@@ -260,7 +263,8 @@ class Engine(nn.Module):
         if self.has_bonded:
             fba, eba = bonded_forces(
                 x, self.bonds, self.bond_coeffs, self.angles,
-                self.angle_coeffs, box=box, periodic=sys.periodic)
+                self.angle_coeffs, box=box, periodic=sys.periodic,
+                table=self.bonded_tab)
             f = f + fba
             pe = pe + eba
         if self.pppm_grid is not None:

@@ -1,8 +1,10 @@
 """Harmonic bond and angle forces (LAMMPS bond_style/angle_style harmonic).
 
 E_bond = K (r - r0)^2 ; E_angle = K (theta - theta0)^2  (no 1/2 factors,
-LAMMPS convention).  Static topology tensors; one index_add gathers every
-contribution.
+LAMMPS convention).  Static topology tensors.  Each atom's force is the
+sum of the terms acting on it, taken in one fixed order through a table
+built once per topology (``term_table``): a scatter with atomics would add
+them in an order that changes from run to run on the card.
 """
 
 from __future__ import annotations
@@ -14,17 +16,42 @@ import torch
 from .pairs import min_image
 
 
-def bonded_forces(x, bonds, bond_coeffs, angles, angle_coeffs, *, box,
-                  periodic):
-    """Bond + angle forces.  bonds (NB,3) [type, i, j] and angles (NA,4)
-    [type, i, j, k] are int64 tensors (j the central atom); coefficient
-    tables [K, r0] and [K, theta0_deg].  Returns (f, e_bond+e_angle)."""
+def term_rows(bonds, angles):
+    """(M,) int64: the atom each term of ``bonded_terms`` acts on, in term
+    order (the bonds' i rows, their j rows, then the angles' i, k and j
+    rows)."""
+    b = torch.as_tensor(bonds).reshape(-1, 3)
+    a = torch.as_tensor(angles).reshape(-1, 4)
+    return torch.cat([b[:, 1], b[:, 2], a[:, 1], a[:, 3], a[:, 2]]).long()
+
+
+def term_table(bonds, angles, natoms):
+    """(natoms, D) int64 table of the fixed-order force sum, on the device
+    of ``bonds``: row a lists, in term order, the positions of the terms
+    acting on atom a (``term_rows``), padded with the position M of the
+    zero row appended after the M terms.  D is the largest number of terms
+    on one atom (at least 1).  Built on the host: call it once per
+    topology, before any CUDA-graph capture."""
+    rows = term_rows(bonds, angles).cpu()
+    m = rows.numel()
+    counts = torch.bincount(rows, minlength=natoms)
+    order = torch.argsort(rows, stable=True)
+    atom = rows[order]
+    slot = torch.arange(m) - (torch.cumsum(counts, 0) - counts)[atom]
+    table = torch.full((natoms, max(int(counts.max()) if m else 0, 1)), m,
+                       dtype=torch.int64)
+    table[atom, slot] = order
+    return table.to(torch.as_tensor(bonds).device)
+
+
+def bonded_terms(x, bonds, bond_coeffs, angles, angle_coeffs, *, box,
+                 periodic):
+    """(vals (M, 3), e_bond+e_angle): each term's force on the atom
+    ``term_rows`` names, in term order; bonds (NB,3) [type, i, j] and
+    angles (NA,4) [type, i, j, k] are int64 tensors (j the central atom);
+    coefficient tables [K, r0] and [K, theta0_deg]."""
     nb = bonds.shape[0]
     na = angles.shape[0]
-    if nb == 0 and na == 0:
-        return torch.zeros_like(x), torch.zeros((), dtype=x.dtype,
-                                                device=x.device)
-    rows = []
     vals = []
     e = torch.zeros((), dtype=x.dtype, device=x.device)
     if nb:
@@ -37,7 +64,6 @@ def bonded_forces(x, bonds, bond_coeffs, angles, angle_coeffs, *, box,
         e = e + torch.sum(k * dr * dr)
         fmag = torch.where(r > 0, -2.0 * k * dr / r, torch.zeros_like(r))
         fij = fmag[:, None] * dx
-        rows += [i, j]
         vals += [fij, -fij]
     if na:
         at = angles[:, 0]
@@ -62,8 +88,24 @@ def bonded_forces(x, bonds, bond_coeffs, angles, angle_coeffs, *, box,
         a22 = a * c / r2sq
         f1 = a11[:, None] * d1 + a12[:, None] * d2
         f3 = a22[:, None] * d2 + a12[:, None] * d1
-        rows += [i, k, j]
         vals += [f1, f3, -(f1 + f3)]
-    f = torch.zeros_like(x).index_add(0, torch.cat(rows),
-                                      torch.cat(vals, dim=0))
-    return f, e
+    if not vals:
+        return x.new_zeros((0, 3)), e
+    return torch.cat(vals, dim=0), e
+
+
+def bonded_forces(x, bonds, bond_coeffs, angles, angle_coeffs, *, box,
+                  periodic, table=None):
+    """Bond + angle forces (``bonded_terms``), each atom's terms summed in
+    term order through ``table``, the topology's ``term_table`` (built
+    here when None: a trip to the host, so the engine keeps its own).
+    Returns (f, e_bond+e_angle)."""
+    if bonds.shape[0] == 0 and angles.shape[0] == 0:
+        return torch.zeros_like(x), torch.zeros((), dtype=x.dtype,
+                                                device=x.device)
+    vals, e = bonded_terms(x, bonds, bond_coeffs, angles, angle_coeffs,
+                           box=box, periodic=periodic)
+    if table is None:
+        table = term_table(bonds, angles, x.shape[0]).to(x.device)
+    zero = torch.zeros((1, 3), dtype=x.dtype, device=x.device)
+    return torch.cat([vals, zero])[table].sum(1), e

@@ -150,7 +150,7 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_rattle_velocities_f32.argtypes = (
         [P] * 4 + [I] * 5 + [F] * 3 + [I] * 3 + [P] * 2)
     lib.conp2_rattle_velocities_f32.restype = I
-    lib.conp2_window_gather_f32.argtypes = [P, P] + [I] * 4 + [P, P]
+    lib.conp2_window_gather_f32.argtypes = [P, P] + [I] * 7 + [P, P]
     lib.conp2_window_gather_f32.restype = I
     return lib
 

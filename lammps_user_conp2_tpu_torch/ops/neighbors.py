@@ -384,7 +384,10 @@ def conp_correction_from_list(ncfg: NeighborConfig, nlist: NeighborList, x,
     """Gaussian correction from the electrode rows of the list
     (blist_coul_cal_post_force, fix_conp.cpp:1368-1444): forces on the
     electrode rows plus the Newton reactions on their electrolyte
-    neighbours.  Returns (f (N, 3), ecorr)."""
+    neighbours.  Returns (f (N, 3), ecorr).  The list is full, so each
+    electrolyte atom sums its reactions over its own row, in the row's
+    order: a scatter of them would add with atomics on the card, in an
+    order that changes from run to run."""
     n = x.shape[0]
     idx_e, d, mask, rsq_safe, te, tj = _ele_geometry(
         ncfg, nlist, x, ele_idx, elyte_mask, type_idx, cutoff ** 2)
@@ -393,9 +396,23 @@ def conp_correction_from_list(ncfg: NeighborConfig, nlist: NeighborList, x,
     zero = torch.zeros_like(rsq_safe)
     forcecoul = torch.where(mask, pref * pair_force_fn(rsq_safe, te, tj), zero)
     epair = torch.where(mask, pref * pair_potential_fn(rsq_safe, te, tj), zero)
-    fvec = (forcecoul / rsq_safe)[:, :, None] * d        # (Ne, K, 3)
-    f = torch.zeros((n + 1, 3), dtype=x.dtype, device=x.device)
-    f.index_add_(0, idx_e.reshape(-1), -fvec.reshape(-1, 3))
-    f = f[:n].index_add(0, ele_idx, torch.sum(fvec, dim=1))
+    f_ele = torch.sum((forcecoul / rsq_safe)[:, :, None] * d, dim=1)
+    # the reactions: row j of the list holds the electrodes that hold j
+    idx = nlist.idx
+    is_ele = torch.zeros(n + 1, dtype=torch.bool,
+                         device=x.device).index_fill_(0, ele_idx, True)
+    xp = torch.cat([x, torch.full((1, 3), 1e6, dtype=x.dtype,
+                                  device=x.device)])
+    tp = torch.cat([type_idx, torch.zeros(1, dtype=type_idx.dtype,
+                                          device=x.device)])
+    dr = min_image(x[:, None, :] - xp[idx], ncfg.grid.box, ncfg.grid.periodic)
+    rsq = torch.sum(dr * dr, dim=-1)
+    mask_r = is_ele[idx] & elyte_mask[:, None] & (rsq < cutoff ** 2)
+    rsq_r = torch.where(mask_r, rsq, torch.ones_like(rsq))
+    fc_r = torch.where(mask_r, qqr2e * qp[idx] * q[:, None] * pair_force_fn(
+        rsq_r, tp[idx], type_idx[:, None]), torch.zeros_like(rsq))
+    f = torch.sum((fc_r / rsq_r)[:, :, None] * dr, dim=1)
+    # one add per electrode row: the rows are distinct
+    f = f.index_add(0, ele_idx, f_ele)
     return (torch.where(nlist.overflow, torch.full_like(f, float("nan")), f),
             torch.sum(epair))

@@ -935,14 +935,26 @@ def gather_tiled(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
 # ---------------------------------------------------------------------------
 
 
+def _weight_matrix(m, i, w):
+    """(N, m) rows of stencil weights: w (N, p) added at columns i (N, p).
+    A row's p columns wrap onto m mesh nodes, so they are distinct when m
+    >= p and one scatter adds each once; on a coarser mesh the columns are
+    added one at a time, in stencil order (a scatter onto a repeated column
+    would add in an order that changes from run to run on the card)."""
+    out = torch.zeros((i.shape[0], m), dtype=w.dtype, device=w.device)
+    if m >= i.shape[1]:
+        return out.scatter_add_(1, i, w)
+    for s in range(i.shape[1]):
+        out.scatter_add_(1, i[:, s:s + 1], w[:, s:s + 1])
+    return out
+
+
 def _axis_weight_matrices(grid: PPPMGrid, x):
     """Dense per-axis B-spline weight matrices Wx (N,nx), Wy (N,ny),
     Wz (N,nz); each row has ``order`` nonzeros."""
     (ix, iy, iz), (wx, wy, wz) = _stencil(grid, x)
-    n = x.shape[0]
-    mk = lambda m, i, w: torch.zeros((n, m), dtype=x.dtype,
-                                     device=x.device).scatter_add_(1, i, w)
-    return mk(grid.nx, ix, wx), mk(grid.ny, iy, wy), mk(grid.nz, iz, wz)
+    return (_weight_matrix(grid.nx, ix, wx), _weight_matrix(grid.ny, iy, wy),
+            _weight_matrix(grid.nz, iz, wz))
 
 
 def _wxy(WX, WY):
@@ -990,9 +1002,7 @@ def gather3_ad(grid: PPPMGrid, u, x):
             "through the z-binned gather3_ad_zbin)")
     (ix, iy, iz), (wx, wy, wz), (dxx, dxy, dxz), _, _ = _stencil_full(grid, x)
     cf = _coeffs(grid, x.dtype, x.device)
-    n = x.shape[0]
-    mk = lambda m, i, w: torch.zeros((n, m), dtype=x.dtype,
-                                     device=x.device).scatter_add_(1, i, w)
+    mk = _weight_matrix
     WX, WY, WZ = mk(grid.nx, ix, wx), mk(grid.ny, iy, wy), mk(grid.nz, iz, wz)
     DWX = mk(grid.nx, ix, _horner_dw(dxx, cf))
     DWY = mk(grid.ny, iy, _horner_dw(dxy, cf))
@@ -1113,10 +1123,8 @@ def _zplane_wz(grid: PPPMGrid, x, zp_inv):
 
 def _xy_weights(grid: PPPMGrid, x):
     (ix, iy, _), (wx, wy, _) = _stencil(grid, x)
-    n = x.shape[0]
-    mk = lambda m, i, w: torch.zeros((n, m), dtype=x.dtype,
-                                     device=x.device).scatter_add_(1, i, w)
-    return _wxy(mk(grid.nx, ix, wx), mk(grid.ny, iy, wy))
+    return _wxy(_weight_matrix(grid.nx, ix, wx),
+                _weight_matrix(grid.ny, iy, wy))
 
 
 def spread_zplanes(grid: PPPMGrid, x, q, zp_inv):

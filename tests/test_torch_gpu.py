@@ -9,7 +9,8 @@ exclusions on the deck's block path; K6 and not K4 with
 use_pallas_pair=False, whose correction energy from anions 2 A off the
 sheets agrees with the CPU float64 engine's; K2b on the mobile-electrode
 tiled mesh); K9, the window gather probe, equals its plain version
-exactly.  K1's packed rows equal their plain version, and K1 (unfused,
+bit for bit (the probe's shapes, R = 8, 1 and 3, one block, W off the
+TMA box, idx at the ends), one kernel per call.  K1's packed rows equal their plain version, and K1 (unfused,
 fused, with exclusions) with its unions swept whole or in segments; K2a on
 slot rows of 1, 2 and 9 tiles per axis and on a tile over two staging
 passes; both bit-identical across two launches.  K5 on shuffled atoms
@@ -18,8 +19,9 @@ order kernel equal to ``elyte_order_plain``; K4 also on clusters of 33
 and 100 atoms (ragged tiles), its tile-pair schedule kernel equal to
 ``tile_schedule_plain``, and K4 and K5 bit-identical across two
 launches.  The step replayed as CUDA graphs (``Engine.run``) equals the
-eager steps bit for bit wherever two eager runs are (mid-size, tiled list,
-ionic-liquid and unfused cells), with the launch counters reading as after
+eager steps, and two eager runs each other, bit for bit (mid-size, tiled
+list, ionic-liquid, bonded block, unfused and mobile-electrode cells); the
+bonded forces are bit-identical across calls; the launch counters reading as after
 eager steps, no host sync per step on the dense path and one on the list
 path, and new graphs captured after a capacity growth; K6 over the
 correction's range against its plain version over the full cutoff with the
@@ -713,18 +715,56 @@ def test_mobile_tiled_engine_launches_k2b(cuda, monkeypatch):
     assert k2.tiles_launches.count == 4 and np.isfinite(float(st.energy))
 
 
-@pytest.mark.parametrize("nb,W", [(4, 512), (2, 8192)])
-def test_window_gather_matches_plain_on_card(cuda, nb, W):
+@pytest.mark.parametrize("nb,W", [(4, 512), (2, 8192), (32, 2048),
+                                  (32, 4096), (8, 8192), (1, 2048),
+                                  (3, 1000), (2, 2049), (1, 40)])
+@pytest.mark.parametrize("R", [8, 1, 3])
+def test_window_gather_matches_plain_on_card(cuda, nb, W, R):
+    """K9 bit for bit against its plain version: the probe's three shapes,
+    one block, W not a multiple of the 256-row box or of a pass, idx at 0
+    and W - 1; one launch per call."""
     from lammps_user_conp2_tpu_torch.exp_vmem_gather import probe_inputs
     from lammps_user_conp2_tpu_torch.ops.kernels import vmem_gather as k9
     win, idx = probe_inputs(nb, W, cuda)
+    idx[0, :5] = 0
+    idx[-1, -5:] = W - 1
     k9.launches.reset()
-    got = k9.window_gather(win, idx, 8)
+    got = k9.window_gather(win, idx, R)
     torch.cuda.synchronize()
     assert k9.launches.count == 1
-    assert float((got - k9.window_gather_plain(win, idx, 8)).abs().max()) == 0.0
+    assert torch.equal(got, k9.window_gather_plain(win, idx, R))
     with pytest.raises(TypeError):
-        k9.window_gather(win.double(), idx, 8)
+        k9.window_gather(win.double(), idx, R)
+
+
+def test_window_gather_one_kernel_per_call(cuda):
+    """K9 is one CUDA kernel per call, at each of the probe's shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    from lammps_user_conp2_tpu_torch.exp_vmem_gather import (PROBE_SHAPES,
+                                                             probe_inputs)
+    from lammps_user_conp2_tpu_torch.ops.kernels import vmem_gather as k9
+    for nb, W in PROBE_SHAPES:
+        win, idx = probe_inputs(nb, W, cuda)
+        k9.window_gather(win, idx, 8)
+        torch.cuda.synchronize()
+        for _ in range(5):          # a trace can come back without records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                k9.window_gather(win, idx, 8)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type.name == "CUDA"]
+            if names:
+                break
+        assert len(names) == 1 and "window_gather" in names[0], names
+
+
+def test_window_gather_refuses_unaligned_window(cuda):
+    from lammps_user_conp2_tpu_torch.ops.kernels import vmem_gather as k9
+    flat = torch.zeros(2 * 64 * 128 + 1, device=cuda)
+    win = flat[1:].view(2, 64, 128)
+    idx = torch.zeros((2, 64, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        k9.window_gather(win, idx, 8)
 
 
 # ---------------------------------------------------------------- graphs
@@ -745,6 +785,25 @@ def _graph_cell(cuda, cell, tmp_path, monkeypatch):
         system, md, conp, eng, x, q, _ = _tiled_cell(cuda, x_near)
         return eng, dict(x0=x.cpu().numpy())
     from lammps_user_conp2_tpu_torch import workloads
+    if cell == "fullmesh":
+        import dataclasses
+        from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+        from lammps_user_conp2_tpu_torch.models.md import build_engine
+        from lammps_user_conp2_tpu_torch.ops import pppm as P
+        from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+        monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
+        system, md, cfg = workloads.synthetic(**S3)
+        md = dataclasses.replace(md, pair_path="block", pppm_diff="ad",
+                                 kspace_style=KSpaceStyle.PPPM)
+        cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM,
+                                  mobile_electrodes=True)
+        conp = setup_conp(system, md, cfg, solve_dtype=torch.float32,
+                          device=cuda)
+        eng = build_engine(system, md, conp, dtype=torch.float32, device=cuda)
+        return eng, dict(x0=x_near(system))
+    if cell == "bonded":
+        system, md, eng = _il_cell(cuda, tmp_path, pair_path="block")
+        return eng, {}
     system, md, eng = _il_cell(cuda, tmp_path,
                                use_pallas_pair=(cell != "unfused"))
     if cell == "unfused":
@@ -763,12 +822,14 @@ def _same(a, b):
                ((a.x, b.x), (a.v, b.v), (a.q, b.q), (a.energy, b.energy)))
 
 
-@pytest.mark.parametrize("cell", ["mid", "tiled", "il", "unfused"])
+@pytest.mark.parametrize("cell", ["mid", "tiled", "il", "bonded", "unfused",
+                                  "fullmesh"])
 def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
                                           monkeypatch):
     """``Engine.run`` replays CUDA graphs: 20 replayed steps equal 20 eager
-    steps bit for bit wherever two eager runs are bit for bit (else both
-    differences stay below 1e-3), the thermo rows included."""
+    steps bit for bit, and two eager runs equal each other, at every cell
+    (no step path adds floats with atomics: the bonded forces and the
+    list's correction sum in a fixed order), the thermo rows included."""
     eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
     st0 = eng.init_state(**kw)
     e1 = _steps(eng, st0, 20)
@@ -776,13 +837,33 @@ def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
     g, th = eng.run(st0, 20, thermo_every=10)
     torch.cuda.synchronize()
     assert len(eng._step_graphs) == 1
-    if _same(e1, e2):
-        assert _same(g, e1)
-        assert float(th["pe"][-1]) == float(e1.energy)
-    else:
-        assert _diff(e1, e2) <= 1e-3 and _diff(g, e1) <= 1e-3
+    assert _same(e1, e2), _diff(e1, e2)
+    assert _same(g, e1), _diff(g, e1)
+    assert float(th["pe"][-1]) == float(e1.energy)
     assert th["step"].tolist() == [10, 20]
     assert np.isfinite(float(g.energy))
+
+
+def test_bonded_forces_bit_identical_on_card(cuda, tmp_path):
+    """The bonded forces of the il topology sum each atom's terms in a fixed
+    order: two calls give the same bits, within float32 rounding of an
+    index_add of the same terms."""
+    from lammps_user_conp2_tpu_torch.ops import bonded as B
+    system, md, eng = _il_cell(cuda, tmp_path)
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(system.x0 + 0.05 * rng.standard_normal(
+        system.x0.shape), dtype=torch.float32, device=cuda)
+    geo = dict(box=tuple(system.box), periodic=tuple(system.periodic))
+    args = (eng.bonds, eng.bond_coeffs, eng.angles, eng.angle_coeffs)
+    f1, e1 = B.bonded_forces(x, *args, table=eng.bonded_tab, **geo)
+    f2, e2 = B.bonded_forces(x, *args, table=eng.bonded_tab, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(f1, f2) and torch.equal(e1, e2)
+    assert float(f1.abs().max()) > 0.0
+    vals, _ = B.bonded_terms(x, *args, **geo)
+    ref = torch.zeros_like(x).index_add(0, B.term_rows(eng.bonds, eng.angles),
+                                        vals)
+    assert _rel(f1, ref) <= 1e-6
 
 
 def test_launch_counters_under_replay_on_card(cuda, tmp_path):

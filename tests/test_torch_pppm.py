@@ -296,3 +296,19 @@ def test_zplane_functions_match(dense, slab_grid, grid_kind):
     assert torch.isnan(TP.gather_zplanes(tg, up_t, far, zpi)).all()
     assert np.isnan(np.asarray(JP.gather_zplanes(
         jg, up_j, jnp.asarray(far.numpy()), zpi))).all()
+
+
+@pytest.mark.parametrize("m", [2, 4, 5, 9])
+def test_weight_matrix_adds_each_stencil_column(m):
+    """The dense stencil weights: each row's order-5 weights added at their
+    mesh columns, also where a mesh axis shorter than the order wraps a
+    row's stencil onto one column more than once (then a column at a time,
+    so that the card adds them in a fixed order)."""
+    rng = np.random.default_rng(m)
+    n, p = 7, 5
+    i = np.remainder(rng.integers(0, m, (n, 1)) + np.arange(p) - 2, m)
+    w = rng.standard_normal((n, p))
+    ref = np.zeros((n, m))
+    np.add.at(ref, (np.arange(n)[:, None], i), w)
+    got = TP._weight_matrix(m, torch.from_numpy(i), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-15, atol=1e-15)

@@ -69,10 +69,15 @@ def test_window_gather_matches_jax_kernel(jax_probe, monkeypatch, nb, W, R):
 
 
 def test_window_cols_fit_shared_memory():
-    assert [vmem_gather.window_cols(W) for W in (16, 2048, 4096, 8192,
-                                                 12800)] == [16, 16, 8, 4, 4]
+    """The lanes of a work item: the widest of 16, 8, 4 whose window fits
+    the shared memory once, up to the W whose window fills it at 4."""
+    plans = [vmem_gather.window_plan(1, W, 132) for W in (16, 2048, 4096,
+                                                           8192, 14336)]
+    assert [p.cols for p in plans] == [16, 16, 8, 4, 4]
+    assert all(p.nbox <= p.slots <= 2 * p.nbox for p in plans)
+    assert all(p.smem <= vmem_gather.SMEM_LIMIT for p in plans)
     with pytest.raises(ValueError):
-        vmem_gather.window_cols(12801)
+        vmem_gather.window_plan(1, 14337, 132)
 
 
 def test_chain_ms_feeds_state_back():
