@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's seven paths (six main paths through
+Drives the port's paths (nine main paths through
 ``lammps_user_conp2_tpu_torch``: setup_conp -> build_engine -> init_state ->
-Engine.run; and the window gather probe ``exp_vmem_gather.run_probe``)
-and exits non-zero if any phase fails.
+Engine.run, float32; three of them again in float64 on the card; and the
+window gather probe ``exp_vmem_gather.run_probe``) and exits non-zero if
+any phase fails.
 
 Mid-size path, the 7,296-atom synthetic capacitor
 ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
@@ -41,7 +42,7 @@ z-binned mesh):
      walls; K1, K2a and K3 must have launched every step and the Verlet
      list must have been rebuilt in the timed window; finite energy,
      neutral electrodes;
-  9. 2 steps on the card (float32) against 2 steps on the CPU (float64,
+  9. 3 steps on the card (float32) against 3 steps on the CPU (float64,
      plain path, per-atom Verlet list) with phase 5's bounds.
 
 Ionic-liquid deck path, ``workloads.il_onelayer(0)`` on the 3,776-atom
@@ -164,6 +165,32 @@ summed, from a window staged in shared memory) at its shapes (nb, W) =
      indexing, and one-shot with each row gathered as one 16-byte
      element); both one-shot sums agree (1e-5).
 
+Float64 on the card (the kernel wrappers take their plain versions on
+CUDA float64 tensors, ``ops/kernels/build.kernel_route``):
+
+ 26. the mid-size, il and 100k cells set up and built in float64 on the
+     card, 3 steps of ``Engine.run`` (graphs replayed) against the CPU
+     float64 runs of phases 5, 9 and 13: max|dq| / max|q| and |dpe| / |pe|
+     within F64_CARD_REL, printed per cell; no hand kernel launches.
+
+The decks' charge and field modes on the phase-10 file (dense path, z
+periodic, K4, K5, K7 and K8 every step; each main path 111 steps, a graph
+phase of DECK_GRAPH_PAIRS pairs, 3 steps against float64 on the CPU):
+
+ 27. ``cond`` trial 4 (COND, FFIELD, PPPM, the feedback field), the fix
+     scalar held to SCALAR_REL (as in phases 28 and 29); trials 1 and 3
+     (CONQ, slab and FFIELD with the feedback field): 3 steps against the
+     CPU, the right electrode at its target charge to 1e-4 e;
+ 28. ``il_onelayer`` trial 4 (EHGO with kappa 0, a callable target,
+     FFIELD, PPPM), the fix scalar held to SCALAR_REL; then EHGO with kappa
+     0.5, an explicit u0 and the anions given a width (fo != 0 on the
+     electrode-anion pairs): K4 fused, K5 and K6 against their plain
+     versions (2e-5) at x0 and with anions 2 A off the sheets, device ms;
+ 29. ``zmirror`` trial 3 (the 7,552-atom doubled cell, NOSLAB, zneutr,
+     CONQ, zmirror, PPPM); 100 eager steps with the upper half equal to the
+     lower half's mirror bit for bit after every step and each half's
+     electrodes neutral to 1e-4 e.
+
 The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
 angle the three constraint directions of a straight cation are parallel,
 so SHAKE corrects along the axis only; the bend that the forces make stays,
@@ -179,8 +206,11 @@ this script.  K1, K2a, K4 and K5 also carry ``host_ms`` (the wrapper's
 host time per call, on the host clock) and ``device_ms`` (their CUDA
 kernels' device time per call, torch.profiler: K1's packing, sweep and
 reductions, K2a's one, K4's three, K5's two, the compaction of the z
-order to the electrolyte included); K7 and K8 ``device_ms`` (one kernel
-each), ``kernels_per_call`` and ``floor_ms``.  The il cell's figures carry
+order to the electrolyte included); K2b, K3, K7 and K8 ``device_ms`` (one
+kernel each), K7 and K8 ``kernels_per_call`` and ``floor_ms``; K4, K5, K7
+and K8 ``launches_decks`` (their launches on the main paths of phases
+27-29), K4, K5 and K6 ``max_rel_err_ehgo_fo`` and ``device_ms_ehgo_fo``
+(phase 28).  The il cell's figures carry
 the suffix ``_il``.  Every kernel's line carries its bound: the larger
 of the bytes it must move (its input tensors read once, its outputs
 written once) over 3.35 TB/s and the operations this run's data needs
@@ -224,6 +254,14 @@ K78_PHASE_SPLIT = (
 # lammps_user_conp2_tpu_torch.shake_residual --cell full --device cpu
 # --dtype float64 --steps 111``
 IL_F64_BONDS = 2.996e-3
+# phase 26: the steps of the card's float64 run, and its bound against
+# the CPU float64 run (relative to the largest |q| and to |pe|)
+F64_STEPS = 3
+F64_CARD_REL = 1e-10
+# the CPU float64 runs of phases 5, 9 and 13 at F64_STEPS, by cell
+CPU64 = {}
+# phases 27-29: the fix scalar, card float32 against CPU float64
+SCALAR_REL = 1e-4
 OUT_DIR = "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -330,6 +368,8 @@ K5_PARTS = ("b_order_kernel", "b_rows_kernel")
 K1_PARTS = ("block_pack", "block_sweep", "block_force_reduce",
             "block_pair_reduce")
 K2A_PARTS = ("spread_mesh_kernel",)
+K2B_PARTS = ("spread_tiles_kernel",)
+K3_PARTS = ("gather3_kernel",)
 K6_PARTS = ("corr_order_kernel", "corr_ele_kernel", "corr_ely_kernel",
             "corr_reduce")
 # K7 and K8 as redesigned (one launch per call) and in their first design
@@ -413,8 +453,9 @@ def k4_pairs(tag, k4, x, zsort, system, cutoff, card, m=0) -> int:
     return inrange
 
 
-def agree(tag, s32, s64, ne):
-    """Phase 5/9 bounds between a card float32 and a CPU float64 state."""
+def agree(tag, s32, s64, ne, scalar=False):
+    """Phase 5/9 bounds between a card float32 and a CPU float64 state;
+    with ``scalar``, the fix scalar's relative gap too, to SCALAR_REL."""
     qe32 = s32.q[:ne].double().cpu()
     qe64 = s64.q[:ne]
     dq = float((qe32 - qe64).abs().max())
@@ -422,10 +463,17 @@ def agree(tag, s32, s64, ne):
     dpe = abs(float(s32.energy) - float(s64.energy)) / abs(float(s64.energy))
     df = float((s32.f.double().cpu() - s64.f).abs().max()) / float(
         s64.f.abs().max())
+    ds = abs(float(s32.scalar_out) - float(s64.scalar_out)) / max(
+        abs(float(s64.scalar_out)), 1e-30)
     print(f"{tag}: max|dq_ele| {dq:.3e} (bound {qbound:.3e}), pe rel "
-          f"{dpe:.3e}, f rel {df:.3e}")
+          f"{dpe:.3e}, f rel {df:.3e}" + (f", fix scalar rel {ds:.3e} "
+                                          f"({float(s64.scalar_out):.6g})"
+                                          if scalar else ""))
     if not (dq <= qbound and dpe <= 1e-4 and df <= 1e-3):
         raise AssertionError(f"{tag}: outside the bounds")
+    if scalar and not ds <= SCALAR_REL:
+        raise AssertionError(f"{tag}: fix scalar rel {ds:.3e} > "
+                             f"{SCALAR_REL}")
 
 
 def main() -> int:
@@ -546,7 +594,7 @@ def main() -> int:
     graph_phase("phase 4b", "mid", eng, dict(x0=x_near), card)
 
     # ---- phase 5: card (float32) against CPU (float64, plain path)
-    card_vs_cpu("phase 5", eng, system, md, cfg, 3, x0=x_near)
+    card_vs_cpu("phase 5", eng, system, md, cfg, 3, x0=x_near, cell="mid")
 
     launches.update(production_path(card, dev, results))
     launches.update(il_path(card, dev, results))
@@ -554,6 +602,17 @@ def main() -> int:
     launches.update(unfused_path(card, dev, results))
     launches.update(fullmesh_path(card, dev, results))
     launches.update(gather_probe_path(card, dev, results))
+    f64_path(card, dev)
+    il_file = os.path.join(OUT_DIR, "il_3776.data")
+    # K4, K5, K7 and K8's launches on the deck cells' main paths (their
+    # ``launches`` stay those of phases 4 and 12)
+    deck_launches = {
+        "cond4": cond_path(card, dev, results, il_file),
+        "il4_ehgo": ehgo_path(card, dev, results, il_file),
+        "zmirror3": zmirror_path(card, dev, results, il_file)}
+    for name in DECK_COUNTERS:
+        results[name]["launches_decks"] = {
+            cell: n[name] for cell, n in deck_launches.items()}
     pallas = "lammps_user_conp2_tpu/ops/pallas/"
     replaces = {
         "pair_forces_conp": pallas + "pair_kernel.py:316",
@@ -600,10 +659,15 @@ def main() -> int:
         for g in GRAPHS:
             if g["cell"] not in r["device_ms_replay"]:
                 continue
-            b = r.get({"il": "bound_ms_il", "unfused_il": "bound_ms_il",
-                       "100k": "bound_ms_100k",
-                       "full_mesh": "bound_ms_100k"}.get(g["cell"], ""),
-                      r["bound_ms"])
+            # the bound at the cell's shapes; the deck cells (phases 27-29)
+            # have none measured and stay out of the order
+            key = {"mid": "bound_ms", "bonded": "bound_ms",
+                   "il": "bound_ms_il", "unfused_il": "bound_ms_il",
+                   "100k": "bound_ms_100k",
+                   "full_mesh": "bound_ms_100k"}.get(g["cell"])
+            if key is None:
+                continue
+            b = r.get(key, r["bound_ms"])
             per_step = g["launches"][counter] / GRAPH_PROFILE_STEPS
             ms = r["device_ms_replay"][g["cell"]]
             gaps.append((per_step * (ms - b), kid, g["cell"], ms, b,
@@ -617,7 +681,8 @@ def main() -> int:
             "host_ms", "device_ms", "ms_il", "device_ms_il", "bound_ms_il",
             "ms_100k", "host_ms_100k", "device_ms_100k", "bound_ms_100k",
             "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr",
-            "floor_ms", "kernels_per_call", "shapes")
+            "floor_ms", "kernels_per_call", "shapes", "launches_decks",
+            "max_rel_err_ehgo_fo", "device_ms_ehgo_fo")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -769,7 +834,8 @@ def production_path(card, dev, results):
         torch.cuda.synchronize()
         rel, dabs = compare("gather3", (got,), (plain(),))
         results["gather3"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                                  plain_ms=median_ms(plain, reps=5))
+                                  plain_ms=median_ms(plain, reps=5),
+                                  device_ms=device_ms(kern, K3_PARTS))
         results["gather3"].update(bound(
             (up, slots.rows, cfd), got, GATHER_FLOPS * system.natoms))
     report("phase 7", results, ("block_pair_100k", "block_pair_conp_100k",
@@ -788,7 +854,8 @@ def production_path(card, dev, results):
     graph_phase("phase 8b", "100k", eng, dict(x0=x_near), card)
 
     # ---- phase 9: card (float32) against CPU (float64, plain path)
-    card_vs_cpu("phase 9", eng, system, md, cfg, 2, x0=x_near)
+    card_vs_cpu("phase 9", eng, system, md, cfg, F64_STEPS, x0=x_near,
+                cell="100k")
     return {k: launches[k] for k in ("spread_mesh", "gather3")}
 
 
@@ -982,6 +1049,8 @@ def il_path(card, dev, results):
         s64 = eng64.step(s64)
         if i < 3:
             agree(f"phase 13: step {i + 1}", s32, s64, conp.ne)
+        if i + 1 == F64_STEPS:
+            CPU64["il"] = (system, md, cfg, None, s64)
     r32 = constraint_residuals(cons, s32.x, **kw)
     r64 = constraint_residuals(eng64.cons, s64.x, **kw)
     dx = float((s32.x.double().cpu() - s64.x).abs().max())
@@ -1132,7 +1201,7 @@ def _state_diff(a, b):
     return (same, *d)
 
 
-def graph_phase(tag, cell, eng, st_kw, card):
+def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
     """The step replayed as CUDA graphs (``Engine.run``) against the eager
     step (``Engine.step`` in a loop), from the same state, GRAPH_STEPS
     steps per run: GRAPH_PAIRS alternating (eager, graphed) pairs on the
@@ -1141,7 +1210,8 @@ def graph_phase(tag, cell, eng, st_kw, card):
     (torch.cuda.set_sync_debug_mode: none per step on the dense paths, one
     on the list paths); a torch.profiler window of the same replayed steps
     (the same list rebuilds): the device-busy share of the graphed step and
-    each hand kernel's device time per launch.  Appends the cell's record to
+    each hand kernel's device time per launch.  ``pairs``: the (eager,
+    graphed) pairs (GRAPH_PAIRS when None).  Appends the cell's record to
     GRAPHS."""
     import warnings
     from lammps_user_conp2_tpu_torch.ops.kernels import build
@@ -1149,11 +1219,12 @@ def graph_phase(tag, cell, eng, st_kw, card):
                                                             kernel_of)
     from torch.profiler import ProfilerActivity, profile
 
+    npairs = GRAPH_PAIRS if pairs is None else pairs
     st0 = eng.init_state(**st_kw)
     eng.run(st0, 2, thermo_every=0)              # captured (or reused)
     torch.cuda.synchronize()
     eager_ms, graph_ms, eager_out, graph_out = [], [], [], []
-    for _ in range(GRAPH_PAIRS):
+    for _ in range(npairs):
         t0 = time.perf_counter()
         st = st0
         for _ in range(GRAPH_STEPS):
@@ -1168,10 +1239,10 @@ def graph_phase(tag, cell, eng, st_kw, card):
         graph_out.append(st)
     # every pair of runs: eager-eager, graphed-eager, graphed-graphed
     ee = [_state_diff(eager_out[i], eager_out[j])
-          for i in range(GRAPH_PAIRS) for j in range(i + 1, GRAPH_PAIRS)]
+          for i in range(npairs) for j in range(i + 1, npairs)]
     ge = [_state_diff(g, e) for g in graph_out for e in eager_out]
     gg = [_state_diff(graph_out[i], graph_out[j])
-          for i in range(GRAPH_PAIRS) for j in range(i + 1, GRAPH_PAIRS)]
+          for i in range(npairs) for j in range(i + 1, npairs)]
     stats = {}
     for label, ds in (("eager_vs_eager", ee), ("graphed_vs_eager", ge),
                       ("graphed_vs_graphed", gg)):
@@ -1271,9 +1342,13 @@ def graph_phase(tag, cell, eng, st_kw, card):
     return per_kernel, launched
 
 
-def card_vs_cpu(tag, eng, system, md, cfg, nsteps, x0=None):
+def card_vs_cpu(tag, eng, system, md, cfg, nsteps, x0=None, cell=None,
+                scalar=False):
     """``nsteps`` steps on the card (float32) against the CPU (float64)
-    from the same positions, each held to phase 5's bounds."""
+    from the same positions, each held to phase 5's bounds (and the fix
+    scalar as ``agree`` takes ``scalar``).  With ``cell``, the CPU run's set-up and its
+    state after F64_STEPS steps are kept in CPU64 for phase 26.  Returns
+    the final (card, CPU) states."""
     from lammps_user_conp2_tpu_torch.models.conp import setup_conp
     from lammps_user_conp2_tpu_torch.models.md import build_engine
     t0 = time.perf_counter()
@@ -1283,13 +1358,16 @@ def card_vs_cpu(tag, eng, system, md, cfg, nsteps, x0=None):
                          device="cpu")
     s32 = eng.init_state(x0=x0)
     s64 = eng64.init_state(x0=x0)
-    agree(f"{tag}: step 0", s32, s64, conp64.ne)
+    agree(f"{tag}: step 0", s32, s64, conp64.ne, scalar)
     for i in range(nsteps):
         s32 = eng.step(s32)
         s64 = eng64.step(s64)
-        agree(f"{tag}: step {i + 1}", s32, s64, conp64.ne)
+        agree(f"{tag}: step {i + 1}", s32, s64, conp64.ne, scalar)
+        if cell is not None and i + 1 == F64_STEPS:
+            CPU64[cell] = (system, md, cfg, x0, s64)
     print(f"{tag}: {nsteps} steps matched the float64 CPU run "
           f"({time.perf_counter() - t0:.1f} s)")
+    return s32, s64
 
 
 def report(tag, results, names, card, tol=KERNEL_TOL):
@@ -1570,7 +1648,8 @@ def fullmesh_path(card, dev, results):
     torch.cuda.synchronize()
     rel, dabs = compare("spread_tiles", (got,), (plain(),))
     results["spread_tiles"] = dict(rel=rel, abs=dabs, ms=median_ms(kern),
-                                   plain_ms=median_ms(plain, reps=5))
+                                   plain_ms=median_ms(plain, reps=5),
+                                   device_ms=device_ms(kern, K2B_PARTS))
     # K2b reads every slot's charge and the other rows of the charged slots
     # only: almost every slot of the grid's all-atom tile_cap is empty here
     charged = slots.rows[:, 6] != 0
@@ -1679,6 +1758,257 @@ def gather_probe_path(card, dev, results):
         for h in hbm)
         + f"  [{card}]")
     return {"window_gather": launches}
+
+
+def f64_path(card, dev):
+    """Phase 26: the float64 engine on the card.  The mid-size, il and 100k
+    cells, set up and built in float64 on the card, run F64_STEPS steps of
+    ``Engine.run`` (replayed as CUDA graphs: the kernel wrappers take their
+    plain versions on the card) against the CPU float64 runs of phases 5,
+    9 and 13: max|dq| over max|q| and |dpe| / |pe| within F64_CARD_REL,
+    the gap printed per cell; no hand kernel launches."""
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    gaps = {}
+    for cell in ("mid", "il", "100k"):
+        system, md, cfg, x0, ref = CPU64[cell]
+        t0 = time.perf_counter()
+        conp = setup_conp(system, md, cfg, solve_dtype=torch.float64,
+                          device=dev)
+        eng = build_engine(system, md, conp, dtype=torch.float64, device=dev)
+        for c in build.COUNTERS:
+            c.reset()
+        st, _ = eng.run(eng.init_state(x0=x0), F64_STEPS, thermo_every=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        moved = {c.name: c.count for c in build.COUNTERS if c.count}
+        if moved:
+            raise AssertionError(f"phase 26: {cell}: hand kernels launched "
+                                 f"in float64: {moved}")
+        if len(eng._step_graphs) != 1:
+            raise AssertionError(f"phase 26: {cell}: Engine.run did not "
+                                 "replay one set of graphs")
+        dq = float((st.q.cpu() - ref.q).abs().max()) / float(
+            ref.q.abs().max())
+        dpe = abs(float(st.energy) - float(ref.energy)) / abs(
+            float(ref.energy))
+        dx = float((st.x.cpu() - ref.x).abs().max())
+        gaps[cell] = dict(dq_rel=dq, dpe_rel=dpe, dx=dx)
+        path = ("per-atom Verlet list" if eng.ncfg is not None
+                else "dense pair sweep")
+        print(f"phase 26: {cell}, {system.natoms} atoms, float64 on the card "
+              f"({path}, {'PPPM' if eng.pppm_grid is not None else 'Ewald'}),"
+              f" {F64_STEPS} graphed steps against the CPU float64 run: "
+              f"max|dq|/max|q| {dq:.3e}, |dpe|/|pe| {dpe:.3e}, max|dx| "
+              f"{dx:.3e} A (bound {F64_CARD_REL:.0e}); set-up, capture and "
+              f"run {secs:.1f} s; no hand kernel launched  [{card}]")
+        if not (dq <= F64_CARD_REL and dpe <= F64_CARD_REL):
+            raise AssertionError(f"phase 26: {cell}: float64 card vs CPU gap "
+                                 f"above {F64_CARD_REL}")
+        del eng, conp, st
+        torch.cuda.empty_cache()
+    print("phase 26: float64 gaps " + json.dumps(gaps))
+
+
+DECK_COUNTERS = ("pair_forces_conp", "b_realspace", "shake_positions",
+                 "rattle_velocities")
+
+
+def _deck_engine(tag, deck, n, path, dev, **cfg_kw):
+    """(system, md, cfg, conp, eng) of ``workloads.<deck>(n)`` on the il
+    file, float64 set-up, float32 engine on the card; the ConpConfig
+    fields in ``cfg_kw`` replaced."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    t0 = time.perf_counter()
+    system, md, cfg = getattr(workloads, deck)(n, data_path=path)
+    cfg = dataclasses.replace(cfg, **cfg_kw)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    grid = eng.pppm_grid
+    print(f"{tag}: {deck} trial {n}: {system.natoms} atoms, Ne={conp.ne}, "
+          f"{cfg.mode.name}, {cfg.ff.name}, {cfg.pairmode.name}, "
+          f"{cfg.kspace.name}" + (f" mesh {grid.shape}" if grid else "")
+          + f", periodic {system.periodic}, efield {md.efield}, feedback "
+          f"{md.efield_feedback}, zmirror {md.zmirror is not None}, "
+          f"callable target {callable(cfg.target)}, set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (eng.ncfg is None and eng.cons is not None
+            and system.periodic[2] == (cfg.ff.name != "NORMAL")):
+        raise AssertionError(f"{tag}: not the dense path with SHAKE, z "
+                             "periodic exactly outside the slab mode")
+    return system, md, cfg, conp, eng
+
+
+def _deck_main(tag, cell, deck, n, path, dev, card):
+    """The deck cell's main path (11 warm-up and 100 timed steps, K4, K5,
+    K7 and K8 every step), its graph phase (graphed vs eager and graphed vs
+    graphed bit for bit, the replay profile) and 3 steps card float32 vs
+    CPU float64 with the fix scalar; returns (system, md, cfg, conp, eng,
+    launches, final card state of the agreement run)."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+    system, md, cfg, conp, eng = _deck_engine(tag, deck, n, path, dev)
+    counters = dict(zip(DECK_COUNTERS, (k4.launches, k5.launches,
+                                        k78.shake_launches,
+                                        k78.rattle_launches)))
+    _, th, _, launches = main_run(tag, eng, {}, 11, 100, counters, conp.ne,
+                                  card)
+    print(f"{tag}: fix scalar f_e {float(th['f_e'][-1]):.6g}, qright "
+          f"{float(th['qright'][-1]):.6g}")
+    graph_phase(tag + "b", cell, eng, {}, card, pairs=DECK_GRAPH_PAIRS)
+    s32, _ = card_vs_cpu(tag, eng, system, md, cfg, 3, scalar=True)
+    return system, md, cfg, conp, eng, launches, s32
+
+
+# phase 28's EHGO variant: the anions' Gaussian width (1/A)
+EHGO_ANION_ETA = 1.6
+# (eager, graphed) pairs of the deck cells' graph phases (27-29)
+DECK_GRAPH_PAIRS = 2
+
+
+def cond_path(card, dev, results, path):
+    """Phase 27: the cond deck on the 3,776-atom file.  Trial 4 (COND,
+    FFIELD, PPPM, the feedback field): the main path, its graph phase and 3
+    steps card vs CPU with the fix scalar held to SCALAR_REL; trials 1 and
+    3 (CONQ, slab and FFIELD with the feedback field): 3 steps card vs CPU
+    with the fix scalar, and the right electrode holds its target charge
+    to 1e-4 e.  Returns K4, K5,
+    K7 and K8's launches on trial 4's main path."""
+    *_, launches, _ = _deck_main("phase 27", "cond4", "cond", 4, path, dev,
+                                 card)
+    for n in (1, 3):
+        tag = f"phase 27: trial {n}"
+        system, md, cfg, conp, eng = _deck_engine(tag, "cond", n, path, dev)
+        s32, _ = card_vs_cpu(tag, eng, system, md, cfg, 3, scalar=True)
+        qr = float(eng.thermo(s32)["qright"])
+        print(f"{tag}: right electrode {qr:.8f} e, target {cfg.target} "
+              f"(off by {abs(qr - cfg.target):.3e} e)")
+        if not abs(qr - cfg.target) <= 1e-4:
+            raise AssertionError(f"{tag}: right electrode off its target")
+        del eng, conp
+    return launches
+
+
+def ehgo_path(card, dev, results, path):
+    """Phase 28: il_onelayer trial 4 (EHGO with kappa 0, a callable target,
+    FFIELD, PPPM) as phase 27's trial 4; then EHGO with kappa 0.5 and an
+    explicit u0, the anions given a width of EHGO_ANION_ETA (fo != 0 on the
+    electrode-anion pairs): K4 fused, K5 and K6 against their plain versions
+    at this path's shapes (2e-5, tools/kernel_oracle.py), at x0 and with
+    anions 2 A off the sheets, with their device ms.  Returns K4, K5, K7
+    and K8's launches on trial 4's main path."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
+    system, md, cfg, _, _, launches, _ = _deck_main(
+        "phase 28", "il4_ehgo", "il_onelayer", 4, path, dev, card)
+    tag = "phase 28: kappa 0.5"
+    u0 = 1.2 * math.sqrt(2 / math.pi) * cfg.eta / system.units().evscale
+    # the anions (type 4) take a width too: with the electrode type alone
+    # fo != 0 only between electrodes, in A, and no kernel sees it
+    ehgo = dataclasses.replace(cfg.ehgo, kappa=0.5, eta_by_type=(
+        (5, cfg.eta, u0), (4, EHGO_ANION_ETA, None)))
+    system, md, cfg, conp, eng = _deck_engine(tag, "il_onelayer", 4, path,
+                                              dev, ehgo=ehgo)
+    fo_max = float(eng.fo_tab.abs().max())
+    print(f"{tag}: max|fo| {fo_max:.6g}, r_corr {eng.r_corr} A")
+    if not fo_max > 0.0:
+        raise AssertionError(f"{tag}: no overlap term")
+    rng = np.random.default_rng(28)
+    q_np = system.q0.copy()
+    q_np[system.ele_mask] = 0.05 * rng.standard_normal(conp.ne)
+    q = torch.as_tensor(q_np, dtype=torch.float32, device=dev)
+    pkw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+               g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    out = {}
+    for label, xs in (("x0", system.x0), ("anions 2 A off the sheets",
+                      workloads.near_sheet_positions(system, gap=2.0))):
+        x = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+        zsort = z_perm(x, system.box, system.periodic)
+        kern = lambda: k4.pair_forces(x, q, eng.type_idx, eng.tables,
+                                      eng.exclusions, zsort=zsort,
+                                      conp_fuse=fuse, **pkw)
+        got = kern()
+        torch.cuda.synchronize()
+        rel, dabs = compare(f"pair_forces_conp fo != 0, {label}", got,
+                            k4.pair_forces_plain(
+                                x, q, eng.type_idx, eng.tables,
+                                eng.exclusions, conp_fuse=fuse, **pkw))
+        if not abs(float(got[3])) > 0.0:
+            raise AssertionError(f"{tag}: K4's ecorr is 0 at {label}")
+        q_el = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+        bargs = (x, q_el, conp.ele_idx_t, conp.elyte_f, conp.eta_rows,
+                 conp.fo_rows, conp.type_t)
+        bkw = dict(box=system.box, periodic=system.periodic,
+                   cut_coulsq=conp.cut_coulsq, g_ewald=conp.ksp.g_ewald)
+        kb = lambda: k5.b_realspace(*bargs, zsort=zsort, **bkw)
+        rb = compare(f"b_realspace fo != 0, {label}", (kb(),),
+                     (k5.b_realspace_plain(*bargs, **bkw),))
+        cargs = (x, q, eng.type_idx, conp.ele_idx_t, eng.ele_flag,
+                 eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+        ckw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+                   qqr2e=system.units().qqr2e)
+        kc = lambda: k5.conp_correction(*cargs, zsort=zsort, r_corr=eng.r_corr,
+                                        gtab=eng.corr_gtab, **ckw)
+        rc = compare(f"conp_correction fo != 0, {label}", kc(),
+                     k5.conp_correction_plain(*cargs, **ckw))
+        out[label] = dict(
+            k4=(rel, dabs, device_ms(kern, K4_PARTS)),
+            k5=(*rb, device_ms(kb, K5_PARTS)),
+            k6=(*rc, device_ms(kc, K6_PARTS)))
+        print(f"{tag}, {label}: device ms per call K4 fused "
+              f"{out[label]['k4'][2]:.4f}, K5 {out[label]['k5'][2]:.4f}, K6 "
+              f"{out[label]['k6'][2]:.4f}; ecorr {float(got[3]):.6g}  [{card}]")
+    # the kernels line: the worst error and the device ms per position set
+    for name, key in (("pair_forces_conp", "k4"), ("b_realspace", "k5"),
+                      ("conp_correction", "k6")):
+        results[name]["max_rel_err_ehgo_fo"] = max(
+            o[key][0] for o in out.values())
+        results[name]["device_ms_ehgo_fo"] = {
+            label: o[key][2] for label, o in out.items()}
+    return launches
+
+
+def zmirror_path(card, dev, results, path):
+    """Phase 29: zmirror trial 3 on the doubled 3,776-atom file (7,552
+    atoms, NOSLAB, zneutr, CONQ, zmirror, PPPM): the main path and its
+    graph phase (graphed vs eager bit for bit, the replay profile); 100
+    eager steps with the upper half equal to the lower half's mirror after
+    every step, bit for bit, and each half's electrodes neutral to 1e-4 e;
+    3 steps card vs CPU with the fix scalar.  Returns K4, K5, K7 and K8's
+    launches on the main path."""
+    system, md, cfg, conp, eng, launches, _ = _deck_main(
+        "phase 29", "zmirror3", "zmirror", 3, path, dev, card)
+    zm = eng.zmirror
+    pos = torch.as_tensor(system.x0[:, 2] > 0.0, device=dev)
+    ele = torch.as_tensor(system.ele_mask, device=dev)
+    st = eng.init_state()
+    worst = 0.0
+    for i in range(100):
+        st = eng.step(st)
+        src = st.x[zm.src_idx]
+        dst = st.x[zm.dst_idx]
+        if not (torch.equal(dst[:, :2], src[:, :2])
+                and torch.equal(dst[:, 2], zm.zoffset - src[:, 2])):
+            raise AssertionError(f"phase 29: step {i + 1}: the mirrored half "
+                                 "differs from the mirror of its source")
+        halves = [float(st.q[ele & m].double().sum()) for m in (pos, ~pos)]
+        worst = max(worst, *map(abs, halves))
+    print(f"phase 29: 100 eager steps, the upper half the lower half's "
+          f"mirror bit for bit after every step; max |sum q_ele| per half "
+          f"{worst:.3e} e")
+    if not worst <= 1e-4:
+        raise AssertionError("phase 29: a half's electrodes are not neutral")
+    return launches
 
 
 if __name__ == "__main__":

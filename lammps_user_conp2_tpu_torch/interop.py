@@ -41,33 +41,36 @@ def system_from_numpy(fields: dict) -> System:
 def context_from_numpy(fields: dict, *, device=None,
                        dtype=DEFAULT_DTYPE) -> ConpContext:
     """ConpContext of the INV solve from the JAX context's fields (ainv, d,
-    elesetq, totsetq, eleinitq, elecheck_ele, ele_idx; others ignored), on
-    ``device`` (None: the card)."""
+    elesetq, totsetq, eleinitq, elecheck_ele, ele_idx, setzvec, vmult;
+    others ignored), on ``device`` (None: the card)."""
     device = resolve_device(device)
     f = lambda k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
                                device=device)
     return ConpContext(
-        ainv=f("ainv"), d=f("d"), elesetq=f("elesetq"),
+        ainv=torch.tensor(np.asarray(fields["ainv"]), dtype=torch.float64,
+                          device=device), d=f("d"), elesetq=f("elesetq"),
         totsetq=f("totsetq"), eleinitq=f("eleinitq"),
         elecheck_ele=torch.tensor(np.asarray(fields["elecheck_ele"]),
                                   device=device),
         ele_idx=torch.tensor(np.asarray(fields["ele_idx"]),
-                             dtype=torch.int64, device=device))
+                             dtype=torch.int64, device=device),
+        setzvec=f("setzvec"), vmult=f("vmult"))
 
 
 def state_from_numpy(fields: dict, *, device=None, dtype=DEFAULT_DTYPE,
                      engine=None) -> MDState:
     """MDState from the JAX state's fields (x, v, q, f, step, nhc_xi,
     nhc_vxi, scalar_out, energy; others ignored), on ``device`` (None: the
-    card).  With ``engine``, its derived state (Verlet list, mesh tile
-    assignment) is built at x."""
+    card); the step also as the device counter.  With ``engine``, its
+    derived state (Verlet list, mesh tile assignment) is built at x."""
     device = resolve_device(device)
     f = lambda k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
                                device=device)
-    st = MDState(x=f("x"), v=f("v"), q=f("q"), f=f("f"),
-                 step=int(np.asarray(fields["step"])), nhc_xi=f("nhc_xi"),
-                 nhc_vxi=f("nhc_vxi"), scalar_out=f("scalar_out"),
-                 energy=f("energy"))
+    step = int(np.asarray(fields["step"]))
+    st = MDState(x=f("x"), v=f("v"), q=f("q"), f=f("f"), step=step,
+                 nhc_xi=f("nhc_xi"), nhc_vxi=f("nhc_vxi"),
+                 scalar_out=f("scalar_out"), energy=f("energy"),
+                 step_t=torch.tensor(step, dtype=torch.int64, device=device))
     if engine is not None:
         st.nbr, st.tasg = engine.derived_state(st.x)
     return st

@@ -21,9 +21,14 @@ Two paths, chosen by ``build_engine`` as the JAX engine chooses them:
   the ad gather (K3); the electrode transforms on their z planes.
 
 Both paths run SHAKE (K7) and RATTLE (K8) when the configuration
-constrains bonds and angles (the ionic-liquid decks).  ``build_engine``
-runs on the card unless the caller passes ``device="cpu"``; on the CPU
-every kernel wrapper takes its plain version.
+constrains bonds and angles (the ionic-liquid decks), then zmirror when
+the deck asks for it; the forces take the external or the feedback
+electric field (FFIELD decks) after the CONP post-force terms.
+``build_engine`` runs on the card unless the caller passes
+``device="cpu"``; every kernel wrapper launches its CUDA kernel in float32
+on the card and takes its plain version on the CPU and in float64 on the
+card (``ops/kernels/build.kernel_route``), and ``build_engine`` makes the
+same choices in float64 on either device.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..ops import ewald as ewald_ops
 from ..ops import ewald_factored as ewf
 from ..ops import pppm as pppm_ops
 from ..ops.bonded import bonded_forces, term_table
+from ..ops.kernels import build
 from ..ops.kernels.ele_rows_kernel import conp_correction, correction_range
 from ..ops.kernels.pair_kernel import pair_forces
 from ..ops.kernels.shake_kernel import rattle_velocities, shake_positions
@@ -49,7 +55,7 @@ from ..ops.neighbors import (block_pair_forces, build_neighbor_list,
                              nlist_pair_forces)
 from ..ops.pairs import (PairTables, dense_pair_forces, exclusions_tensors,
                          make_pair_tables)
-from ..utils.config import KSpaceStyle, MDConfig
+from ..utils.config import KSpaceStyle, MDConfig, PairMode
 from ..utils.device import DEFAULT_DTYPE, resolve_device
 from . import graphs
 from .conp import ConpSolver
@@ -57,6 +63,7 @@ from .electrodes import MY_PIS
 from .integrate import Integrator, group_temperature, make_nhc_params
 from .shake import ShakeConstraints, build_constraints
 from .system import MDState, System, exclusion_lists
+from .zmirror import ZMirror, build_zmirror
 
 # the JAX engine switches to a Verlet neighbor list above this atom count
 # when the box is at least 4 cutoffs wide (models/md.py build_engine)
@@ -72,13 +79,15 @@ class Engine(nn.Module):
                  cons: Optional[ShakeConstraints],
                  ksp_force: ewald_ops.EwaldKSpace,
                  fksp: Optional[ewf.FactoredKSpace], pppm_grid, ncfg,
-                 mesh_persist: bool, dtype, device):
+                 mesh_persist: bool, dtype, device,
+                 zmirror: Optional[ZMirror] = None):
         super().__init__()
         self.system = system
         self.md = md
         self.conp = conp
         self.integrator = integrator
         self.cons = cons                 # SHAKE/RATTLE cluster tables, or None
+        self.zmirror = zmirror           # the zmirror pairing, or None
         self.ksp_force = ksp_force
         self.fksp = fksp                 # factored Ewald, or None under PPPM
         self.pppm_grid = pppm_grid       # PPPMGrid, or None under EWALD
@@ -125,6 +134,10 @@ class Engine(nn.Module):
             self.register_buffer("corr_gtab", torch.stack(
                 [self.eta_tab, self.fo_tab]).contiguous())
             self.register_buffer("self_diag", f(kern.self_diag))
+            # the self energy qqr2e fac sum(self_diag q^2): ETA's
+            # eta sum q^2 / (sqrt2 sqrt(pi)) is fac = 1/2, EHGO's
+            # sum u0_i q^2 fac = 1
+            self.self_fac = 0.5 if conp.cfg.pairmode is PairMode.ETA else 1.0
             # the range of the CONP correction's terms (K6 searches it)
             self.r_corr = correction_range(
                 kern.eta_ij, kern.fo_ij, np.unique(system.type[conp.ele_idx]),
@@ -143,6 +156,8 @@ class Engine(nn.Module):
             system.ele_left_mask, device=device))
         self.register_buffer("right_mask", torch.as_tensor(
             system.ele_right_mask, device=device))
+        if md.efield is not None:
+            self.register_buffer("efield", f(md.efield))
 
     @property
     def tables(self) -> PairTables:
@@ -165,7 +180,7 @@ class Engine(nn.Module):
         if self.ncfg is not None and nbr is not None:
             if self.ncfg.block:
                 # the correction rides the block sweep only where K1 runs
-                kfuse = fuse if x.is_cuda else None
+                kfuse = fuse if build.kernel_route("block_pair", x) else None
                 out = block_pair_forces(
                     self.ncfg, nbr, x, q, self.type_idx, self.tables,
                     self.exclusions, g_ewald=g, qqr2e=u.qqr2e,
@@ -189,7 +204,8 @@ class Engine(nn.Module):
             x, q, self.type_idx, self.tables, self.exclusions,
             box=self.ksp_force.box, periodic=self.system.periodic,
             cutoff=self.md.cutoff, g_ewald=g, qqr2e=u.qqr2e,
-            zsort=self._zsort(kcache), conp_fuse=fuse)
+            zsort=self._zsort(kcache), conp_fuse=fuse,
+            ele_idx=None if fuse is None else self.conp.ele_idx_t)
         return out[0], out[1], out[2], (out[3] if fuse is not None else None)
 
     def _zsort(self, kcache):
@@ -249,12 +265,14 @@ class Engine(nn.Module):
             e3 = pppm_ops.gather3(grid, efield, x, slots=slots)
         return ek, q[:, None] * e3
 
-    def compute_forces(self, x, q, kcache=None, nbr=None, tasg=None):
+    def compute_forces(self, x, q, kcache=None, nbr=None, tasg=None,
+                       scalar=None):
         """Returns (f, pe) for the current configuration.  ``kcache`` is the
         charge solve's k-space cache at the same positions (see
         ``ConpSolver.elyte_kcache``) or None; ``nbr`` the Verlet list and
         ``tasg`` the persistent mesh-tile assignment, when the engine keeps
-        them."""
+        them; ``scalar`` the fix scalar of this step's solve, which the
+        feedback field reads."""
         sys = self.system
         u = self.units
         box = self.ksp_force.box
@@ -292,15 +310,14 @@ class Engine(nn.Module):
         if self.conp is not None:
             # CONP post-force: the correction forces (folded into f by a
             # fused sweep, else from the electrode rows of the list or the
-            # electrode-row sweep K6), the correction energy and the ETA
-            # self energy
-            # qqr2e*eta*sum q^2/(sqrt2*sqrt(pi)) == qqr2e/2 * sum(self_diag q^2)
+            # electrode-row sweep K6), the correction energy and the
+            # Gaussian self energy qqr2e * self_fac * sum(self_diag q^2)
             ecorr = fused_ecorr
             if ecorr is None and self.ncfg is not None and nbr is not None:
+                pot, frc = self.conp.step_kernels
                 fc, ecorr = conp_correction_from_list(
                     self.ncfg, nbr, x, q, self.conp.ele_idx_t,
-                    self.conp.elyte_t, self.type_idx,
-                    self.conp.kernels.force, self.conp.kernels.potential,
+                    self.conp.elyte_t, self.type_idx, frc, pot,
                     cutoff=self.md.cutoff, qqr2e=u.qqr2e)
                 f = f + fc
             elif ecorr is None:
@@ -317,7 +334,18 @@ class Engine(nn.Module):
             qsq_ele = torch.sum(torch.where(
                 self.elecheck != 0, self.self_diag * q * q,
                 torch.zeros_like(q)))
-            pe = pe + u.qqr2e * 0.5 * qsq_ele + ecorr
+            pe = pe + u.qqr2e * self.self_fac * qsq_ele + ecorr
+
+        # the external and the feedback uniform fields (V/Angstrom):
+        # F = qe2f q E
+        if self.md.efield is not None:
+            f = f + u.qe2f * q[:, None] * self.efield[None, :]
+        if self.md.efield_feedback:
+            if scalar is None:
+                raise ValueError("the feedback field needs the fix scalar")
+            ez = -scalar / self.system.box[2]
+            f = torch.stack([f[:, 0], f[:, 1], f[:, 2] + u.qe2f * q * ez],
+                            dim=1)
         return f, pe
 
     # --------------------------------------------------------------- step
@@ -334,7 +362,8 @@ class Engine(nn.Module):
 
     def _pre(self, state: MDState):
         """The step up to the charge solve: thermostat half, kick, drift,
-        SHAKE and the Verlet skin check.  Returns (x, v, xi, vxi, flag):
+        SHAKE, zmirror and the Verlet skin check.  Returns (x, v, xi, vxi,
+        flag):
         ``flag`` is the () bool device tensor of the skin check (LAMMPS
         Neighbor::check_distance), None without a list."""
         itg = self.integrator
@@ -346,6 +375,8 @@ class Engine(nn.Module):
                                     box=self.ksp_force.box,
                                     periodic=self.system.periodic)
             v = v + dv
+        if self.zmirror is not None:
+            x = self.zmirror.apply(x, state.step_t + 1)
         flag = None
         if self.ncfg is not None:
             flag = needs_rebuild(self.ncfg, state.nbr, x)
@@ -363,11 +394,12 @@ class Engine(nn.Module):
         """The step from the charge solve on: solve, forces, kick, RATTLE,
         thermostat half."""
         itg = self.integrator
+        step_t = state.step_t + 1
         q, scalar, kcache = state.q, state.scalar_out, None
         if self.conp is not None:
             q, scalar, kcache = self.conp.solve_full(x, q, nbr, self.ncfg,
-                                                     tasg)
-        f, pe = self.compute_forces(x, q, kcache, nbr, tasg)
+                                                     tasg, step=step_t)
+        f, pe = self.compute_forces(x, q, kcache, nbr, tasg, scalar)
         v = itg.kick(v, f)
         if self.cons is not None:
             v = rattle_velocities(self.cons, x, v, box=self.ksp_force.box,
@@ -375,7 +407,7 @@ class Engine(nn.Module):
         v, xi, vxi = itg.thermostat_half(v, xi, vxi)
         return MDState(x=x, v=v, q=q, f=f, step=state.step + 1, nhc_xi=xi,
                        nhc_vxi=vxi, scalar_out=scalar, energy=pe, nbr=nbr,
-                       tasg=tasg)
+                       tasg=tasg, step_t=step_t)
 
     def step(self, state: MDState) -> MDState:
         """One eager step: ``_pre``, the host test of its skin flag (one
@@ -410,7 +442,8 @@ class Engine(nn.Module):
         st = MDState(x=x, v=v, q=q, f=torch.zeros_like(x), step=0,
                      nhc_xi=zeros, nhc_vxi=zeros.clone(),
                      scalar_out=torch.zeros((), dtype=self.dtype, device=dev),
-                     energy=torch.zeros((), dtype=self.dtype, device=dev))
+                     energy=torch.zeros((), dtype=self.dtype, device=dev),
+                     step_t=torch.zeros((), dtype=torch.int64, device=dev))
         return self._heal_state(st)
 
     def _heal_state(self, state: MDState) -> MDState:
@@ -420,9 +453,9 @@ class Engine(nn.Module):
         nbr, tasg = self.derived_state(state.x)
         q, scalar, kcache = state.q, state.scalar_out, None
         if self.conp is not None:
-            q, scalar, kcache = self.conp.solve_full(state.x, state.q, nbr,
-                                                     self.ncfg, tasg)
-        f, pe = self.compute_forces(state.x, q, kcache, nbr, tasg)
+            q, scalar, kcache = self.conp.solve_full(
+                state.x, state.q, nbr, self.ncfg, tasg, step=state.step_t)
+        f, pe = self.compute_forces(state.x, q, kcache, nbr, tasg, scalar)
         return dataclasses.replace(state, q=q, f=f, scalar_out=scalar,
                                    energy=pe, nbr=nbr, tasg=tasg)
 
@@ -430,7 +463,9 @@ class Engine(nn.Module):
     def thermo(self, state: MDState) -> dict:
         """One row of thermo scalars as in the reference decks'
         ``thermo_style custom step temp c_tempsl c_qleft c_qright c_dipole
-        f_e`` (tests/cond/input:74), plus the potential energy."""
+        f_e`` (tests/cond/input:74), plus the potential energy; ``f_e`` is
+        the fix scalar: the CONP induced charge, the CONQ or the COND
+        potential difference."""
         u = self.units
         itg = self.integrator
         nall = self.system.natoms
@@ -533,10 +568,6 @@ def _check_supported(system: System, md: MDConfig) -> None:
     """Raise NotImplementedError, naming the feature, for every setting the
     port does not cover yet."""
     missing = []
-    if md.zmirror is not None:
-        missing.append("zmirror")
-    if md.efield is not None or md.efield_feedback:
-        missing.append("external / feedback efield")
     if md.pair_path not in ("auto", "dense", "nlist", "block"):
         missing.append(f"pair_path={md.pair_path!r}")
     if missing:
@@ -561,11 +592,13 @@ def build_engine(system: System, md: MDConfig,
             raise NotImplementedError(
                 "not ported yet: mixed precision (solve dtype "
                 f"{conp.solve_dtype} != engine dtype {dtype})")
-        if (conp.pppm_grid is not None) != (md.kspace_style
-                                            is KSpaceStyle.PPPM):
+        # the forces take the charge solve's k-space, as in the JAX
+        # package: a PPPM solve gives PPPM forces (the decks' PPPM trials
+        # set the fix's kspace only); an Ewald solve under PPPM forces is
+        # refused (the JAX engine cannot run it either)
+        if conp.pppm_grid is None and md.kspace_style is KSpaceStyle.PPPM:
             raise NotImplementedError(
-                "not ported yet: a charge solve and forces in different "
-                "k-space styles")
+                "not ported yet: an Ewald charge solve with PPPM forces")
         ksp = conp.ksp
         fksp = conp.fksp
         pppm_grid = conp.pppm_grid
@@ -647,6 +680,12 @@ def build_engine(system: System, md: MDConfig,
         mass=torch.as_tensor(system.mass, dtype=dtype, device=device),
         mobile_mask=torch.as_tensor(mobile, device=device),
         thermostats=thermos)
+    zmirror = None
+    if md.zmirror is not None:
+        zm = md.zmirror
+        zmirror = build_zmirror(system, zm.group1, zm.group2, zm.every,
+                                device=device)
     return Engine(system=system, md=md, conp=conp, integrator=integrator,
                   cons=cons, ksp_force=ksp, fksp=fksp, pppm_grid=pppm_grid, ncfg=ncfg,
-                  mesh_persist=mesh_persist, dtype=dtype, device=device)
+                  mesh_persist=mesh_persist, dtype=dtype, device=device,
+                  zmirror=zmirror)

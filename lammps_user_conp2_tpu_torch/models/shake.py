@@ -62,6 +62,14 @@ class ShakeConstraints(nn.Module):
         self.register_buffer("rec", i32(rec))
         self.register_buffer("free_rows", i32(free_rows(atoms, amask,
                                                         natoms)))
+        # the plain versions' write-back: the flat (M*K) entries of the
+        # valid columns and their atom rows, int64
+        flat = np.flatnonzero(np.asarray(amask))
+        self.register_buffer("valid_flat", torch.as_tensor(
+            flat, dtype=torch.int64, device=device))
+        self.register_buffer("valid_rows", torch.as_tensor(
+            np.asarray(atoms).reshape(-1)[flat], dtype=torch.int64,
+            device=device))
         self.natoms = natoms
         self.pair_atoms = np.asarray(pair_atoms, np.int64)
         self.ncons = len(self.pair_atoms)

@@ -32,6 +32,10 @@ class MDState:
     energy: torch.Tensor     # () potential energy of the current configuration
     nbr: Optional[object] = None   # ops.neighbors.NeighborList (Verlet path)
     tasg: Optional[object] = None  # ops.pppm.TileAssign (persistent mesh tiles)
+    # the step as a () int64 tensor on the state's device, advanced with
+    # ``step`` by every step, eager or replayed: what callable targets and
+    # zmirror's period read inside the step's CUDA graphs
+    step_t: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass

@@ -14,8 +14,8 @@ Returns (f_slots (NB*B, 3) in slot order, sum_elj, sum_ecoul
 [, sum_ecorr]) as raw sums over ordered pairs; the caller maps slots back
 to atoms and applies the full-list 0.5.
 
-``block_pair`` launches the kernels for CUDA float32 tensors, takes the
-plain version for CPU tensors and raises on CUDA float64.  The plain
+``block_pair`` launches the kernels for CUDA float32 tensors and takes the
+plain version for CPU and CUDA float64 tensors (``build.kernel_route``).  The plain
 version is the JAX package's XLA twin (``ops/neighbors.py _block_sweep``);
 its LJ and Gaussian coefficients come from the (T+1, T+1) tables by type.
 
@@ -81,8 +81,8 @@ def pack_rows_plain(x, q, type_idx, conp_flags=None):
 def pack_rows(x, q, type_idx, conp_flags=None):
     """The packed rows: the kernel ``block_pack_kernel`` alone for CUDA
     float32 tensors (as views of its (N, 8) float32 buffer), the plain
-    version for CPU tensors."""
-    if x.device.type == "cpu":
+    version for CPU and CUDA float64 tensors."""
+    if not build.kernel_route("pack_rows", x):
         return pack_rows_plain(x, q, type_idx, conp_flags)
     n = x.shape[0]
     build.check_cuda("pack_rows", torch.float32, x, q)
@@ -303,14 +303,14 @@ def block_pair(x, q, type_idx, un, rows, tables: PairTables, *, box,
                periodic, cutoff, g_ewald, qqr2e, conp_fuse=None,
                exclusions=None):
     """The block sweep: K1 for CUDA float32 tensors, the plain version for
-    CPU tensors.  ``conp_fuse``: optional (ele_f, ely_f, eta_tab, fo_tab),
+    CPU and CUDA float64 tensors.  ``conp_fuse``: optional (ele_f, ely_f, eta_tab, fo_tab),
     per-atom 0/1 float flags (N,) and (T+1, T+1) tables; a fourth value
     ``sum_ecorr`` is then returned and the forces include the correction.
     ``exclusions``: (excl_idx (N, m) int64 padded with N, excl_val (N, m))
     with m <= 16, or None."""
     kw = dict(box=box, periodic=periodic, cutoff=cutoff, g_ewald=g_ewald,
               qqr2e=qqr2e)
-    if x.device.type == "cpu":
+    if not build.kernel_route("block_pair", x):
         return block_pair_plain(x, q, type_idx, un, rows, tables,
                                 conp_fuse=conp_fuse, exclusions=exclusions,
                                 **kw)

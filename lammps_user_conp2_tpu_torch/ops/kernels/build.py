@@ -155,6 +155,26 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_route(name: str, t: torch.Tensor) -> bool:
+    """The dtype rule of every kernel wrapper, read from the tensor ``t``
+    that the wrapper dispatches on: True (launch the CUDA kernel) for a
+    CUDA float32 tensor; False (the plain PyTorch version) for a CPU
+    tensor, and for a CUDA float64 tensor, where the plain version runs on
+    the device (the kernels are float32 only, as the JAX package gates its
+    Pallas kernels off in float64); raises TypeError for a CUDA tensor of
+    any other dtype.  The choice rests on the device and dtype alone: a
+    kernel that fails to build or launch raises, it never falls back."""
+    if t.device.type == "cpu":
+        return False
+    if t.is_cuda and t.dtype == torch.float32:
+        return True
+    if t.is_cuda and t.dtype == torch.float64:
+        return False
+    raise TypeError(f"{name}: the CUDA kernel takes float32 and the plain "
+                    f"version float64 on the card; got {t.dtype} on "
+                    f"{t.device}")
+
+
 def check_cuda(name: str, dtype, *tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
     for t in tensors:

@@ -16,7 +16,8 @@ energy, over (electrode, electrolyte) pairs within the cutoff, with eta and
 fo from the (T+1, T+1) type tables (fix_conp.cpp:1368-1444).
 
 ``b_realspace`` and ``conp_correction`` launch their kernels for CUDA
-float32 tensors and take the plain versions for CPU tensors.  Neither
+float32 tensors and take the plain versions for CPU and CUDA float64
+tensors (``build.kernel_route``).  Neither
 kernel has a fixed capacity: every row searches its own z window, so
 nothing can overflow.  K5's windows hold electrolyte columns only: its
 first kernel compacts the shared z order to the electrolyte
@@ -74,11 +75,11 @@ def elyte_order_plain(perm, zs, elyte_mask_f):
 
 
 def elyte_order(perm, zs, elyte_mask_f):
-    """``elyte_order_plain`` on the CPU; on CUDA tensors K5's first kernel
-    alone (``b_realspace`` runs it inside its launch), returning int32
-    atom indices and the float32 keys, cut to their count (one host sync:
-    a test entry, not the step's)."""
-    if perm.device.type == "cpu":
+    """``elyte_order_plain`` for CPU and CUDA float64 keys; for CUDA float32
+    keys K5's first kernel alone (``b_realspace`` runs it inside its
+    launch), returning int32 atom indices and the float32 keys, cut to
+    their count (one host sync: a test entry, not the step's)."""
+    if not build.kernel_route("elyte_order", zs):
         return elyte_order_plain(perm, zs, elyte_mask_f)
     build.check_cuda("elyte_order", torch.float32, zs, elyte_mask_f)
     build.check_cuda("elyte_order", torch.int64, perm)
@@ -100,10 +101,12 @@ def b_realspace(x, q_elyte, ele_idx, elyte_mask_f, eta_rows, fo_rows,
     ``zsort``: (perm, z_sorted) from ``zorder.z_perm`` at these positions
     (computed here when None); the launch compacts it to the electrolyte
     by ``elyte_mask_f`` on the device (``elyte_order``), so the rows'
-    windows hold electrolyte columns only, in any layout of the atoms."""
+    windows hold electrolyte columns only, in any layout of the atoms.
+    K5 for CUDA float32 tensors, the plain version for CPU and CUDA
+    float64 tensors."""
     kw = dict(box=box, periodic=periodic, cut_coulsq=cut_coulsq,
               g_ewald=g_ewald)
-    if x.device.type == "cpu":
+    if not build.kernel_route("b_realspace", x):
         return b_realspace_plain(x, q_elyte, ele_idx, elyte_mask_f, eta_rows,
                                  fo_rows, type_idx, **kw)
     n = x.shape[0]
@@ -176,11 +179,11 @@ def conp_correction_plain(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab,
 
 
 def corr_orders(perm, zs, ely_f, ele_f):
-    """K6's first kernel alone on CUDA tensors: ((electrolyte atom
+    """K6's first kernel alone on CUDA float32 keys: ((electrolyte atom
     indices, keys), (electrode atom indices, keys)), each cut to its count
     (one host sync: a test entry, not the step's); ``elyte_order_plain``
-    with each flag on the CPU."""
-    if perm.device.type == "cpu":
+    with each flag for CPU and CUDA float64 keys."""
+    if not build.kernel_route("corr_orders", zs):
         return (elyte_order_plain(perm, zs, ely_f),
                 elyte_order_plain(perm, zs, ele_f))
     build.check_cuda("corr_orders", torch.float32, zs, ely_f, ele_f)
@@ -206,7 +209,8 @@ def conp_correction(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab, fo_tab, *,
                     gtab=None):
     """CONP Gaussian correction over (electrode, electrolyte) pairs within
     ``cutoff``: (f (N, 3), ecorr).  K6 for CUDA float32 tensors, the plain
-    version (which sweeps the full cutoff) for CPU tensors.
+    version (which sweeps the full cutoff) for CPU and CUDA float64
+    tensors.
 
     x (N,3); q (N,); type_idx (N,) int64; ele_idx (Ne,) int64 the electrode
     rows; ele_f / ely_f (N,) 0/1 float flags of the electrodes (the rows of
@@ -217,7 +221,7 @@ def conp_correction(x, q, type_idx, ele_idx, ele_f, ely_f, eta_tab, fo_tab, *,
     instead of the cutoff.  ``gtab``: eta_tab and fo_tab stacked
     (2, T+1, T+1), as the engine keeps them (None: stacked here)."""
     kw = dict(box=box, periodic=periodic, cutoff=cutoff, qqr2e=qqr2e)
-    if x.device.type == "cpu":
+    if not build.kernel_route("conp_correction", x):
         return conp_correction_plain(x, q, type_idx, ele_idx, ele_f, ely_f,
                                      eta_tab, fo_tab, **kw)
     n = x.shape[0]

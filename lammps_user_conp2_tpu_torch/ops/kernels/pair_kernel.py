@@ -2,7 +2,8 @@
 the CUDA kernel ``csrc/pair_kernel.cu`` and its plain PyTorch version.
 
 ``pair_forces`` launches the kernel for CUDA float32 tensors and takes
-``pair_forces_plain`` for CPU tensors.  Same inputs and return values as
+``pair_forces_plain`` for CPU and CUDA float64 tensors
+(``build.kernel_route``).  Same inputs and return values as
 the JAX package's ``pair_forces_pallas``, except that atom types index the
 (T+1, T+1) tables directly (no one-hot operands).
 
@@ -74,11 +75,11 @@ def tile_schedule_plain(zs, n, *, box, periodic, cutoff) -> TileSchedule:
 
 
 def tile_schedule(zs, n, *, box, periodic, cutoff) -> TileSchedule:
-    """``tile_schedule_plain`` on the CPU; for CUDA float32 keys the
-    kernel's own schedule (``pair_schedule``, int32), which ``pair_forces``
-    computes inside its launch."""
+    """``tile_schedule_plain`` for CPU and CUDA float64 keys; for CUDA
+    float32 keys the kernel's own schedule (``pair_schedule``, int32),
+    which ``pair_forces`` computes inside its launch."""
     kw = dict(box=box, periodic=periodic, cutoff=cutoff)
-    if zs.device.type == "cpu":
+    if not build.kernel_route("tile_schedule", zs):
         return tile_schedule_plain(zs, n, **kw)
     build.check_cuda("tile_schedule", torch.float32, zs)
     nt = -(-n // TILE)
@@ -117,10 +118,13 @@ def schedule_pairs(s: TileSchedule, n: int) -> int:
 
 
 def pair_forces_plain(x, q, type_idx, tables: PairTables, exclusions, *, box,
-                      periodic, cutoff, g_ewald, qqr2e, conp_fuse=None):
+                      periodic, cutoff, g_ewald, qqr2e, conp_fuse=None,
+                      ele_idx=None):
     """Dense row-blocked sweep: ``dense_pair_forces`` plus, with
     ``conp_fuse = (ele_flag, elyte_flag, eta_tab, fo_tab)``, the electrode-row
-    ``conp_correction_forces``.  Returns (f, evdwl, ecoul[, ecorr])."""
+    ``conp_correction_forces`` over the rows ``ele_idx`` (the atoms whose
+    ele_flag is set; found from the flag, with a host sync, when None).
+    Returns (f, evdwl, ecoul[, ecorr])."""
     kw = dict(box=box, periodic=periodic, cutoff=cutoff)
     f, ev, ec = dense_pair_forces(x, q, type_idx, tables, exclusions,
                                   g_ewald=g_ewald, qqr2e=qqr2e, **kw)
@@ -128,14 +132,16 @@ def pair_forces_plain(x, q, type_idx, tables: PairTables, exclusions, *, box,
         return f, ev, ec
     ele_f, ely_f, eta_tab, fo_tab = conp_fuse
     potential, force = gauss_table_kernels(eta_tab, fo_tab)
-    ele_idx = torch.nonzero(ele_f > 0).squeeze(1)
+    if ele_idx is None:
+        ele_idx = torch.nonzero(ele_f > 0).squeeze(1)
     fc, ecorr = conp_correction_forces(x, q, ele_idx, ely_f > 0, force,
                                        potential, type_idx, qqr2e=qqr2e, **kw)
     return f + fc, ev, ec, ecorr
 
 
 def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
-                periodic, cutoff, g_ewald, qqr2e, zsort=None, conp_fuse=None):
+                periodic, cutoff, g_ewald, qqr2e, zsort=None, conp_fuse=None,
+                ele_idx=None):
     """LJ + erfc Coulomb forces and energies over all pairs in range.
 
     ``zsort``: (perm, z_sorted) from ``zorder.z_perm`` at these positions
@@ -145,12 +151,15 @@ def pair_forces(x, q, type_idx, tables: PairTables, exclusions, *, box,
     elyte_flag, eta_tab, fo_tab) -- per-atom 0/1 float flags (N,) and the
     (T+1, T+1) Gaussian width / overlap tables; the forces then include the
     CONP Gaussian correction and a fourth value ``ecorr`` is returned.
+    ``ele_idx``: the electrode rows, which the plain version sweeps (the
+    kernel reads the flag); pass it on the card, where finding them from
+    the flag would sync the host.
     Returns (f (N,3), evdwl, ecoul[, ecorr])."""
     kw = dict(box=box, periodic=periodic, cutoff=cutoff, g_ewald=g_ewald,
               qqr2e=qqr2e)
-    if x.device.type == "cpu":
+    if not build.kernel_route("pair_forces", x):
         return pair_forces_plain(x, q, type_idx, tables, exclusions,
-                                 conp_fuse=conp_fuse, **kw)
+                                 conp_fuse=conp_fuse, ele_idx=ele_idx, **kw)
     n = x.shape[0]
     nt1 = tables.lj1.shape[0]
     if zsort is None:

@@ -7,8 +7,8 @@ z-binned potential ``up`` (nx+2bw, ny+2bw, ntz, ez) at the tile's origin
 (LAMMPS fieldforce_ad).  Returns (T*cap, 3) in slot order; the caller
 gathers the atoms' slots and applies the delinv scale.
 
-``gather3`` launches the kernel for CUDA float32 tensors, takes the plain
-version for CPU tensors and raises on CUDA float64.  The plain version is
+``gather3`` launches the kernel for CUDA float32 tensors and takes the
+plain version for CPU and CUDA float64 tensors (``build.kernel_route``).  The plain version is
 the JAX package's non-Pallas branch of ``gather3_ad_zbin`` on the im2col
 patches of ``_zbin_patches``; the kernel reads ``up`` directly.
 """
@@ -58,9 +58,9 @@ def gather3_plain(up, rows, cf, geom):
 
 def gather3(up, rows, cf, geom):
     """Per-slot ad field (T*cap, 3): K3 for CUDA float32 tensors, the plain
-    version for CPU tensors.  ``up``: (nx+2bw, ny+2bw, ntz, ez); ``rows``:
+    version for CPU and CUDA float64 tensors.  ``up``: (nx+2bw, ny+2bw, ntz, ez); ``rows``:
     the slot rows (T, 8, cap); ``cf``: (p, p) B-spline coefficients."""
-    if up.device.type == "cpu":
+    if not build.kernel_route("gather3", up):
         return gather3_plain(up, rows, cf, geom)
     bw = geom.hw + geom.dm
     ez = geom.tlz + 2 * bw

@@ -13,8 +13,8 @@ themselves, which ``ops/pppm.py spread_tiled`` overlap-adds into the real
 mesh.
 
 ``spread_mesh`` and ``spread_tiles`` launch their kernels for CUDA float32
-tensors, take the plain versions for CPU tensors and raise on CUDA
-float64.  The plain versions are the JAX package's non-Pallas branch:
+tensors and take the plain versions for CPU and CUDA float64 tensors
+(``build.kernel_route``).  The plain versions are the JAX package's non-Pallas branch:
 per-tile patches (wx (x) wy)^T (q wz) (``_tile_patches`` with its
 ``_local_weight_mats``), then, for K2a, the x/y overlap-add.
 
@@ -205,9 +205,10 @@ def spread_from_bins_plain(rows, cf, geom, bins):
 
 def spread_mesh(rows, cf, geom):
     """The z-binned charge mesh (nx, ny, ntz, ez) from the slot rows: K2a
-    for CUDA float32 tensors, the plain version for CPU tensors.  ``cf``:
-    the (p, p) B-spline coefficients (``ops/pppm.py rho_coeffs``)."""
-    if rows.device.type == "cpu":
+    for CUDA float32 tensors, the plain version for CPU and CUDA float64
+    tensors.  ``cf``: the (p, p) B-spline coefficients (``ops/pppm.py
+    rho_coeffs``)."""
+    if not build.kernel_route("spread_mesh", rows):
         return spread_mesh_plain(rows, cf, geom)
     bw = geom.hw + geom.dm
     ez = geom.tlz + 2 * bw
@@ -230,9 +231,10 @@ def spread_mesh(rows, cf, geom):
 
 def spread_tiles(rows, cf, geom):
     """Per-tile charge patches (T, ex*ey, ez) from the slot rows: K2b for
-    CUDA float32 tensors, ``tile_patches_plain`` for CPU tensors.  ``cf``:
-    the (p, p) B-spline coefficients (``ops/pppm.py rho_coeffs``)."""
-    if rows.device.type == "cpu":
+    CUDA float32 tensors, ``tile_patches_plain`` for CPU and CUDA float64
+    tensors.  ``cf``: the (p, p) B-spline coefficients (``ops/pppm.py
+    rho_coeffs``)."""
+    if not build.kernel_route("spread_tiles", rows):
         return tile_patches_plain(rows, cf, geom)
     bw = geom.hw + geom.dm
     ex, ey, ez = geom.tlx + 2 * bw, geom.tly + 2 * bw, geom.tlz + 2 * bw

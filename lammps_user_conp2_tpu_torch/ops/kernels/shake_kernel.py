@@ -19,8 +19,8 @@ the dot products summed as (a0 b0 + a1 b1) + a2 b2, the write-back of the
 valid columns only, dv = (x - x_new) / dt over all atoms.
 
 ``shake_positions`` and ``rattle_velocities`` launch their kernel for CUDA
-float32 tensors, take the plain version for CPU tensors and raise for
-anything else.  On the card each call is one launch that writes every row
+float32 tensors and take the plain version for CPU and CUDA float64
+tensors (``build.kernel_route``).  On the card each call is one launch that writes every row
 of its outputs once: the clusters' valid rows from the packed cluster
 records (``pack_records``), the free rows copied from the input through
 the free-row table (``free_rows``); both are built once, at setup, by
@@ -119,9 +119,11 @@ def _tables(cons):
             torch.gather(cons.invm, 1, cj))
 
 
-def _write_back(cons, atoms, out, clusters):
-    valid = cons.amask
-    out[atoms[valid]] = clusters[valid]
+def _write_back(cons, out, clusters):
+    """``out`` with the clusters' valid entries written to their rows,
+    through the index tables ``ShakeConstraints`` built at setup (no
+    boolean mask, so no host sync on the card)."""
+    out[cons.valid_rows] = clusters.reshape(-1, 3)[cons.valid_flat]
     return out
 
 
@@ -144,7 +146,7 @@ def shake_positions_plain(cons, x_new, x_old, dt, *, box, periodic):
             corr = lam[:, None] * r_old[s]
             xc[rows, i] = xc[rows, i] - invmi[:, s, None] * corr
             xc[rows, j] = xc[rows, j] + invmj[:, s, None] * corr
-    x = _write_back(cons, atoms, x_new.clone(), xc)
+    x = _write_back(cons, x_new.clone(), xc)
     return x, (x - x_new) / dt
 
 
@@ -169,7 +171,7 @@ def rattle_velocities_plain(cons, x, v, *, box, periodic):
             corr = mu[:, None] * r[s]
             vc[rows, i] = vc[rows, i] - invmi[:, s, None] * corr
             vc[rows, j] = vc[rows, j] + invmj[:, s, None] * corr
-    return _write_back(cons, atoms, v.clone(), vc)
+    return _write_back(cons, v.clone(), vc)
 
 
 def _check(name, cons, *arrays):
@@ -200,8 +202,9 @@ def shake_positions(cons, x_new, x_old, dt, *, box, periodic):
     """SHAKE: returns (x, dv = (x - x_new)/dt).  x_new, x_old (N, 3): the
     positions after and before the drift; ``cons`` the
     ``models.shake.ShakeConstraints`` tables on the same device.  On the
-    card: one launch writes every row of x and dv."""
-    if x_new.device.type == "cpu":
+    card: one launch writes every row of x and dv (float32; the plain
+    version for CPU and CUDA float64 tensors)."""
+    if not build.kernel_route("shake_positions", x_new):
         return shake_positions_plain(cons, x_new, x_old, dt, box=box,
                                      periodic=periodic)
     _check("shake_positions", cons, x_new, x_old)
@@ -221,8 +224,9 @@ def shake_positions(cons, x_new, x_old, dt, *, box, periodic):
 def rattle_velocities(cons, x, v, *, box, periodic):
     """RATTLE: v (N, 3) with the relative velocities along each constraint
     removed at positions x (N, 3).  On the card: one launch writes every
-    row of the result."""
-    if v.device.type == "cpu":
+    row of the result (float32; the plain version for CPU and CUDA float64
+    tensors)."""
+    if not build.kernel_route("rattle_velocities", v):
         return rattle_velocities_plain(cons, x, v, box=box, periodic=periodic)
     _check("rattle_velocities", cons, x, v)
     out = torch.empty_like(v)

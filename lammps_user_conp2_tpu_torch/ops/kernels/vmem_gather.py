@@ -9,8 +9,9 @@ with ``win`` (nb, W, 128) float32, ``idx`` (nb, W, 128) int32 and ``out``
 (nb, W, 128) float32: every lane gathers along its own column, and the R
 terms are added in the order r = 0 ... R-1 into a zero accumulator.
 
-``window_gather`` launches the kernel for CUDA float32/int32 tensors, takes
-the plain version for CPU tensors and raises for any other CUDA dtype.
+``window_gather`` launches the kernel for CUDA float32/int32 tensors and
+takes the plain version for CPU and CUDA float64 windows
+(``build.kernel_route``); any other CUDA dtype raises.
 The kernel's work items are (t, group of ``cols`` lanes); ``window_plan``
 chooses ``cols``, the TMA box the W x cols slice is copied in, the ring of
 box slots each persistent CTA keeps and the CTAs, from the card's shared
@@ -102,10 +103,11 @@ def window_gather_plain(win, idx, R):
 
 
 def window_gather(win, idx, R):
-    """K9 for CUDA float32/int32 tensors, the plain version for CPU tensors.
+    """K9 for CUDA float32/int32 tensors, the plain version for CPU and CUDA
+    float64 windows.
     ``win``: (nb, W, 128) float32, 16-byte aligned; ``idx``: (nb, W, 128)
     int32 in [0, W)."""
-    if win.device.type == "cpu":
+    if not build.kernel_route("window_gather", win):
         return window_gather_plain(win, idx, R)
     build.check_cuda("window_gather", torch.float32, win)
     build.check_cuda("window_gather", torch.int32, idx)

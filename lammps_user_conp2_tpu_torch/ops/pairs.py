@@ -201,6 +201,51 @@ def gauss_table_kernels(eta_ij: torch.Tensor, fo_ij: torch.Tensor):
     return potential, force
 
 
+def ehgo_pair_kernels(eta_ij: torch.Tensor, fo_ij: torch.Tensor):
+    """EHGO-mode kernels with per-type-pair widths and overlap term
+    (fix_conp.cpp:1560-1573), (potential, force, potential_A): the table
+    kernels of ``gauss_table_kernels``, whose lookups gather the (T+1,
+    T+1) tables by type; the A matrix's off-diagonal uses the same
+    potential."""
+    potential, force = gauss_table_kernels(eta_ij, fo_ij)
+    return potential, force, potential
+
+
+def build_ehgo_tables(ntypes: int, kappa: float, coeffs, evscale: float):
+    """eta_ij combination rules and fo_ij overlap prefactors
+    (FixConp::ehgo_setup_tables, fix_conp.cpp:1517-1551), float64 on the
+    host.  coeffs: iterable of (type, eta, u0_or_None); u0 None -> 'auto'
+    = sqrt(2/pi)*eta/evscale, stored internally *evscale
+    (fix_conp.cpp:1504-1506).  Returns (eta_i, u0_i, eta_ij, fo_ij) as
+    numpy arrays indexed by type (ntypes+1)."""
+    s2pis = math.sqrt(2.0) / math.sqrt(math.pi)
+    eta_i = np.zeros(ntypes + 1)
+    u0_i = np.zeros(ntypes + 1)
+    for (t, eta_one, u0_one) in coeffs:
+        eta_i[t] = eta_one
+        u0 = s2pis * eta_one / evscale if u0_one is None else u0_one
+        u0_i[t] = u0 * evscale
+    if not (eta_i.any() or u0_i.any()):
+        raise ValueError("no EHGO settings found")
+    f_i = u0_i - s2pis * eta_i
+    eta_ij = np.zeros((ntypes + 1, ntypes + 1))
+    fo_ij = np.zeros((ntypes + 1, ntypes + 1))
+    sq8 = math.sqrt(8.0)
+    for i in range(1, ntypes + 1):
+        for j in range(1, i + 1):
+            if eta_i[i] and eta_i[j]:
+                etasq = eta_i[i] ** 2 + eta_i[j] ** 2
+                etaprod = eta_i[i] * eta_i[j]
+                eta_ij[i, j] = etaprod / math.sqrt(etasq)
+                o_ij = sq8 * eta_ij[i, j] ** 3 / (etaprod * math.sqrt(etaprod))
+                fo_ij[i, j] = 0.5 * kappa * (f_i[i] + f_i[j]) * o_ij
+            else:
+                eta_ij[i, j] = eta_i[i] + eta_i[j]
+            eta_ij[j, i] = eta_ij[i, j]
+            fo_ij[j, i] = fo_ij[i, j]
+    return eta_i, u0_i, eta_ij, fo_ij
+
+
 def exclusions_tensors(excl, *, device=None, dtype=torch.float64
                        ) -> Optional[tuple]:
     """(excl_idx, excl_val) as tensors, or None when no pair is listed."""

@@ -189,7 +189,7 @@ def main() -> int:
         "step": lambda: eng.step(st),
         "b_vector (tables+S+readout+rows+slab)": lambda: conp.b_vector_full(
             x, q, *lists),
-        "inv_solve (A^-1 b + update)": lambda: conp.ainv @ b,
+        "inv_solve (A^-1 b + update)": lambda: conp.apply_ainv(b),
         pair[0]: pair[1],
         "ewald_forces (cached tables)": lambda: ewf.energy_forces_cached(
             eng.fksp, q, tabs, sre, sie, conp.ne),

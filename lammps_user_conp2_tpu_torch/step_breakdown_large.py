@@ -102,7 +102,7 @@ def main() -> int:
             g_ewald=conp.ksp.g_ewald, qqr2e=u.qqr2e, conp_fuse=fuse),
         "b vector (zplanes + list rows + slab)": lambda: conp.b_vector_full(
             x, q, nbr, eng.ncfg, tasg),
-        "INV solve (A^-1 b)": lambda: conp.ainv @ b,
+        "INV solve (A^-1 b)": lambda: conp.apply_ainv(b),
         "solve_full (all)": lambda: conp.solve_full(x, q, nbr, eng.ncfg,
                                                     tasg),
         "compute_forces (all, cache from the solve)": lambda: eng.compute_forces(

@@ -7,9 +7,10 @@ and equal-style variables fix_conp.cpp:112-117).  The mode lattice is
 x {ewald, pppm} (SURVEY.md section 5 "Config / flag system").
 
 The fields are those of the JAX package, so one configuration drives both
-packages.  The port covers CONP / NORMAL / ETA / ewald / INV with
+packages.  The port covers the whole lattice with the INV solver and
 ``nevery=1``; ``setup_conp`` and ``build_engine`` raise NotImplementedError
-for the other values.
+for the CG solvers, ``nevery > 1``, mixed precision, matrix file I/O and
+the ``cell`` and ``tile`` pair paths.
 """
 
 from __future__ import annotations

@@ -10,9 +10,10 @@ Impropers with entries raise, as in the JAX package's parser.
 
 This is the JAX package's Python parser (``utils/data_io.py``); its C++
 fast path (``native/``, host code) is not used by the port.  The deck
-transforms for the doubled-cell trials (``replicate 1 1 2``,
-``change_box``, the z-mirror ``set`` and the molecule reassignment) are
-still to come.
+transforms of the doubled-cell trials follow it: ``replicate_z2``
+(``replicate 1 1 2``), ``change_box_z_centered`` (``change_box``),
+``mirror_group_z`` (the z-mirror ``set``) and ``set_mol`` (the molecule
+reassignment).
 """
 
 from __future__ import annotations
@@ -207,3 +208,66 @@ def parse_data_file(path: str) -> LammpsData:
         if int(f["tag"][k]) in velocities:
             f["v"][k] = velocities[int(f["tag"][k])]
     return _finalize_raw(f)
+
+
+# ---------------------------------------------------------------------------
+# deck operations of the reference inputs' doubled-cell trials
+# ---------------------------------------------------------------------------
+
+def replicate_z2(d: LammpsData) -> LammpsData:
+    """``replicate 1 1 2``: the cell duplicated along +z.  The new atoms'
+    tags are offset by N and their molecule ids by max(mol) (the decks then
+    reassign the electrodes' molecules, tests/dilute/input:50-57)."""
+    n = d.natoms
+    zprd = d.box_hi[2] - d.box_lo[2]
+    molmax = int(d.mol.max())
+    x2 = d.x.copy()
+    x2[:, 2] += zprd
+    return dataclasses.replace(
+        d,
+        natoms=2 * n,
+        box_hi=np.array([d.box_hi[0], d.box_hi[1], d.box_hi[2] + zprd]),
+        tag=np.concatenate([d.tag, d.tag + n]),
+        mol=np.concatenate([d.mol, d.mol + molmax]),
+        type=np.concatenate([d.type, d.type]),
+        q=np.concatenate([d.q, d.q]),
+        x=np.concatenate([d.x, x2]),
+        v=np.concatenate([d.v, d.v]),
+        bonds=(np.concatenate([d.bonds, d.bonds + np.array([0, n, n])])
+               if len(d.bonds) else d.bonds),
+        angles=(np.concatenate([d.angles, d.angles + np.array([0, n, n, n])])
+                if len(d.angles) else d.angles),
+    )
+
+
+def change_box_z_centered(d: LammpsData) -> LammpsData:
+    """``change_box all z final -lz/2 lz/2 remap units box``."""
+    zprd = d.box_hi[2] - d.box_lo[2]
+    shift = -zprd / 2 - d.box_lo[2]
+    x = d.x.copy()
+    x[:, 2] += shift
+    return dataclasses.replace(
+        d, x=x,
+        box_lo=np.array([d.box_lo[0], d.box_lo[1], -zprd / 2]),
+        box_hi=np.array([d.box_hi[0], d.box_hi[1], zprd / 2]),
+    )
+
+
+def mirror_group_z(d: LammpsData, mask: np.ndarray, *,
+                   flip_vz: bool = False) -> LammpsData:
+    """``set group pos z v_newz`` with newz = lz/2 - z
+    (tests/dilute/input:52-54); ``flip_vz`` negates the group's vz."""
+    zprd = d.box_hi[2] - d.box_lo[2]
+    x = d.x.copy()
+    x[mask, 2] = zprd / 2 - x[mask, 2]
+    v = d.v.copy()
+    if flip_vz:
+        v[mask, 2] = -v[mask, 2]
+    return dataclasses.replace(d, x=x, v=v)
+
+
+def set_mol(d: LammpsData, old_mol: int, new_mol: int) -> LammpsData:
+    """Molecule ``old_mol`` renumbered ``new_mol``."""
+    mol = d.mol.copy()
+    mol[mol == old_mol] = new_mol
+    return dataclasses.replace(d, mol=mol)

@@ -2,14 +2,16 @@
 ``setup_conp`` / ``build_engine``.
 
 * ``synthetic``: the self-contained parallel-plate capacitor of LJ ions.
-* ``il_onelayer`` / ``il_twolayer``: the ionic-liquid reference decks
-  (BMI-PF6 between graphene electrodes, SHAKE on the cation) for their
-  trials 0 and 1, read from a LAMMPS data file: ``data_path``, or the
-  deck's ``data`` under ``REF_TESTS``.  The other trials raise
-  NotImplementedError naming the part they still need.
+* ``il_onelayer`` / ``il_twolayer`` / ``cond`` / ``zmirror``: the
+  ionic-liquid reference decks (BMI-PF6 between graphene electrodes,
+  SHAKE on the cation), every trial, read from a LAMMPS data file:
+  ``data_path``, or the deck's ``data`` under ``REF_TESTS``.  The trials
+  cover CONP, CONQ and COND, the NORMAL slab, FFIELD with the external or
+  the feedback efield, the NOSLAB doubled cell, EHGO with a callable
+  target and the zmirror fix.
 * ``write_il_data``: a synthetic data file with the il decks' counts and
-  ids, for the tests and the card runs while the decks' own data files are
-  not in the repository.
+  ids, which every one of these decks reads, for the tests and the card
+  runs while the decks' own data files are not in the repository.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ import numpy as np
 
 from .models.system import build_system, electrodes_first
 from .utils import data_io
-from .utils.config import (ConpConfig, FFMode, MDConfig, Mode, ShakeConfig,
-                           ThermostatConfig)
+from .utils.config import (ConpConfig, EhgoConfig, FFMode, KSpaceStyle,
+                           MDConfig, Mode, PairMode, ShakeConfig,
+                           ThermostatConfig, ZMirrorConfig)
 from .utils.data_io import LammpsData
 from .utils.units import get_units
 
@@ -154,68 +157,217 @@ def near_sheet_positions(system, *, gap: float = 2.0, count: int = 8,
 # the ionic-liquid decks
 # --------------------------------------------------------------------------
 
-def _refuse_trial(deck: str, n: int, missing: list) -> None:
-    if missing:
-        raise NotImplementedError(f"not ported yet: {deck} trial {n} needs "
-                                  + ", ".join(missing))
+def _sol_thermostats(data, groups, doubled: bool, temp: float):
+    """The decks' thermostats: one NHC on ``sol``, or for the doubled-cell
+    trials two independent ones on its halves (il_onelayer/input:113-116
+    ``fix 1 solpos nvt`` + ``fix 2 solneg nvt``), which this adds to
+    ``groups``."""
+    if not doubled:
+        return (ThermostatConfig("sol", temp, temp, 100.0),)
+    pos = data.x[:, 2] > 0.0
+    groups["solpos"] = groups["sol"] & pos
+    groups["solneg"] = groups["sol"] & ~pos
+    return (ThermostatConfig("solpos", temp, temp, 100.0),
+            ThermostatConfig("solneg", temp, temp, 100.0))
 
 
-def _il_deck(data_path, deck: str):
-    """(System, MDConfig) shared by the il decks' trials 0 and 1: BMI-PF6
-    (types 1-3 the cation sites, 4 the anion) between the electrodes (type
-    5; mol 641 left, 642 right), boundary p p f, one 500 K NHC on ``sol``
-    (the doubled-cell trials' two thermostats come with NOSLAB), SHAKE on
-    the cation's two bonds and its angle."""
-    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/{deck}/data")
-    groups = {
-        "sol": np.isin(data.type, [1, 2, 3, 4]),
-        "bmi": np.isin(data.type, [1, 2, 3]),
-        "ele": data.type == 5,
-    }
-    system = build_system(
-        data, units="real", periodic=(True, True, False), mix="arithmetic",
-        ele_left=[641], ele_right=[642], groups=groups)
-    system = electrodes_first(system)
-    md = MDConfig(
-        units="real", dt=2.0, cutoff=16.0, kspace_accuracy=1e-7, slab=3.0,
-        thermostats=(ThermostatConfig("sol", 500.0, 500.0, 100.0),),
-        shake=ShakeConfig(group="bmi", btypes=(1, 2), atypes=(1,)),
-    )
-    return system, md
+def _doubled_cell(data, molleft, molright, sym: bool, flip_vz: bool = False):
+    """The NOSLAB doubled cell: ``replicate 1 1 2``, ``change_box`` to a
+    z-centred box, and the molecule reassignment, symmetric (the upper half
+    mirrored in z, its electrodes renumbered as the lower half's) or
+    antisymmetric (tests/dilute/input:44-57, il_onelayer/input:34-47)."""
+    molmax = int(data.mol.max())
+    data = data_io.replicate_z2(data)
+    data = data_io.change_box_z_centered(data)
+    pos = data.x[:, 2] > 0.0
+    if sym:
+        data = data_io.mirror_group_z(data, pos, flip_vz=flip_vz)
+        data = data_io.set_mol(data, molmax + molright, molright)
+        data = data_io.set_mol(data, molmax + molleft, molleft)
+    else:
+        data = data_io.set_mol(data, molmax + molright, molleft)
+        data = data_io.set_mol(data, molmax + molleft, molright)
+    return data
+
+
+def _il_groups(data):
+    return {"sol": np.isin(data.type, [1, 2, 3, 4]),
+            "bmi": np.isin(data.type, [1, 2, 3]),
+            "ele": data.type == IL_ETYPE}
+
+
+# the decks' electrode molecules and carbon type
+IL_MOLLEFT, IL_MOLRIGHT, IL_ETYPE = 641, 642, 5
+IL_SHAKE = ShakeConfig(group="bmi", btypes=(1, 2), atypes=(1,))
 
 
 def il_onelayer(n: int = 0, *, data_path: Optional[str] = None):
     """tests/il_onelayer/input: BMI-PF6 and single-layer graphene, 3,776
-    atoms.  Trials 0 (conp slab) and 1 (+etypes, the same step on the dense
-    pair path); CONP at 2 V, EWALD, ETA."""
+    atoms (types 1-3 the cation sites, 4 the anion, 5 the electrodes; mol
+    641 left, 642 right), SHAKE on the cation's two bonds and its angle,
+    500 K NHC, read from ``data_path`` or the deck's ``data`` under
+    ``REF_TESTS``.  Every trial runs:
+
+    0 CONP slab, EWALD, ETA at 2 V; 1 the same (+etypes, a no-op on the
+    dense pair path); 2 CONQ slab with PPPM; 3 and 7 FFIELD (z periodic)
+    with the external efield; 4 FFIELD, PPPM, EHGO (kappa 0) and a
+    callable target (the deck's equal-style v_v); 5 and 6 the NOSLAB
+    doubled cell (symmetric, antisymmetric), zneutr, a thermostat on each
+    half."""
     if n not in range(8):
         raise ValueError(f"il_onelayer has trials 0-7, not {n}")
-    _refuse_trial("il_onelayer", n, (
-        (["CONQ mode", "PPPM in the charge solve"] if n == 2 else [])
-        + (["FFIELD field mode with an external efield"]
-           if n in (3, 4, 7) else [])
-        + (["EHGO pair mode", "a callable target"] if n == 4 else [])
-        + (["NOSLAB doubled cell (replicate, change_box, z-mirror)"]
-           if n in (5, 6) else [])))
-    system, md = _il_deck(data_path, "il_onelayer")
-    cfg = ConpConfig(mode=Mode.CONP, nevery=1, eta=1.979, target=2.0,
-                     ff=FFMode.NORMAL)
+    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/il_onelayer/data")
+    doubled = n in (5, 6)
+    if doubled:
+        data = _doubled_cell(data, IL_MOLLEFT, IL_MOLRIGHT, sym=(n == 5),
+                             flip_vz=(n == 5))
+    periodic = (True, True, n > 2)
+    groups = _il_groups(data)
+    thermos = _sol_thermostats(data, groups, doubled, 500.0)
+    system = build_system(
+        data, units="real", periodic=periodic, mix="arithmetic",
+        ele_left=[IL_MOLLEFT], ele_right=[IL_MOLRIGHT], groups=groups)
+    system = electrodes_first(system)
+
+    v = 2.0
+    ff = FFMode.NORMAL
+    mode = Mode.CONP
+    target = v
+    kspace = KSpaceStyle.EWALD
+    if n in (3, 4, 7):
+        ff = FFMode.FFIELD
+    if n in (5, 6):
+        ff = FFMode.NOSLAB
+    if n == 2:
+        mode = Mode.CONQ
+        kspace = KSpaceStyle.PPPM
+    pairmode = PairMode.ETA
+    ehgo = None
+    if n == 4:
+        kspace = KSpaceStyle.PPPM
+        # the deck drives trial 4 with the equal-style variable v_v
+        # (il_onelayer/input:103): a callable target (fix_conp.cpp:112-117,
+        # 1143)
+        target = lambda step: v  # noqa: E731
+        pairmode = PairMode.EHGO
+        ehgo = EhgoConfig(kappa=0.0, eta_by_type=((IL_ETYPE, 1.979, None),))
+    md = MDConfig(
+        units="real", dt=2.0, cutoff=16.0, kspace_accuracy=1e-7,
+        slab=3.0 if n <= 2 else None,
+        efield=(0.0, 0.0, -v / system.box[2]) if ff is FFMode.FFIELD else None,
+        thermostats=thermos, shake=IL_SHAKE)
+    cfg = ConpConfig(mode=mode, nevery=1, eta=1.979, target=target, ff=ff,
+                     zneutr=doubled, pairmode=pairmode, ehgo=ehgo,
+                     kspace=kspace)
     return system, md, cfg
 
 
 def il_twolayer(n: int = 0, *, data_path: Optional[str] = None):
-    """tests/il_twolayer/input: the BASELINE.md north-star workload.
-    Trials 0 and 1 (conp slab); CONP at 2 V, EWALD, ETA."""
+    """tests/il_twolayer/input: the BASELINE.md north-star workload, the
+    il_onelayer chemistry.  Every trial runs: 0 and 1 CONP slab; 2 and 5
+    FFIELD with the external efield; 3 and 4 the NOSLAB doubled cell
+    (symmetric, antisymmetric), zneutr, a thermostat on each half; CONP at
+    2 V, EWALD, ETA."""
     if n not in range(6):
         raise ValueError(f"il_twolayer has trials 0-5, not {n}")
-    _refuse_trial("il_twolayer", n, (
-        (["FFIELD field mode with an external efield"]
-         if n in (2, 5) else [])
-        + (["NOSLAB doubled cell (replicate, change_box, z-mirror)"]
-           if n in (3, 4) else [])))
-    system, md = _il_deck(data_path, "il_twolayer")
-    cfg = ConpConfig(mode=Mode.CONP, nevery=1, eta=1.979, target=2.0,
-                     ff=FFMode.NORMAL)
+    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/il_twolayer/data")
+    doubled = n in (3, 4)
+    if doubled:
+        data = _doubled_cell(data, IL_MOLLEFT, IL_MOLRIGHT, sym=(n == 3),
+                             flip_vz=(n == 3))
+    periodic = (True, True, n > 1)
+    groups = _il_groups(data)
+    thermos = _sol_thermostats(data, groups, doubled, 500.0)
+    system = build_system(
+        data, units="real", periodic=periodic, mix="arithmetic",
+        ele_left=[IL_MOLLEFT], ele_right=[IL_MOLRIGHT], groups=groups)
+    system = electrodes_first(system)
+
+    v = 2.0
+    ff = {0: FFMode.NORMAL, 1: FFMode.NORMAL, 2: FFMode.FFIELD,
+          3: FFMode.NOSLAB, 4: FFMode.NOSLAB, 5: FFMode.FFIELD}[n]
+    md = MDConfig(
+        units="real", dt=2.0, cutoff=16.0, kspace_accuracy=1e-7,
+        slab=3.0 if n <= 1 else None,
+        efield=(0.0, 0.0, -v / system.box[2]) if ff is FFMode.FFIELD else None,
+        thermostats=thermos, shake=IL_SHAKE)
+    cfg = ConpConfig(mode=Mode.CONP, nevery=1, eta=1.979, target=v, ff=ff,
+                     zneutr=doubled)
+    return system, md, cfg
+
+
+def cond(n: int = 0, *, data_path: Optional[str] = None, suite: str = "cond"):
+    """tests/cond/input: CONP, CONQ and COND on the il chemistry, 3,776
+    atoms (``suite="cond2"``: the larger deck, Q = 50), PPPM.  0 CONP slab;
+    1 CONQ slab (Q = 0.35); 2 CONP FFIELD with the external efield; 3 CONQ
+    FFIELD with the feedback efield; 4 COND FFIELD with the feedback
+    efield.  Reads ``data_path`` or the deck's ``data`` under
+    ``REF_TESTS``."""
+    if n not in range(5):
+        raise ValueError(f"cond has trials 0-4, not {n}")
+    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/{suite}/data")
+    periodic = (True, True, n > 1)
+    system = build_system(
+        data, units="real", periodic=periodic, mix="arithmetic",
+        ele_left=[IL_MOLLEFT], ele_right=[IL_MOLRIGHT],
+        groups=_il_groups(data))
+    system = electrodes_first(system)
+
+    v = 2.0
+    qtarget = 50.0 if suite == "cond2" else 0.35
+    mode = {0: Mode.CONP, 1: Mode.CONQ, 2: Mode.CONP, 3: Mode.CONQ,
+            4: Mode.COND}[n]
+    ff = FFMode.NORMAL if n <= 1 else FFMode.FFIELD
+    target = v if mode is Mode.CONP else qtarget
+    md = MDConfig(
+        units="real", dt=2.0, cutoff=16.0, kspace_accuracy=1e-7,
+        slab=3.0 if n <= 1 else None,
+        efield=(0.0, 0.0, -v / system.box[2]) if n == 2 else None,
+        efield_feedback=n in (3, 4),
+        thermostats=(ThermostatConfig("sol", 500.0, 500.0, 100.0),),
+        shake=IL_SHAKE)
+    cfg = ConpConfig(mode=mode, nevery=1, eta=1.979, target=target, ff=ff,
+                     kspace=KSpaceStyle.PPPM)
+    return system, md, cfg
+
+
+def zmirror(n: int = 0, *, data_path: Optional[str] = None):
+    """tests/zmirror/input: the doubled cell's mirror-symmetry NEMD, NOSLAB
+    and zneutr, the electrodes of both halves in one left and one right
+    group (zmirror/input:49-50).  0 CONP, EWALD; 1 with PPPM; 2 with the
+    zmirror fix (the upper half mirrors the lower one every step instead
+    of being thermostatted); 3 CONQ (Q = 0.7) with zmirror.  Reads
+    ``data_path`` or the deck's ``data`` under ``REF_TESTS``."""
+    if n not in range(4):
+        raise ValueError(f"zmirror has trials 0-3, not {n}")
+    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/zmirror/data")
+    molmax = int(data.mol.max())
+    data = _doubled_cell(data, IL_MOLLEFT, IL_MOLRIGHT, sym=True,
+                         flip_vz=True)
+    pos = data.x[:, 2] > 0.0
+    groups = _il_groups(data)
+    groups["solpos"] = groups["sol"] & pos
+    groups["solneg"] = groups["sol"] & ~pos
+    system = build_system(
+        data, units="real", periodic=(True, True, True), mix="arithmetic",
+        ele_left=[IL_MOLLEFT, IL_MOLLEFT + molmax],
+        ele_right=[IL_MOLRIGHT, IL_MOLRIGHT + molmax], groups=groups)
+    system = electrodes_first(system)
+
+    v = 2.0
+    use_zm = n in (2, 3)
+    mode = Mode.CONQ if n == 3 else Mode.CONP
+    target = 2 * 0.35 if n == 3 else v
+    thermostats = [ThermostatConfig("solneg", 500.0, 500.0, 100.0)]
+    if not use_zm:
+        thermostats.append(ThermostatConfig("solpos", 500.0, 500.0, 100.0))
+    md = MDConfig(
+        units="real", dt=2.0, cutoff=16.0, kspace_accuracy=1e-7, slab=None,
+        thermostats=tuple(thermostats), shake=IL_SHAKE,
+        zmirror=ZMirrorConfig("solneg", "solpos", 1) if use_zm else None)
+    cfg = ConpConfig(mode=mode, nevery=1, eta=1.979, target=target,
+                     ff=FFMode.NOSLAB, zneutr=True,
+                     kspace=KSpaceStyle.PPPM if n >= 1 else KSpaceStyle.EWALD)
     return system, md, cfg
 
 

@@ -18,9 +18,7 @@ from lammps_user_conp2_tpu_torch import workloads as twl
 from lammps_user_conp2_tpu_torch.models import conp as tconp
 from lammps_user_conp2_tpu_torch.models import electrodes as tel
 from lammps_user_conp2_tpu_torch.models.md import build_engine
-from lammps_user_conp2_tpu_torch.utils.config import (ConpConfig, FFMode,
-                                                      KSpaceStyle, Mode,
-                                                      Solver, ZMirrorConfig)
+from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle, Solver
 from torch_cells import CPU64, S1, S2, SOLVE64, rel_err
 
 torch.set_num_threads(2)
@@ -73,13 +71,11 @@ def test_project_inverse_zneutr_matches():
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode=Mode.CONQ), dict(solver=Solver.CG), dict(ff=FFMode.FFIELD),
+    dict(solver=Solver.CG),
     dict(kspace=KSpaceStyle.PPPM, solver=Solver.CG), dict(nevery=2),
     dict(matout=True), dict(mobile_electrodes=True,
-                            solver=Solver.CG_MATFREE),
-    dict(target=lambda step: 1.0)],
-    ids=["conq", "cg", "ffield", "pppm", "nevery", "matout", "mobile",
-         "callable"])
+                            solver=Solver.CG_MATFREE)],
+    ids=["cg", "pppm", "nevery", "matout", "mobile"])
 def test_setup_refuses_features_not_ported(change):
     """PPPM with electrodes whose stencils touch more than max(nz/4, 16) z
     planes (here spread through the box) and mobile electrodes under the
@@ -97,14 +93,15 @@ def test_setup_refuses_features_not_ported(change):
 
 
 @pytest.mark.parametrize("change", [
-    dict(zmirror=ZMirrorConfig("sol", "sol")), dict(efield=(0.0, 0.0, 0.1)),
     dict(kspace_style=KSpaceStyle.PPPM), dict(pair_path="cell"),
     dict(pair_path="tile")],
-    ids=["zmirror", "efield", "pppm", "cell", "tile"])
+    ids=["pppm", "cell", "tile"])
 def test_build_engine_refuses_features_not_ported(change):
-    """PPPM forces are ported, but not under a charge solve in another
-    k-space style (here Ewald); the cell and tile pair paths are left
-    out; SHAKE/RATTLE is ported (test_torch_shake.py), zmirror is not."""
+    """PPPM forces are ported, but not under an Ewald charge solve (the
+    JAX engine cannot run that either; a PPPM solve gives PPPM forces);
+    the cell and tile pair paths are left out; SHAKE/RATTLE, zmirror and
+    the external field are ported (test_torch_shake.py,
+    test_torch_decks.py)."""
     system, md, cfg = twl.synthetic(**S1)
     conp = None
     if "kspace_style" in change:

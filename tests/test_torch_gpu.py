@@ -2,7 +2,8 @@
 S3 at the near-wall positions): max|kernel - plain| / max|plain| <= 2e-5
 per output (tools/kernel_oracle.py's measure; 5e-5 for SHAKE/RATTLE on
 the test-size ionic-liquid cell, also across the periodic x face), a CUDA
-float64 tensor raises, and the engines' main paths launch their kernels
+float64 tensor takes the plain version on the card (no launch) and a
+float16 one raises, and the engines' main paths launch their kernels
 (K4 and K5 on the mid-size path; K1, K2a and K3 on the Verlet-list +
 tiled-PPPM path; K7 and K8 on the ionic-liquid deck; K1 with the cations'
 exclusions on the deck's block path; K6 and not K4 with
@@ -94,8 +95,14 @@ def test_kernels_match_plain_on_card(cuda, positions):
                cut_coulsq=conp.cut_coulsq, g_ewald=conp.ksp.g_ewald)
     b = k5.b_realspace(*args, **bkw)
     assert _rel(b, k5.b_realspace_plain(*args, **bkw)) <= TOL
+    # float64 on the card takes the plain version; float16 raises
+    a64 = [a.double() if a.is_floating_point() else a for a in args]
+    n0 = k5.launches.count
+    assert torch.equal(k5.b_realspace(*a64, **bkw),
+                       k5.b_realspace_plain(*a64, **bkw))
+    assert k5.launches.count == n0
     with pytest.raises(TypeError):
-        k5.b_realspace(*(a.double() if a.is_floating_point() else a
+        k5.b_realspace(*(a.half() if a.is_floating_point() else a
                          for a in args), **bkw)
 
 
@@ -299,8 +306,12 @@ def test_large_path_kernels_match_plain_on_card(cuda, positions, monkeypatch):
     up = P._wrap_pad_xy(uz, geom.hw + geom.dm).contiguous()
     g3 = k3.gather3(up, slots.rows, cfd, geom)
     assert _rel(g3, k3.gather3_plain(up, slots.rows, cfd, geom)) <= TOL
+    n0 = k3.launches.count
+    a64 = (up.double(), slots.rows.double(), cfd.double(), geom)
+    assert torch.equal(k3.gather3(*a64), k3.gather3_plain(*a64))
+    assert k3.launches.count == n0
     with pytest.raises(TypeError):
-        k3.gather3(up.double(), slots.rows.double(), cfd.double(), geom)
+        k3.gather3(up.half(), slots.rows.half(), cfd.half(), geom)
 
 
 def test_large_engine_launches_kernels(cuda, monkeypatch):
@@ -355,8 +366,12 @@ def test_shake_kernels_match_plain_on_card(cuda, tmp_path, straddle):
     vk = k.rattle_velocities(eng.cons, x, v, **kw)
     assert _rel(vk, k.rattle_velocities_plain(eng.cons, x, v, **kw)) <= (
         SHAKE_TOL)
+    n0 = k.shake_launches.count
+    assert k.shake_positions(eng.cons, t(x_new).double(), t(x_old).double(),
+                             md.dt, **kw)[0].dtype == torch.float64
+    assert k.shake_launches.count == n0
     with pytest.raises(TypeError):
-        k.shake_positions(eng.cons, t(x_new).double(), t(x_old).double(),
+        k.shake_positions(eng.cons, t(x_new).half(), t(x_old).half(),
                           md.dt, **kw)
 
 
@@ -618,8 +633,14 @@ def test_conp_correction_matches_plain_on_card(cuda, positions):
         assert bool(torch.isfinite(g).all()) and _rel(g, r) <= TOL
     if positions is x_close:
         assert abs(float(ref[1])) > 1e-3
+    n0 = k6.corr_launches.count
+    a64 = [a.double() if a.is_floating_point() else a for a in args]
+    for g, r in zip(k6.conp_correction(*a64, **kw),
+                    k6.conp_correction_plain(*a64, **kw)):
+        assert torch.equal(g, r)
+    assert k6.corr_launches.count == n0
     with pytest.raises(TypeError):
-        k6.conp_correction(*(a.double() if a.is_floating_point() else a
+        k6.conp_correction(*(a.half() if a.is_floating_point() else a
                              for a in args), **kw)
 
 
@@ -688,8 +709,14 @@ def test_spread_tiles_matches_plain_on_card(cuda, monkeypatch):
         ref = k2.tile_patches_plain(slots.rows, cfd, geom)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all()) and _rel(got, ref) <= TOL
+    n0 = k2.tiles_launches.count
+    assert torch.equal(k2.spread_tiles(slots.rows.double(), cfd.double(),
+                                       geom),
+                       k2.tile_patches_plain(slots.rows.double(),
+                                             cfd.double(), geom))
+    assert k2.tiles_launches.count == n0
     with pytest.raises(TypeError):
-        k2.spread_tiles(slots.rows.double(), cfd.double(), geom)
+        k2.spread_tiles(slots.rows.half(), cfd.half(), geom)
 
 
 def test_mobile_tiled_engine_launches_k2b(cuda, monkeypatch):
@@ -733,8 +760,11 @@ def test_window_gather_matches_plain_on_card(cuda, nb, W, R):
     torch.cuda.synchronize()
     assert k9.launches.count == 1
     assert torch.equal(got, k9.window_gather_plain(win, idx, R))
+    assert torch.equal(k9.window_gather(win.double(), idx, R),
+                       k9.window_gather_plain(win.double(), idx, R))
+    assert k9.launches.count == 1
     with pytest.raises(TypeError):
-        k9.window_gather(win.double(), idx, R)
+        k9.window_gather(win.half(), idx, R)
 
 
 def test_window_gather_one_kernel_per_call(cuda):
@@ -961,3 +991,73 @@ def test_k6_near_sheets_matches_plain_on_card(cuda, tmp_path, gap):
                            eng.elyte_flag.cpu(), eng.ele_flag.cpu())
     for (i, z), (pi, pz) in zip(orders, plain):
         assert torch.equal(i.cpu().long(), pi) and torch.equal(z.cpu(), pz)
+
+
+# card float64 against CPU float64, 3 steps, relative to the largest |q|
+# and to |pe|: the figure ROADMAP names for the float64 engine
+F64_CARD_REL = 1e-10
+
+
+def _f64_cell(cell, tmp_path):
+    """(system, md, cfg, x0) of chip_smoke.py's mid-size, il and 100k
+    cells."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+    if cell == "il":
+        path = workloads.write_il_data(tmp_path / "il.data")
+        return (*workloads.il_onelayer(0, data_path=path), None)
+    if cell == "mid":
+        system, md, cfg = workloads.synthetic(n_elyte=6144, nele_side=24,
+                                              lz=60.0, lxy=50.0)
+    else:
+        system, md, cfg = large_cell()
+    return system, md, cfg, workloads.near_wall_positions(system)
+
+
+@pytest.mark.parametrize("cell", ["mid", "il", "100k"])
+def test_float64_engine_on_card(cuda, cell, tmp_path):
+    """``build_engine(..., dtype=torch.float64)`` on the card: 3 steps of
+    ``Engine.run`` (replayed as CUDA graphs) hold the CPU float64 run's
+    charges and pe to F64_CARD_REL, and no hand kernel launches."""
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    system, md, cfg, x0 = _f64_cell(cell, tmp_path)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = build_engine(system, md, setup_conp(
+            system, md, cfg, solve_dtype=torch.float64, device=dev),
+            dtype=torch.float64, device=dev)
+        for c in build.COUNTERS:
+            c.reset()
+        st, _ = eng.run(eng.init_state(x0=x0), 3, thermo_every=0)
+        assert all(c.count == 0 for c in build.COUNTERS)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert len(eng._step_graphs) == 1
+            assert (eng.ncfg is None) == (cell != "100k")
+            assert eng.ncfg is None or eng.ncfg.block == 0
+        out[dev.type] = st
+    g, c = out["cuda"], out["cpu"]
+    dq = float((g.q.cpu() - c.q).abs().max()) / float(c.q.abs().max())
+    dpe = abs(float(g.energy) - float(c.energy)) / abs(float(c.energy))
+    assert dq <= F64_CARD_REL and dpe <= F64_CARD_REL, (dq, dpe)
+
+
+def test_kernel_build_failure_raises_on_card(cuda, monkeypatch):
+    """A float32 call whose kernel library cannot be built raises; it does
+    not fall back to the plain version.  A float64 call never builds."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    from lammps_user_conp2_tpu_torch.ops.kernels import vmem_gather as k9
+    win = torch.rand((2, 64, 128), device=cuda)
+    idx = torch.randint(0, 64, (2, 64, 128), dtype=torch.int32,
+                        device=cuda)
+
+    def refuse():
+        raise RuntimeError("nvcc failed: refused by the test")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    with pytest.raises(RuntimeError, match="refused by the test"):
+        k9.window_gather(win, idx, 2)
+    assert torch.equal(k9.window_gather(win.double(), idx, 2),
+                       k9.window_gather_plain(win.double(), idx, 2))

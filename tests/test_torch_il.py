@@ -4,8 +4,9 @@
 * The data-file parser gives identical LammpsData fields (the JAX package's
   Python parser vs the port's).
 * ``il_onelayer`` and ``il_twolayer``, trials 0 and 1, build identical
-  Systems, MDConfigs, ConpConfigs and exclusion tables from the file; the
-  other trials raise NotImplementedError naming the part they need.
+  Systems, MDConfigs, ConpConfigs and exclusion tables from the file, and
+  so do the other trials (CONQ, FFIELD, EHGO with a callable target, the
+  NOSLAB doubled cell; test_torch_decks.py runs them).
 * 20 engine steps with SHAKE/RATTLE (setup_conp -> build_engine ->
   init_state -> step): x to atol 1e-8 A, q to atol 1e-8 e, pe to 1e-9
   relative, thermo temp/tempsl (with the constraint DOF) to 1e-8
@@ -33,6 +34,7 @@ from lammps_user_conp2_tpu_torch.models.md import build_engine as tbuild
 from lammps_user_conp2_tpu_torch.models.shake import (build_constraints,
                                                       constraint_residuals)
 from lammps_user_conp2_tpu_torch.utils import data_io as tdata_io
+from test_torch_decks import _same_config
 from test_torch_system import _assert_same_system
 from torch_cells import il_small, il_small_file
 
@@ -93,14 +95,29 @@ def test_il_system_matches(il_path, deck, n):
 
 
 @pytest.mark.parametrize("deck,n,part", [
-    ("il_onelayer", 2, "CONQ mode"), ("il_onelayer", 3, "FFIELD"),
+    ("il_onelayer", 2, "CONQ"), ("il_onelayer", 3, "FFIELD"),
     ("il_onelayer", 4, "EHGO"), ("il_onelayer", 5, "NOSLAB"),
     ("il_onelayer", 6, "NOSLAB"), ("il_onelayer", 7, "FFIELD"),
     ("il_twolayer", 2, "FFIELD"), ("il_twolayer", 3, "NOSLAB"),
     ("il_twolayer", 4, "NOSLAB"), ("il_twolayer", 5, "FFIELD")])
-def test_il_trials_not_ported_raise(deck, n, part):
-    with pytest.raises(NotImplementedError, match=part):
-        getattr(twl, deck)(n, data_path="no-such-file")
+def test_il_trial_builds_as_jax_deck(il_path, deck, n, part):
+    """The trials the port once refused build what the JAX deck builds:
+    the same System (the doubled cell's 704 atoms for NOSLAB), exclusion
+    tables and configurations, the part each needs among them; a callable
+    target is compared at several steps."""
+    js, jmd, jcfg = getattr(jwl, deck)(n, data_path=il_path)
+    ts, tmd, tcfg = getattr(twl, deck)(n, data_path=il_path)
+    _assert_same_system(ts, js)
+    for a, b in zip(tsystem.exclusion_lists(ts), jsystem.exclusion_lists(js)):
+        np.testing.assert_array_equal(a, b)
+    _same_config(tmd, jmd)
+    _same_config(tcfg, jcfg)
+    has = {"CONQ": tcfg.mode.name == "CONQ", "FFIELD": tcfg.ff.name
+           == "FFIELD" and tmd.efield is not None,
+           "EHGO": tcfg.pairmode.name == "EHGO" and callable(tcfg.target),
+           "NOSLAB": tcfg.ff.name == "NOSLAB" and ts.natoms == 704
+           and len(tmd.thermostats) == 2}
+    assert has[part]
 
 
 @pytest.fixture(scope="module")

@@ -62,10 +62,12 @@ def step_as_one(eng, state):
             nbr, tasg = eng.derived_state(x)
             rebuilt = True
             nbr.overflow = nbr.overflow | state.nbr.overflow
+    step_t = state.step_t + 1
     q, scalar, kcache = state.q, state.scalar_out, None
     if eng.conp is not None:
-        q, scalar, kcache = eng.conp.solve_full(x, q, nbr, eng.ncfg, tasg)
-    f, pe = eng.compute_forces(x, q, kcache, nbr, tasg)
+        q, scalar, kcache = eng.conp.solve_full(x, q, nbr, eng.ncfg, tasg,
+                                                step=step_t)
+    f, pe = eng.compute_forces(x, q, kcache, nbr, tasg, scalar)
     v = itg.kick(v, f)
     if eng.cons is not None:
         v = tmd.rattle_velocities(eng.cons, x, v, box=eng.ksp_force.box,
@@ -73,7 +75,7 @@ def step_as_one(eng, state):
     v, xi, vxi = itg.thermostat_half(v, xi, vxi)
     return MDState(x=x, v=v, q=q, f=f, step=state.step + 1, nhc_xi=xi,
                    nhc_vxi=vxi, scalar_out=scalar, energy=pe, nbr=nbr,
-                   tasg=tasg), rebuilt
+                   tasg=tasg, step_t=step_t), rebuilt
 
 
 def _tensors(obj, out=None):
