@@ -5,9 +5,10 @@
 
 Drives the port's paths (nine main paths through
 ``lammps_user_conp2_tpu_torch``: setup_conp -> build_engine -> init_state ->
-Engine.run, float32; three of them again in float64 on the card; and the
-window gather probe ``exp_vmem_gather.run_probe``) and exits non-zero if
-any phase fails.
+Engine.run, float32; three of them again in float64 on the card; the
+window gather probe ``exp_vmem_gather.run_probe``; and the CG, nevery,
+mixed-precision, mobile-electrode and chunked-Ewald paths of phases
+30-34) and exits non-zero if any phase fails.
 
 Mid-size path, the 7,296-atom synthetic capacitor
 ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
@@ -191,6 +192,39 @@ phase of DECK_GRAPH_PAIRS pairs, 3 steps against float64 on the CPU):
      lower half's mirror bit for bit after every step and each half's
      electrodes neutral to 1e-4 e.
 
+The rest of the charge solve (the CG solvers with their warm start and
+their blocks of ``CG_BLOCK`` iterations replayed as CUDA graphs, ``nevery``,
+mixed precision, mobile electrodes, the chunked factored Ewald), each with
+a graph phase of 2 pairs (graphed, eager and graphed again bit for bit;
+host syncs per step):
+
+ 30. the 100k cell under CG_MATFREE in float32 (PPPM, the block list, the
+     default cg_tolerance and cg_maxiter): the cold CG iterations; the
+     operator apply's ms and device ms beside its GEMM bound, 8 x 2 Ne nxy
+     nz FLOP at the float32 peak; CG_STEPS warm-started graphed steps with
+     each solve's iterations and CG blocks (and a line when every step ran
+     to cg_maxiter); K1, K2a and K3 every step; the charges after 3 steps
+     against phase 9's INV run from the same state within CG_TOL_GAP; the
+     operator, float32 and float64, against A assembled in float64;
+ 31. the mid-size cell under CG with nevery = 2: over 10 graphed steps the
+     electrode charges bit-unchanged on skip steps and changed on solve
+     steps, K4 once per step, K5 once per solve step and never on a skip
+     step;
+ 32. the 100k cell with a float64 solve under a float32 engine, INV and
+     CG_MATFREE: K1, K2a and K3 once per step each and no hand kernel in
+     the float64 solve; INV against phase 26's float64 run within
+     MIXED_F64_GAP, CG_MATFREE against the mixed INV run within
+     CG_TOL_GAP (and CG_INV_GAP at CG_TIGHT_TOL);
+ 33. the mid-size cell under CG_MATFREE with mobile electrodes (every
+     atom thermostatted, the electrodes given velocities): 3 steps in
+     float32 against float64 on the card (no hand kernel there) within
+     CG_TOL_GAP; the real-space block rebuilt from the moved electrodes
+     and the operator there equal to A assembled at those positions;
+ 34. the chunked factored Ewald, CHUNK_CELL (13,440 atoms, nxy 1,813 >
+     KXY_CHUNK, EWALD, INV, the block list): 3 steps in float32 against
+     float64 on the card with phase 5's bounds, K1 in the float32 run; the
+     peak device memory of a step beside the unchunked tables' size.
+
 The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
 angle the three constraint directions of a straight cation are parallel,
 so SHAKE corrects along the axis only; the bend that the forces make stays,
@@ -258,8 +292,13 @@ IL_F64_BONDS = 2.996e-3
 # the CPU float64 run (relative to the largest |q| and to |pe|)
 F64_STEPS = 3
 F64_CARD_REL = 1e-10
-# the CPU float64 runs of phases 5, 9 and 13 at F64_STEPS, by cell
+# the CPU float64 runs of phases 5, 9 and 13 at F64_STEPS, by cell; the
+# card float32 states beside them and their max|dq_ele| (e)
 CPU64 = {}
+CARD32 = {}
+GAP32 = {}
+# phase 26's float64 card states after F64_STEPS steps, by cell
+CARD64 = {}
 # phases 27-29: the fix scalar, card float32 against CPU float64
 SCALAR_REL = 1e-4
 OUT_DIR = "chiprun_out"
@@ -613,6 +652,20 @@ def main() -> int:
     for name in DECK_COUNTERS:
         results[name]["launches_decks"] = {
             cell: n[name] for cell, n in deck_launches.items()}
+    # phases 30-34: the rest of the charge solve
+    cg_matfree_path(card, dev, results)
+    nevery_path(card, dev, results)
+    mixed_path(card, dev, results)
+    mobile_path(card, dev, results)
+    chunked_path(card, dev, results)
+    print("phases 30-34: " + json.dumps(results["solve_paths"])
+          + f"  [{card}]")
+    # each kernel's launches on those main runs, by cell
+    for name, (_, counter) in KERNEL_IDS.items():
+        per_cell = {cell: moved[counter] for cell, moved in
+                    SOLVE_LAUNCHES.items() if moved.get(counter)}
+        if per_cell:
+            results[name]["launches_solve_paths"] = per_cell
     pallas = "lammps_user_conp2_tpu/ops/pallas/"
     replaces = {
         "pair_forces_conp": pallas + "pair_kernel.py:316",
@@ -649,7 +702,7 @@ def main() -> int:
             n = g["launches"].get(counter, 0)
             if n and kid in g["kernel_device_ms_per_step"]:
                 per_cell[g["cell"]] = (g["kernel_device_ms_per_step"][kid]
-                                       * GRAPH_PROFILE_STEPS / n)
+                                       * g["profile_steps"] / n)
         results[name]["device_ms_replay"] = per_cell
     # rule 2's order: launches per step x (device ms per launch - bound),
     # the bound at the cell's shapes where the kernels line has it
@@ -668,7 +721,7 @@ def main() -> int:
             if key is None:
                 continue
             b = r.get(key, r["bound_ms"])
-            per_step = g["launches"][counter] / GRAPH_PROFILE_STEPS
+            per_step = g["launches"][counter] / g["profile_steps"]
             ms = r["device_ms_replay"][g["cell"]]
             gaps.append((per_step * (ms - b), kid, g["cell"], ms, b,
                          per_step))
@@ -682,7 +735,8 @@ def main() -> int:
             "ms_100k", "host_ms_100k", "device_ms_100k", "bound_ms_100k",
             "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr",
             "floor_ms", "kernels_per_call", "shapes", "launches_decks",
-            "max_rel_err_ehgo_fo", "device_ms_ehgo_fo")
+            "max_rel_err_ehgo_fo", "device_ms_ehgo_fo",
+            "launches_solve_paths")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -1185,9 +1239,8 @@ def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):
 
 # graphed-vs-eager pairs per cell and the steps of each run: each run
 # starts from the same state
-GRAPH_PAIRS = 5
+GRAPH_PAIRS = 3
 GRAPH_STEPS = 100
-GRAPH_PROFILE_STEPS = GRAPH_STEPS
 GRAPHS = []
 
 
@@ -1201,18 +1254,20 @@ def _state_diff(a, b):
     return (same, *d)
 
 
-def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
+def graph_phase(tag, cell, eng, st_kw, card, pairs=None, steps=None):
     """The step replayed as CUDA graphs (``Engine.run``) against the eager
     step (``Engine.step`` in a loop), from the same state, GRAPH_STEPS
     steps per run: GRAPH_PAIRS alternating (eager, graphed) pairs on the
     host clock; eager vs eager, graphed vs eager and graphed vs graphed on
     x, v, q and pe, all bit for bit; the host syncs of a graphed run
     (torch.cuda.set_sync_debug_mode: none per step on the dense paths, one
-    on the list paths); a torch.profiler window of the same replayed steps
-    (the same list rebuilds): the device-busy share of the graphed step and
-    each hand kernel's device time per launch.  ``pairs``: the (eager,
-    graphed) pairs (GRAPH_PAIRS when None).  Appends the cell's record to
-    GRAPHS."""
+    on the list paths, and with the CG solvers one more per solve and one
+    per CG block: exactly the eager step's reads); a torch.profiler window
+    of the same replayed steps (the same list rebuilds): the device-busy
+    share of the graphed step and each hand kernel's device time per
+    launch.  ``pairs``: the (eager, graphed) pairs (GRAPH_PAIRS when None);
+    ``steps``: the steps of each run (GRAPH_STEPS when None).  Appends the
+    cell's record to GRAPHS."""
     import warnings
     from lammps_user_conp2_tpu_torch.ops.kernels import build
     from lammps_user_conp2_tpu_torch.step_breakdown import (device_busy,
@@ -1220,6 +1275,7 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
     from torch.profiler import ProfilerActivity, profile
 
     npairs = GRAPH_PAIRS if pairs is None else pairs
+    nsteps = GRAPH_STEPS if steps is None else steps
     st0 = eng.init_state(**st_kw)
     eng.run(st0, 2, thermo_every=0)              # captured (or reused)
     torch.cuda.synchronize()
@@ -1227,15 +1283,15 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
     for _ in range(npairs):
         t0 = time.perf_counter()
         st = st0
-        for _ in range(GRAPH_STEPS):
+        for _ in range(nsteps):
             st = eng.step(st)
         torch.cuda.synchronize()
-        eager_ms.append((time.perf_counter() - t0) / GRAPH_STEPS * 1e3)
+        eager_ms.append((time.perf_counter() - t0) / nsteps * 1e3)
         eager_out.append(st)
         t0 = time.perf_counter()
-        st, _ = eng.run(st0, GRAPH_STEPS, thermo_every=0)
+        st, _ = eng.run(st0, nsteps, thermo_every=0)
         torch.cuda.synchronize()
-        graph_ms.append((time.perf_counter() - t0) / GRAPH_STEPS * 1e3)
+        graph_ms.append((time.perf_counter() - t0) / nsteps * 1e3)
         graph_out.append(st)
     # every pair of runs: eager-eager, graphed-eager, graphed-graphed
     ee = [_state_diff(eager_out[i], eager_out[j])
@@ -1252,7 +1308,7 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
             median=[float(np.median([d[k] for d in ds])) for k in
                     range(1, 5)])
         st_ = stats[label]
-        print(f"{tag}: {cell}, {GRAPH_STEPS} steps from one state, "
+        print(f"{tag}: {cell}, {nsteps} steps from one state, "
               f"{label} ({len(ds)} pairs): bit-identical "
               f"{st_['bit_identical']}; max / median |dx| "
               f"{st_['max'][0]:.3e} / {st_['median'][0]:.3e}, |dv| "
@@ -1264,7 +1320,7 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
             raise AssertionError(f"{tag}: {cell}, {label} differ: the step "
                                  "is not bit-reproducible")
     # the thermo rows of a graphed run: its last pe is the eager state's
-    st_th, th = eng.run(st0, GRAPH_STEPS, thermo_every=GRAPH_STEPS // 10)
+    st_th, th = eng.run(st0, nsteps, thermo_every=max(nsteps // 10, 1))
     torch.cuda.synchronize()
     if not (_state_diff(st_th, eager_out[0])[0]
             and float(th["pe"][-1]) == float(eager_out[0].energy)):
@@ -1275,12 +1331,15 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
     print(f"{tag}: ms/step eager / graphed pairs " + ", ".join(
         f"{e:.4f} / {g:.4f}" for e, g in zip(eager_ms, graph_ms))
         + f"  [{card}]")
-    # host syncs of one graphed run
+    # host syncs of one graphed run: the skin flag per step on the list
+    # paths, and with CG one read after the solve's head and one per block
+    cg = eng.conp is not None and eng.conp.cfg.solver.name != "INV"
+    b0 = eng.cg_blocks
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            eng.run(st0, GRAPH_STEPS, thermo_every=0)
+            eng.run(st0, nsteps, thermo_every=0)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1291,12 +1350,18 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
             where[loc] = where.get(loc, 0) + 1
     syncs = sum(where.values())
     listed = eng.ncfg is not None
-    print(f"{tag}: {syncs} host syncs in a graphed run of {GRAPH_STEPS} "
-          f"steps ({'one per step allowed' if listed else 'none per step'},"
-          f" plus the end-of-run check): {where}")
-    if syncs > (GRAPH_STEPS if listed else 0) + 2:
+    blocks = eng.cg_blocks - b0
+    solves = sum(eng.solves(st0.step + i) for i in range(nsteps)) if cg \
+        else 0
+    reads = (nsteps if listed else 0) + solves + blocks
+    print(f"{tag}: {syncs} host syncs in a graphed run of {nsteps} "
+          f"steps ({syncs / nsteps:.2f} per step; flag reads: "
+          f"{'one per step' if listed else 'none per step'}"
+          + (f", {solves} CG solves with {blocks} CG blocks" if cg else "")
+          + f" = {reads}, plus the end-of-run check): {where}")
+    if syncs > reads + 2:
         raise AssertionError(f"{tag}: {syncs} host syncs in the graphed run")
-    if listed and syncs < GRAPH_STEPS:
+    if syncs < reads:
         raise AssertionError(f"{tag}: the sync count missed the flag reads")
     # the profiled window, the timed runs' trajectory: busy share and
     # device time per launch
@@ -1304,12 +1369,12 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
     r0 = eng.rebuilds
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.run(st0, GRAPH_PROFILE_STEPS, thermo_every=0)
+        eng.run(st0, nsteps, thermo_every=0)
         torch.cuda.synchronize()
     rebuilds = eng.rebuilds - r0
     launched = {c.name: c.count - before[c.name] for c in build.COUNTERS
                 if c.count != before[c.name]}
-    busy, by_name = device_busy(prof, GRAPH_PROFILE_STEPS)
+    busy, by_name = device_busy(prof, nsteps)
     with open(os.path.join(OUT_DIR, f"graph_profile_{cell}.txt"), "w") as fh:
         fh.write(card + "\n")
         fh.write(prof.key_averages().table(
@@ -1325,7 +1390,7 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
     share = busy / g_med
     print(f"{tag}: graphed step {g_med:.4f} ms (median), device busy "
           f"{busy:.4f} ms/step (union of kernel intervals over "
-          f"{GRAPH_PROFILE_STEPS} replayed steps, {rebuilds} list "
+          f"{nsteps} replayed steps, {rebuilds} list "
           f"rebuilds), busy share {share:.3f}, "
           f"{nk:.0f} device kernels per step; eager step "
           f"{float(np.median(eager_ms)):.4f} ms  [{card}]")
@@ -1335,7 +1400,9 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None):
     GRAPHS.append(dict(
         cell=cell, natoms=eng.system.natoms, eager_ms=eager_ms,
         graph_ms=graph_ms, busy_ms=busy, busy_share=share,
-        kernels_per_step=nk, host_syncs=syncs, rebuilds_profiled=rebuilds,
+        kernels_per_step=nk, host_syncs=syncs, profile_steps=nsteps,
+        host_syncs_per_step=syncs / nsteps, cg_blocks=blocks,
+        rebuilds_profiled=rebuilds,
         diffs=stats,
         launches=launched, kernel_device_ms_per_step={
             k: v[0] for k, v in per_kernel.items()}))
@@ -1365,6 +1432,9 @@ def card_vs_cpu(tag, eng, system, md, cfg, nsteps, x0=None, cell=None,
         agree(f"{tag}: step {i + 1}", s32, s64, conp64.ne, scalar)
         if cell is not None and i + 1 == F64_STEPS:
             CPU64[cell] = (system, md, cfg, x0, s64)
+            CARD32[cell] = s32
+            GAP32[cell] = float((s32.q[:conp64.ne].double().cpu()
+                                 - s64.q[:conp64.ne]).abs().max())
     print(f"{tag}: {nsteps} steps matched the float64 CPU run "
           f"({time.perf_counter() - t0:.1f} s)")
     return s32, s64
@@ -1789,6 +1859,7 @@ def f64_path(card, dev):
         if len(eng._step_graphs) != 1:
             raise AssertionError(f"phase 26: {cell}: Engine.run did not "
                                  "replay one set of graphs")
+        CARD64[cell] = st
         dq = float((st.q.cpu() - ref.q).abs().max()) / float(
             ref.q.abs().max())
         dpe = abs(float(st.energy) - float(ref.energy)) / abs(
@@ -1806,7 +1877,7 @@ def f64_path(card, dev):
         if not (dq <= F64_CARD_REL and dpe <= F64_CARD_REL):
             raise AssertionError(f"phase 26: {cell}: float64 card vs CPU gap "
                                  f"above {F64_CARD_REL}")
-        del eng, conp, st
+        del eng, conp
         torch.cuda.empty_cache()
     print("phase 26: float64 gaps " + json.dumps(gaps))
 
@@ -2009,6 +2080,474 @@ def zmirror_path(card, dev, results, path):
     if not worst <= 1e-4:
         raise AssertionError("phase 29: a half's electrodes are not neutral")
     return launches
+
+
+# phases 30-34: the rest of the charge solve
+# CG against INV, e, where the CG tolerance does not set the gap (the JAX
+# package's note puts the default tolerance's gap near 1e-4 e at its
+# dilute deck: tests/test_modes.py:101-103)
+CG_INV_GAP = 2e-4
+# the tolerance of phase 32's float64 CG run held to CG_INV_GAP (a float32
+# CG below its rounding floor wanders); and the bound of the default
+# tolerance's own gap to INV, e: at the 100k cell the CG stops after 4
+# cold iterations, 1.335e-3 e from INV with a float32 and with a float64
+# solve alike (NVIDIA H100 80GB HBM3, 700 W); the port's CG takes the JAX
+# package's iterations (tests/test_torch_cg.py)
+CG_TIGHT_TOL = 1e-12
+CG_TOL_GAP = 2e-3
+# the matrix-free operator against A assembled in float64 (relative to
+# max|A p|): its float64 build, and its float32 build against that
+OP_REL64 = 1e-9
+OP_REL32 = 1e-4
+# phase 32: the mixed-precision INV run against phase 26's float64 run, e
+MIXED_F64_GAP = 1e-5
+# phase 30's warm-started steps, and the steps of each run in the graph
+# phases of 30 and 32-34
+CG_STEPS = 20
+CG_GRAPH_STEPS = 20
+# phase 34's cell: the mid-size density in a 70 A wide box, above KXY_CHUNK
+CHUNK_CELL = dict(n_elyte=12288, nele_side=24, lz=60.0, lxy=70.0)
+# hand-kernel launches on the main runs of phases 30-34, by cell and counter
+SOLVE_LAUNCHES = {}
+
+
+def device_ms_all(fn, reps=10) -> float:
+    """Device time per call of every CUDA kernel ``fn`` launches
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type.name == "CUDA") / 1e3 / reps
+
+
+def _launch_counts() -> dict:
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    return {c.name: c.count for c in build.COUNTERS}
+
+
+def _moved(before) -> dict:
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    return {c.name: c.count - before[c.name] for c in build.COUNTERS
+            if c.count != before[c.name]}
+
+
+def _ele_gap(a, b, ne) -> float:
+    return float((a.q[:ne].double().cpu() - b.q[:ne].double().cpu()).abs()
+                 .max())
+
+
+def cg_matfree_path(card, dev, results):
+    """Phase 30: the 100k cell under CG_MATFREE in float32, as
+    ``tools/step_breakdown_large.py`` configures it (PPPM, the block list,
+    the default cg_tolerance and cg_maxiter): the cold CG iterations; the
+    operator apply's ms and device ms beside its GEMM bound; CG_STEPS
+    warm-started graphed steps, each solve's iterations and CG blocks (and
+    whether every step ran to cg_maxiter); K1, K2a and K3 every step; the
+    charges after F64_STEPS steps against phase 9's INV run from the same
+    state within CG_TOL_GAP; the operator against A (``operator_check``);
+    a graph phase of 2 pairs."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import CG_BLOCK, setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+    from lammps_user_conp2_tpu_torch.utils.config import Solver
+    tag = "phase 30"
+    system, md, cfg = large_cell()
+    cfg = dataclasses.replace(cfg, solver=Solver.CG_MATFREE)
+    x_near = workloads.near_wall_positions(system)
+    t0 = time.perf_counter()
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    fk, ne = conp.fksp, conp.ne
+    print(f"{tag}: {system.natoms} atoms, Ne={ne}, CG_MATFREE (tolerance "
+          f"{cfg.cg_tolerance}, maxiter {cfg.cg_maxiter}, CG_BLOCK "
+          f"{CG_BLOCK}), "
+          f"PPPM mesh {eng.pppm_grid.shape}, the operator's factored Ewald "
+          f"nxy={fk.nxy}, nz={fk.nz}, block list {eng.ncfg.block}, set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not (eng.ncfg.block == 8 and eng.fksp is None):
+        raise AssertionError(f"{tag}: not the block list with PPPM forces")
+    st = eng.init_state(x0=x_near)
+    cold = conp.cg_iterations(st.x, st.q, st.nbr, eng.ncfg, st.tasg)
+    print(f"{tag}: cold CG iterations at x_near: {cold}")
+    # the operator apply: eight (Ne, nxy, nz) products
+    pend = conp.solve_begin(st.x, st.q, st.nbr, eng.ncfg, st.tasg,
+                            step=st.step_t + 1, scalar_prev=st.scalar_out)
+    op = conp.operator(pend)
+    p = pend.cg.p
+    apply_ms = median_ms(lambda: op(p))
+    apply_dev = device_ms_all(lambda: op(p))
+    flops = 8 * 2 * ne * fk.nxy * fk.nz
+    apply_bound = flops / F32_FLOP_PER_S * 1e3
+    print(f"{tag}: operator apply {apply_ms:.4f} ms (events), device "
+          f"{apply_dev:.4f} ms; GEMM bound {apply_bound:.4f} ms ({flops:.4g} "
+          f"FLOP at {F32_FLOP_PER_S:.3g} FLOP/s float32), "
+          f"{100 * apply_bound / apply_dev:.1f}% of it  [{card}]")
+    del pend, op, p
+    # warm-started graphed steps, one run each: the iterations per solve
+    before = _launch_counts()
+    its, blocks = [], []
+    t0 = time.perf_counter()
+    for _ in range(CG_STEPS):
+        b0 = eng.cg_blocks
+        st, _ = eng.run(st, 1, thermo_every=0)
+        runner = next(iter(eng._step_graphs.values()))
+        its.append(int(runner.pend.cg.it))
+        blocks.append(eng.cg_blocks - b0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    moved = _moved(before)
+    SOLVE_LAUNCHES["100k_cg_matfree"] = moved
+    print(f"{tag}: {CG_STEPS} warm-started graphed steps, CG iterations per "
+          f"solve {its}, CG blocks replayed per step {blocks} (mean "
+          f"{np.mean(blocks):.2f}), {1e3 * secs / CG_STEPS:.2f} ms/step with "
+          f"a run per step; launches {moved}  [{card}]")
+    if all(i >= cfg.cg_maxiter for i in its):
+        print(f"{tag}: CG ran to cg_maxiter={cfg.cg_maxiter} on every step "
+              f"(float32 never met <r, p>/Ne < {cfg.cg_tolerance})")
+    for name in ("block_pair", "spread_mesh", "gather3"):
+        if moved.get(name, 0) != CG_STEPS:
+            raise AssertionError(f"{tag}: {name} launched "
+                                 f"{moved.get(name, 0)} times in {CG_STEPS} "
+                                 "steps")
+    if not math.isfinite(float(st.energy)):
+        raise AssertionError(f"{tag}: energy is not finite")
+    # the charges after F64_STEPS steps against phase 9's INV run, at the
+    # default tolerance
+    s = eng.init_state(x0=x_near)
+    for _ in range(F64_STEPS):
+        s = eng.step(s)
+    gap = _ele_gap(s, CARD32["100k"], ne)
+    print(f"{tag}: after {F64_STEPS} steps max|q_ele(CG_MATFREE) - "
+          f"q_ele(INV, phase 9)| {gap:.3e} e at the default tolerance "
+          f"(bound {CG_TOL_GAP})")
+    if not gap <= CG_TOL_GAP:
+        raise AssertionError(f"{tag}: CG_MATFREE vs INV gap {gap:.3e} e")
+    op_err = operator_check(tag, conp, s.x, dev, card)
+    graph_phase(f"{tag}b", "100k_cg_matfree", eng, dict(x0=x_near), card,
+                pairs=2, steps=CG_GRAPH_STEPS)
+    results["solve_paths"] = dict(
+        cg_cold_iterations=cold, cg_iterations=its, cg_blocks=blocks,
+        apply_ms=apply_ms, apply_device_ms=apply_dev,
+        apply_bound_ms=apply_bound, cg_vs_inv_gap=gap,
+        operator_rel_err=op_err)
+    del eng, conp, st, s
+    torch.cuda.empty_cache()
+
+
+def operator_check(tag, conp, x, dev, card):
+    """The CG_MATFREE operator of ``conp`` at positions x (the solve dtype,
+    the real-space block rebuilt at x with mobile electrodes) against the
+    same operator built in float64, and that against A assembled in float64
+    on the CPU at x as INV's set-up assembles it, on a neutral random p:
+    within OP_REL32 and OP_REL64 of max|A p|.  Returns both errors."""
+    from lammps_user_conp2_tpu_torch.models import conp as C
+    from lammps_user_conp2_tpu_torch.models.electrodes import assemble_amatrix
+    from lammps_user_conp2_tpu_torch.ops import ewald_factored as ewf
+    ne, k, g = conp.ne, conp.kernels, conp.ksp.g_ewald
+    ele = conp.ele_idx
+    xe = x[:ne].double()
+    a = assemble_amatrix(xe.cpu().numpy(), conp.type_idx[ele],
+                         k.self_diag[ele], conp.ksp, k, box=conp.box,
+                         periodic=conp.periodic, cut_coulsq=conp.cut_coulsq)
+    rb = C.realspace_block(xe, torch.as_tensor(conp.type_idx[ele],
+                                               device=dev),
+                           k.potential_A, g=g, box=conp.box,
+                           periodic=conp.periodic, cut_coulsq=conp.cut_coulsq)
+    diag = torch.as_tensor(k.self_diag[ele] - 2.0 / math.sqrt(math.pi) * g,
+                           dtype=torch.float64, device=dev)
+    op64 = C.make_matfree_operator(
+        ewf.factorize(conp.ksp, device=dev, dtype=torch.float64), xe, rb,
+        diag, slabflag=conp.ksp.slabflag, volume=conp.ksp.volume)
+    op = conp._matfree_operator(x.to(conp.solve_dtype))
+    p = np.random.default_rng(30).standard_normal(ne)
+    p -= p.mean()
+    ap = a.numpy() @ p
+    pt = torch.as_tensor(p, device=dev)
+    got64 = op64(pt).cpu().numpy()
+    got = op(pt.to(conp.solve_dtype)).double().cpu().numpy()
+    scale = np.abs(ap).max()
+    rel64 = float(np.abs(got64 - ap).max() / scale)
+    rel = float(np.abs(got - got64).max() / scale)
+    print(f"{tag}: the matrix-free operator at the step's positions: float64 "
+          f"against A assembled in float64 {rel64:.3e} (bound {OP_REL64}), "
+          f"{conp.solve_dtype} against float64 {rel:.3e} (bound {OP_REL32}) "
+          f"of max|A p|  [{card}]")
+    if not (rel64 <= OP_REL64 and rel <= OP_REL32):
+        raise AssertionError(f"{tag}: the operator is not A")
+    return dict(float64_vs_a=rel64, solve_dtype_vs_float64=rel)
+
+
+def nevery_path(card, dev, results):
+    """Phase 31: the mid-size cell under CG with nevery = 2, float32: over
+    10 graphed steps (a run each) the electrode charges bit-unchanged on
+    the steps that skip the solve and changed on the others; K4 once per
+    step, K5 once on solve steps and never on skip steps; a graph phase of
+    2 pairs (both variants of the step replayed)."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.utils.config import Solver
+    tag = "phase 31"
+    system, md, cfg = workloads.synthetic(**CELL)
+    cfg = dataclasses.replace(cfg, solver=Solver.CG, nevery=2)
+    x_near = workloads.near_wall_positions(system)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    ne = conp.ne
+    if eng.ncfg is not None:
+        raise AssertionError(f"{tag}: not the dense path")
+    st = eng.init_state(x0=x_near)
+    rows = []
+    total = {}
+    for i in range(10):
+        before = _launch_counts()
+        q0 = st.q[:ne].clone()
+        b0 = eng.cg_blocks
+        st, _ = eng.run(st, 1, thermo_every=0)
+        moved = _moved(before)
+        for k, n in moved.items():
+            total[k] = total.get(k, 0) + n
+        solve = eng.solves(i)
+        same = torch.equal(st.q[:ne], q0)
+        k4n, k5n = moved.get("pair_forces", 0), moved.get("b_realspace", 0)
+        rows.append(f"step {i + 1} {'solve' if solve else 'skip'}: q_ele "
+                    f"{'unchanged' if same else 'changed'}, K4 {k4n}, K5 "
+                    f"{k5n}, CG blocks {eng.cg_blocks - b0}")
+        if not (same != solve and k4n == 1 and k5n == int(solve)):
+            raise AssertionError(f"{tag}: {rows[-1]}")
+    SOLVE_LAUNCHES["mid_cg_nevery2"] = total
+    print(f"{tag}: {system.natoms} atoms, CG, nevery 2, 10 graphed steps: "
+          + "; ".join(rows))
+    graph_phase(f"{tag}b", "mid_cg_nevery2", eng, dict(x0=x_near), card,
+                pairs=2, steps=50)
+    del eng, conp
+    torch.cuda.empty_cache()
+
+
+def mixed_path(card, dev, results):
+    """Phase 32: the 100k cell with a float64 solve under a float32 engine,
+    under INV and CG_MATFREE: F64_STEPS graphed steps; K1, K2a and K3 once
+    per step each and no other hand kernel (the float64 solve takes the
+    plain versions: K2a moves by 1 per step, not 2); INV against phase 26's
+    float64 run within MIXED_F64_GAP, CG_MATFREE against the mixed INV run
+    within CG_TOL_GAP at the default tolerance and CG_INV_GAP at
+    CG_TIGHT_TOL; a graph phase of 2 pairs each at the default
+    tolerance."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+    from lammps_user_conp2_tpu_torch.utils.config import Solver
+    tag = "phase 32"
+    system, md, cfg = large_cell()
+    x_near = workloads.near_wall_positions(system)
+    ref = {}
+    gaps = {}
+    for solver in ("INV", "CG_MATFREE", "CG_MATFREE tight"):
+        t0 = time.perf_counter()
+        c = dataclasses.replace(cfg, solver=Solver[solver.split()[0]])
+        if solver.endswith("tight"):
+            c = dataclasses.replace(c, cg_tolerance=CG_TIGHT_TOL)
+        conp = setup_conp(system, md, c, solve_dtype=torch.float64,
+                          device=dev)
+        eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+        ne = conp.ne
+        if not (eng.ncfg.block == 8 and eng.fksp is None
+                and eng.dtype == torch.float32):
+            raise AssertionError(f"{tag}: not the float32 block-list engine")
+        st = eng.init_state(x0=x_near)
+        before = _launch_counts()
+        st, _ = eng.run(st, F64_STEPS, thermo_every=0)
+        torch.cuda.synchronize()
+        moved = _moved(before)
+        cell = "100k_mixed_" + solver.lower().replace(" ", "_")
+        SOLVE_LAUNCHES[cell] = moved
+        want = {n: F64_STEPS for n in ("block_pair", "spread_mesh",
+                                       "gather3")}
+        if moved != want:
+            raise AssertionError(f"{tag}: {solver}: launches {moved}, not "
+                                 f"{want}")
+        if solver == "INV":
+            gaps[solver] = _ele_gap(st, CARD64["100k"], ne)
+            bound = MIXED_F64_GAP
+            against = "phase 26's float64 run"
+        else:
+            gaps[solver] = _ele_gap(st, ref["INV"], ne)
+            bound = CG_INV_GAP if solver.endswith("tight") else CG_TOL_GAP
+            against = "the mixed INV run"
+        ref[solver] = st
+        print(f"{tag}: {solver}, tolerance {c.cg_tolerance}, float64 solve "
+              f"under a float32 engine, "
+              f"{F64_STEPS} graphed steps (set-up and run "
+              f"{time.perf_counter() - t0:.1f} s): launches {moved}; "
+              f"max|dq_ele| against {against} {gaps[solver]:.3e} e (bound "
+              f"{bound})  [{card}]")
+        if not gaps[solver] <= bound:
+            raise AssertionError(f"{tag}: {solver} gap {gaps[solver]:.3e}")
+        if not solver.endswith("tight"):
+            graph_phase(f"{tag}b", cell, eng, dict(x0=x_near), card,
+                        pairs=2, steps=CG_GRAPH_STEPS)
+        del eng, conp
+        torch.cuda.empty_cache()
+    results["solve_paths"]["mixed_gaps"] = gaps
+    del ref
+
+
+def mobile_path(card, dev, results):
+    """Phase 33: the mid-size cell under CG_MATFREE with mobile electrodes
+    (a thermostat on every atom, the electrodes given velocities): 3 steps
+    in float32 against the same run in float64 on the card (the plain
+    route: no hand kernel launches there), the gap within CG_TOL_GAP (the
+    two CG runs stop at different iterates); the electrodes moved, the
+    real-space block rebuilt from them after step 1 and the operator there
+    equal to A assembled at the moved positions (``operator_check``); a
+    graph phase of 2 pairs."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.utils.config import (Solver,
+                                                          ThermostatConfig)
+    tag = "phase 33"
+    system, md, cfg = workloads.synthetic(**CELL)
+    system = dataclasses.replace(system, groups=dict(
+        system.groups, all=np.ones(system.natoms, bool)))
+    md = dataclasses.replace(md, thermostats=(
+        ThermostatConfig("all", 300.0, 300.0, 100.0),))
+    cfg = dataclasses.replace(cfg, solver=Solver.CG_MATFREE,
+                              mobile_electrodes=True)
+    x_near = workloads.near_wall_positions(system)
+    rng = np.random.default_rng(33)
+    v0 = np.array(system.v0)
+    v0[system.ele_mask] = 0.005 * rng.standard_normal(
+        (int(system.ele_mask.sum()), 3))
+    runs = {}
+    for dt in (torch.float32, torch.float64):
+        conp = setup_conp(system, md, cfg, solve_dtype=dt, device=dev)
+        eng = build_engine(system, md, conp, dtype=dt, device=dev)
+        before = _launch_counts()
+        st = eng.init_state(x0=x_near, v0=v0)
+        st, _ = eng.run(st, F64_STEPS, thermo_every=0)
+        torch.cuda.synchronize()
+        moved = _moved(before)
+        if dt == torch.float64 and moved:
+            raise AssertionError(f"{tag}: hand kernels launched in float64: "
+                                 f"{moved}")
+        if dt == torch.float32:
+            SOLVE_LAUNCHES["mid_mobile_cg_matfree"] = moved
+            if not (moved.get("pair_forces", 0) >= F64_STEPS
+                    and moved.get("b_realspace", 0) >= F64_STEPS):
+                raise AssertionError(f"{tag}: K4/K5 launches {moved}")
+        runs[dt] = (conp, eng, st)
+        print(f"{tag}: {dt}: launches {moved}")
+    conp32, eng32, s32 = runs[torch.float32]
+    ne = conp32.ne
+    gap = _ele_gap(s32, runs[torch.float64][2], ne)
+    # the float32 and the float64 CG stop at different iterates, each
+    # within the default tolerance's gap of the exact answer
+    bound = CG_TOL_GAP
+    dx = float((s32.x[:ne].double().cpu()
+                - torch.as_tensor(x_near[:ne])).abs().max())
+    s1, _ = eng32.run(eng32.init_state(x0=x_near, v0=v0), 1, thermo_every=0)
+    pend = conp32.solve_begin(s1.x, s1.q, step=s1.step_t + 1,
+                              scalar_prev=s1.scalar_out)
+    drb = float((pend.op.real_block - conp32.real_block).abs().max())
+    print(f"{tag}: {system.natoms} atoms, mobile electrodes moved up to "
+          f"{dx:.3e} A in {F64_STEPS} steps; real-space block after step 1 "
+          f"differs from the set-up one by up to {drb:.3e}; float32 vs "
+          f"float64 on the card max|dq_ele| {gap:.3e} e (bound {bound}; "
+          f"phase 5's float32 vs float64 gap with INV {GAP32['mid']:.3e})  "
+          f"[{card}]")
+    if not (dx > 0.0 and drb > 0.0):
+        raise AssertionError(f"{tag}: the electrodes or their block did not "
+                             "move")
+    if not gap <= bound:
+        raise AssertionError(f"{tag}: float32 vs float64 gap {gap:.3e}")
+    op_err = operator_check(tag, conp32, s1.x, dev, card)
+    del runs, pend
+    graph_phase(f"{tag}b", "mid_mobile_cg_matfree", eng32,
+                dict(x0=x_near, v0=v0), card, pairs=2, steps=CG_GRAPH_STEPS)
+    results["solve_paths"]["mobile_gap"] = gap
+    results["solve_paths"]["mobile_operator_rel_err"] = op_err
+    del eng32, conp32
+    torch.cuda.empty_cache()
+
+
+def chunked_path(card, dev, results):
+    """Phase 34: the chunked factored Ewald, CHUNK_CELL (13,440 atoms, EWALD,
+    INV, nxy above KXY_CHUNK, the block list on the card): 3 steps in
+    float32 against float64 on the card with phase 5's bounds; K1 in the
+    float32 run, no hand kernel in the float64 one; a graph phase of 2
+    pairs; the peak device memory a step adds beside the size of the
+    unchunked (N, nxy) tables."""
+    import types
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops import ewald_factored as ewf
+    tag = "phase 34"
+    system, md, cfg = workloads.synthetic(**CHUNK_CELL)
+    x_near = workloads.near_wall_positions(system)
+    states = {}
+    engs = {}
+    for dt in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        conp = setup_conp(system, md, cfg, solve_dtype=dt, device=dev)
+        eng = build_engine(system, md, conp, dtype=dt, device=dev)
+        before = _launch_counts()
+        st = eng.init_state(x0=x_near)
+        st, _ = eng.run(st, F64_STEPS, thermo_every=0)
+        torch.cuda.synchronize()
+        moved = _moved(before)
+        print(f"{tag}: {dt}: {system.natoms} atoms, Ne={conp.ne}, EWALD nxy="
+              f"{conp.fksp.nxy} nz={conp.fksp.nz} (KXY_CHUNK "
+              f"{ewf.KXY_CHUNK}), list block={eng.ncfg.block}, set-up and "
+              f"run {time.perf_counter() - t0:.1f} s; launches {moved}")
+        if not (conp.fksp.nxy > ewf.KXY_CHUNK and eng.ncfg is not None):
+            raise AssertionError(f"{tag}: not a chunked Ewald list cell")
+        if dt == torch.float32:
+            SOLVE_LAUNCHES["chunked_ewald"] = moved
+            if not (eng.ncfg.block == 8
+                    and moved.get("block_pair", 0) >= F64_STEPS):
+                raise AssertionError(f"{tag}: K1 did not run: {moved}")
+        elif moved:
+            raise AssertionError(f"{tag}: hand kernels in float64: {moved}")
+        states[dt], engs[dt] = st, eng
+    s64 = states[torch.float64]
+    ref = types.SimpleNamespace(q=s64.q.cpu(), energy=s64.energy.cpu(),
+                                f=s64.f.cpu(), scalar_out=s64.scalar_out.cpu())
+    agree(f"{tag}: after {F64_STEPS} steps, float32 vs float64 on the card",
+          states[torch.float32], ref, int(system.ele_mask.sum()))
+    eng = engs[torch.float32]
+    del engs, states, s64, ref
+    torch.cuda.empty_cache()
+    graph_phase(f"{tag}b", "chunked_ewald", eng, dict(x0=x_near), card,
+                pairs=2, steps=CG_GRAPH_STEPS)
+    st = eng.init_state(x0=x_near)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = eng.step(st)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    whole = 2 * system.natoms * eng.conp.fksp.nxy * 4
+    print(f"{tag}: peak device memory a float32 step adds {peak / 2**20:.1f} "
+          f"MiB; the unchunked (N, nxy) tables alone {whole / 2**20:.1f} MiB "
+          f"(2 x {system.natoms} x {eng.conp.fksp.nxy} x 4 bytes)  [{card}]")
+    results["solve_paths"]["chunked_peak_mib"] = peak / 2**20
+    results["solve_paths"]["unchunked_tables_mib"] = whole / 2**20
+    del eng, st
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

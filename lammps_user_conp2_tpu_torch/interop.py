@@ -40,15 +40,18 @@ def system_from_numpy(fields: dict) -> System:
 
 def context_from_numpy(fields: dict, *, device=None,
                        dtype=DEFAULT_DTYPE) -> ConpContext:
-    """ConpContext of the INV solve from the JAX context's fields (ainv, d,
-    elesetq, totsetq, eleinitq, elecheck_ele, ele_idx, setzvec, vmult;
-    others ignored), on ``device`` (None: the card)."""
+    """ConpContext from the JAX context's fields (ainv, amat, real_block,
+    diag_extra, d, elesetq, totsetq, eleinitq, elecheck_ele, ele_idx,
+    setzvec, vmult; others ignored), on ``device`` (None: the card); A^-1
+    in float64, the rest in ``dtype``."""
     device = resolve_device(device)
     f = lambda k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
                                device=device)
     return ConpContext(
         ainv=torch.tensor(np.asarray(fields["ainv"]), dtype=torch.float64,
-                          device=device), d=f("d"), elesetq=f("elesetq"),
+                          device=device), amat=f("amat"),
+        real_block=f("real_block"), diag_extra=f("diag_extra"),
+        d=f("d"), elesetq=f("elesetq"),
         totsetq=f("totsetq"), eleinitq=f("eleinitq"),
         elecheck_ele=torch.tensor(np.asarray(fields["elecheck_ele"]),
                                   device=device),

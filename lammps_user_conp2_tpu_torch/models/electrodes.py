@@ -27,8 +27,13 @@ MY_PIS = math.sqrt(math.pi)
 
 @dataclasses.dataclass
 class ConpContext:
-    """Static context of the per-step INV charge solve (tensors)."""
-    ainv: torch.Tensor          # (Ne, Ne) projected inverse, float64
+    """Static context of the per-step charge solve (tensors).  A solver's
+    unused matrices are the (1, 1) / (1,) zero placeholders the JAX
+    package keeps."""
+    ainv: torch.Tensor          # (Ne, Ne) projected inverse, float64 (INV)
+    amat: torch.Tensor          # (Ne, Ne) A itself (CG)
+    real_block: torch.Tensor    # (Ne, Ne) real-space block of A (CG_MATFREE)
+    diag_extra: torch.Tensor    # (Ne,) self - 2g/sqrt(pi) (CG_MATFREE)
     d: torch.Tensor             # (Ne,) applied-potential coupling vector
     elesetq: torch.Tensor       # (Ne,) A^-1 d
     totsetq: torch.Tensor       # () sum over the left electrode of elesetq

@@ -9,7 +9,7 @@ the segments of ``Engine.step`` captured here, on static buffers that hold
 the state between replays:
 
 * dense paths (no Verlet list): one graph of the whole step, replayed
-  ``nsteps`` times with no host sync in the loop;
+  ``nsteps`` times with no host sync in the loop (INV);
 * list paths: graph A (``Engine._pre``: thermostat half, kicks, drift,
   SHAKE, the skin check into a device flag), then one host read of the flag
   (the one sync per step the eager step has too), graph R
@@ -17,6 +17,17 @@ the state between replays:
   it is set, then graph B (``Engine._post``: the charge solve, the forces,
   the kick, RATTLE, thermostat half).  That is the eager control flow
   exactly, so the replayed step computes what ``step`` computes, op for op;
+* the CG solvers split the solve out of the step's last graph: graph H
+  (on the dense paths ``_pre`` and) ``Engine._solve_begin`` up to the CG
+  carry, graph C (``CG_BLOCK`` CG iterations, ``ConpSolver.cg_block``)
+  replayed while the carry's device flag, read on the host after H and
+  after each C, says another iteration is due, then graph T
+  (``Engine._post_tail``).  A step then reads the host 1 + (CG blocks)
+  times on the dense paths and 2 + (CG blocks) times on the list paths,
+  as the eager step does;
+* ``nevery`` > 1: a second variant of the solve's graph (B, or the dense
+  whole step) that skips the solve, replayed on the steps whose host step
+  number says so (``Engine.solves``); no host read decides it;
 * the thermo row: a small graph that writes the row into preallocated rows
   at a device counter, replayed every ``thermo_every`` steps.
 
@@ -42,22 +53,29 @@ import dataclasses
 import torch
 
 from ..ops.kernels import build
+from ..utils.config import Solver
 
 # thermo rows the first capture of the thermo graph makes room for
 THERMO_ROWS = 64
 
 
 def clone_state(obj):
-    """A copy of a state (MDState, NeighborList, TileAssign) with every
-    tensor cloned; other fields are shared."""
+    """A copy of a state (MDState, NeighborList, TileAssign, a solve's
+    carry) with every tensor cloned, in tuples and lists too; other fields
+    are shared."""
     if isinstance(obj, torch.Tensor):
         return obj.clone()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(clone_state(o) for o in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(clone_state(o) for o in obj)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
             f.name: clone_state(getattr(obj, f.name))
             for f in dataclasses.fields(obj)
-            if f.init and (isinstance(getattr(obj, f.name), torch.Tensor)
-                           or dataclasses.is_dataclass(getattr(obj, f.name)))})
+            if f.init and (isinstance(getattr(obj, f.name), (
+                torch.Tensor, list, tuple)) or dataclasses.is_dataclass(
+                    getattr(obj, f.name)))})
     return obj
 
 
@@ -141,9 +159,23 @@ class StepGraphs:
         self.rows = None
         self.ctr = torch.zeros(1, dtype=torch.int64, device=state.x.device)
         self.replays = {}
-        segs = (("pre", self._pre), ("rebuild", self._rebuild),
-                ("post", self._post)) if self.listed else (
-                    ("step", self._step),)
+        conp = eng.conp
+        # the solve's CG carry between graphs H, C and T (made in the
+        # warm-up, outside the captures)
+        self.cg = conp is not None and conp.cfg.solver is not Solver.INV
+        self.pend = None
+        segs = [("pre", self._pre), ("rebuild", self._rebuild)] \
+            if self.listed else []
+        last = "post" if self.listed else "step"
+        for solve in ((True, False) if conp is not None
+                      and conp.cfg.nevery > 1 else (True,)):
+            if solve and self.cg:
+                segs += [("head", self._head), ("cg", self._cg),
+                         ("tail", self._tail)]
+            else:
+                fn = self._post if self.listed else self._step
+                segs.append((self._variant(last, solve),
+                             lambda fn=fn, solve=solve: fn(solve)))
         counts = _counts()
 
         def warm():
@@ -170,15 +202,41 @@ class StepGraphs:
         copy_state(self.s.nbr, nbr, "rebuild")
         copy_state(self.s.tasg, tasg, "rebuild")
 
-    def _post(self):
-        x, v, xi, vxi, _ = self.p
-        new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr, self.s.tasg)
-        copy_state(self.s, new, "post")
+    @staticmethod
+    def _variant(name, solve: bool) -> str:
+        return name if solve else name + ":skip"
 
-    def _step(self):
+    def _post(self, solve):
+        x, v, xi, vxi, _ = self.p
+        new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr, self.s.tasg,
+                             solve=solve)
+        copy_state(self.s, new, self._variant("post", solve))
+
+    def _step(self, solve):
         x, v, xi, vxi, _ = self.eng._pre(self.s)
-        new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr, self.s.tasg)
-        copy_state(self.s, new, "step")
+        new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr, self.s.tasg,
+                             solve=solve)
+        copy_state(self.s, new, self._variant("step", solve))
+
+    def _head(self):
+        if not self.listed:
+            x, v, xi, vxi, _ = self.eng._pre(self.s)
+            copy_state(self.p[:4], (x, v, xi, vxi), "head")
+        pend = self.eng._solve_begin(self.s, self.p[0], self.s.nbr,
+                                     self.s.tasg, True)
+        if self.pend is None:
+            self.pend = clone_state(pend)
+        else:
+            copy_state(self.pend, pend, "head")
+
+    def _cg(self):
+        copy_state(self.pend.cg, self.eng.conp.cg_block(self.pend), "cg")
+
+    def _tail(self):
+        x, v, xi, vxi, _ = self.p
+        new = self.eng._post_tail(self.s, x, v, xi, vxi, self.s.nbr,
+                                  self.s.tasg, self.pend)
+        copy_state(self.s, new, "tail")
 
     def _thermo(self):
         th = self.eng.thermo(self.s)
@@ -234,15 +292,23 @@ class StepGraphs:
         self._grow_rows(nrows)
         copy_state(self.s, state, "load")
         self.ctr.zero_()
+        eng = self.eng
         for i in range(nsteps):
+            solve = eng.solves(state.step + i)
             if self.listed:
                 self._replay("pre")
                 if bool(self.p[4]):
                     self._replay("rebuild")
-                    self.eng.rebuilds += 1
-                self._replay("post")
+                    eng.rebuilds += 1
+            if solve and self.cg:
+                self._replay("head")
+                while bool(self.pend.cg.active):
+                    self._replay("cg")
+                    eng.cg_blocks += 1
+                self._replay("tail")
             else:
-                self._replay("step")
+                self._replay(self._variant(
+                    "post" if self.listed else "step", solve))
             if thermo_every and (i + 1) % thermo_every == 0:
                 self._replay("thermo")
         final = dataclasses.replace(clone_state(self.s),

@@ -24,6 +24,16 @@ Both paths run SHAKE (K7) and RATTLE (K8) when the configuration
 constrains bonds and angles (the ionic-liquid decks), then zmirror when
 the deck asks for it; the forces take the external or the feedback
 electric field (FFIELD decks) after the CONP post-force terms.
+
+The charge solve runs every ``nevery``-th step (``Engine.solves``, decided
+from the host step number); a step that skips it keeps the charges and the
+fix scalar and still hands the force path the electrolyte's k-space cache.
+With the CG solvers ``_post`` is ``_solve_begin``, the CG blocks while the
+carry's device flag says so (a host read per block), and ``_post_tail``.
+The solve may run in another dtype than the engine (mixed precision: a
+float64 solve under a float32 engine): the force path then drops the
+solve's cache (``_own_cache``) and builds its own factored tables or mesh
+in the engine's dtype, as the JAX engine does.
 ``build_engine`` runs on the card unless the caller passes
 ``device="cpu"``; every kernel wrapper launches its CUDA kernel in float32
 on the card and takes its plain version on the CPU and in float64 on the
@@ -58,7 +68,7 @@ from ..ops.pairs import (PairTables, dense_pair_forces, exclusions_tensors,
 from ..utils.config import KSpaceStyle, MDConfig, PairMode
 from ..utils.device import DEFAULT_DTYPE, resolve_device
 from . import graphs
-from .conp import ConpSolver
+from .conp import ConpSolver, SolvePending
 from .electrodes import MY_PIS
 from .integrate import Integrator, group_temperature, make_nhc_params
 from .shake import ShakeConstraints, build_constraints
@@ -96,6 +106,7 @@ class Engine(nn.Module):
         # the tiled mesh, and only while skin/2 fits the tile drift margin
         self.mesh_persist = mesh_persist
         self.rebuilds = 0                # Verlet-list rebuilds in step()
+        self.cg_blocks = 0               # CG blocks run by the steps
         # graphs.StepGraphs by graphs.graph_key: the step's CUDA graphs at
         # each set of capacities run() has met
         self._step_graphs = {}
@@ -215,6 +226,19 @@ class Engine(nn.Module):
             return kcache[3]
         return None
 
+    def _own_cache(self, kcache, x):
+        """The charge solve's k-space cache where it is in x's dtype, else
+        None: a solve in another dtype (mixed precision) leaves the force
+        path to build its own tables or mesh (JAX md.py:99-104,
+        :179-183)."""
+        if kcache is None:
+            return None
+        if self.pppm_grid is not None:
+            ok = kcache[0].dtype == x.dtype.to_complex()
+        else:
+            ok = kcache[0][0][0].dtype == x.dtype
+        return kcache if ok else None
+
     def _slots(self, x, q, tasg):
         grid = self.pppm_grid
         if pppm_ops._use_dense(grid, x.shape[0]):
@@ -276,6 +300,7 @@ class Engine(nn.Module):
         sys = self.system
         u = self.units
         box = self.ksp_force.box
+        kcache = self._own_cache(kcache, x)
         f, evdwl, ecoul, fused_ecorr = self._pair(x, q, kcache, nbr)
         pe = evdwl + ecoul
         if self.has_bonded:
@@ -292,6 +317,8 @@ class Engine(nn.Module):
             ek, fk = ewf.energy_forces_cached(self.fksp, q, tabs, sre, sie,
                                               self.conp.ne)
         else:
+            # no cache: no solve, a solve in another dtype, or above
+            # KXY_CHUNK (the chunked sums)
             ek, fk = ewf.energy_forces_f(self.fksp, x, q)
         g = self.ksp_force.g_ewald
         eself = -u.qqr2e * g / MY_PIS * torch.sum(q * q)
@@ -390,15 +417,40 @@ class Engine(nn.Module):
         nbr.overflow = nbr.overflow | nbr_old.overflow
         return nbr, tasg
 
-    def _post(self, state: MDState, x, v, xi, vxi, nbr, tasg) -> MDState:
-        """The step from the charge solve on: solve, forces, kick, RATTLE,
-        thermostat half."""
+    def solves(self, step: int) -> bool:
+        """Whether the step after the host step ``step`` takes the solve's
+        branch: every ``nevery``-th step (fix_conp's Nevery; JAX
+        md.py:380-407), every step without a solver."""
+        return self.conp is None or (step + 1) % self.conp.cfg.nevery == 0
+
+    def _solve_begin(self, state: MDState, x, nbr, tasg, solve: bool):
+        """The step's charge solve up to its CG iterations
+        (``ConpSolver.solve_begin``), or, on a step that skips the solve, a
+        ``SolvePending`` without b that carries the electrolyte's k-space
+        cache where the solve and the engine share a dtype (the force
+        path's reuse holds on every step); None without a solver."""
+        if self.conp is None:
+            return None
+        if not solve:
+            kcache = None
+            if self.conp.solve_dtype == self.dtype:
+                kcache = self.conp.elyte_kcache(x, state.q, tasg)
+            return SolvePending(b=None, kcache=kcache)
+        return self.conp.solve_begin(x, state.q, nbr, self.ncfg, tasg,
+                                     step=state.step_t + 1,
+                                     scalar_prev=state.scalar_out)
+
+    def _post_tail(self, state: MDState, x, v, xi, vxi, nbr, tasg,
+                   pend) -> MDState:
+        """The step from the end of the charge solve on: the charges and
+        the fix scalar, forces, kick, RATTLE, thermostat half."""
         itg = self.integrator
         step_t = state.step_t + 1
         q, scalar, kcache = state.q, state.scalar_out, None
-        if self.conp is not None:
-            q, scalar, kcache = self.conp.solve_full(x, q, nbr, self.ncfg,
-                                                     tasg, step=step_t)
+        if pend is not None and pend.b is None:
+            kcache = pend.kcache
+        elif pend is not None:
+            q, scalar, kcache = self.conp.solve_end(pend, x, q, step=step_t)
         f, pe = self.compute_forces(x, q, kcache, nbr, tasg, scalar)
         v = itg.kick(v, f)
         if self.cons is not None:
@@ -409,11 +461,25 @@ class Engine(nn.Module):
                        nhc_vxi=vxi, scalar_out=scalar, energy=pe, nbr=nbr,
                        tasg=tasg, step_t=step_t)
 
+    def _post(self, state: MDState, x, v, xi, vxi, nbr, tasg,
+              solve: Optional[bool] = None) -> MDState:
+        """The step from the charge solve on: solve (``_solve_begin``, the CG
+        blocks while their flag says so, one host read per block),
+        forces, kick, RATTLE, thermostat half.  ``solve``: whether this
+        step solves (None: ``solves(state.step)``)."""
+        if solve is None:
+            solve = self.solves(state.step)
+        pend = self._solve_begin(state, x, nbr, tasg, solve)
+        while pend is not None and self.conp.cg_active(pend):
+            pend.cg = self.conp.cg_block(pend)
+            self.cg_blocks += 1
+        return self._post_tail(state, x, v, xi, vxi, nbr, tasg, pend)
+
     def step(self, state: MDState) -> MDState:
         """One eager step: ``_pre``, the host test of its skin flag (one
         host sync per step on the list paths) and ``_rebuild`` when it is
-        set, then ``_post``.  ``run`` replays the same segments as CUDA
-        graphs on the card."""
+        set, then ``_post`` (with CG, one more host read per CG block).
+        ``run`` replays the same segments as CUDA graphs on the card."""
         x, v, xi, vxi, flag = self._pre(state)
         nbr, tasg = state.nbr, state.tasg
         if flag is not None and bool(flag):
@@ -441,7 +507,9 @@ class Engine(nn.Module):
         zeros = torch.zeros((nt, tch), dtype=self.dtype, device=dev)
         st = MDState(x=x, v=v, q=q, f=torch.zeros_like(x), step=0,
                      nhc_xi=zeros, nhc_vxi=zeros.clone(),
-                     scalar_out=torch.zeros((), dtype=self.dtype, device=dev),
+                     scalar_out=torch.zeros((), dtype=(
+                         self.dtype if self.conp is None
+                         else self.conp.solve_dtype), device=dev),
                      energy=torch.zeros((), dtype=self.dtype, device=dev),
                      step_t=torch.zeros((), dtype=torch.int64, device=dev))
         return self._heal_state(st)
@@ -449,7 +517,9 @@ class Engine(nn.Module):
     def _heal_state(self, state: MDState) -> MDState:
         """Rebuild the derived state (list, mesh tiles, electrode charges,
         forces) from x with the current capacities; positions, velocities
-        and thermostat state pass through."""
+        and thermostat state pass through.  The solve is a step's solve
+        (CG warm-started from the charges for CONP, cold for CONQ and
+        COND, as the JAX package's init)."""
         nbr, tasg = self.derived_state(state.x)
         q, scalar, kcache = state.q, state.scalar_out, None
         if self.conp is not None:
@@ -487,7 +557,8 @@ class Engine(nn.Module):
         return dict(step=state.step, temp=t_all, tempsl=t_sl,
                     qleft=torch.sum(torch.where(self.left_mask, state.q, zq)),
                     qright=torch.sum(torch.where(self.right_mask, state.q, zq)),
-                    dipole=dipole, f_e=state.scalar_out, pe=state.energy)
+                    dipole=dipole, f_e=state.scalar_out.to(state.energy.dtype),
+                    pe=state.energy)
 
     def _grow_neighbor_capacity(self) -> None:
         """Double the cell capacity, K and U after a list overflow."""
@@ -588,10 +659,6 @@ def build_engine(system: System, md: MDConfig,
     on_card = device.type == "cuda" and dtype == torch.float32
     pppm_grid = fksp = None
     if conp is not None:
-        if conp.solve_dtype != dtype:
-            raise NotImplementedError(
-                "not ported yet: mixed precision (solve dtype "
-                f"{conp.solve_dtype} != engine dtype {dtype})")
         # the forces take the charge solve's k-space, as in the JAX
         # package: a PPPM solve gives PPPM forces (the decks' PPPM trials
         # set the fix's kspace only); an Ewald solve under PPPM forces is
@@ -600,8 +667,13 @@ def build_engine(system: System, md: MDConfig,
             raise NotImplementedError(
                 "not ported yet: an Ewald charge solve with PPPM forces")
         ksp = conp.ksp
-        fksp = conp.fksp
         pppm_grid = conp.pppm_grid
+        # the engine's own factored tables in its own dtype (a mixed
+        # precision solve keeps its own); none under PPPM, where a
+        # CG_MATFREE solver keeps them for its operator only
+        if pppm_grid is None:
+            fksp = (conp.fksp if conp.solve_dtype == dtype
+                    else ewf.factorize(ksp, device=device, dtype=dtype))
     else:
         q2 = float((system.q0 ** 2).sum()) * u.qqr2e
         acc_abs = md.kspace_accuracy * u.qqr2e
@@ -621,10 +693,6 @@ def build_engine(system: System, md: MDConfig,
                 g_ewald=ksp.g_ewald, device=device), system.x0)
         else:
             fksp = ewf.factorize(ksp, device=device, dtype=dtype)
-            if fksp.nxy > ewf.KXY_CHUNK:
-                raise NotImplementedError(
-                    f"not ported yet: chunked factored Ewald ({fksp.nxy} xy "
-                    f"vectors > KXY_CHUNK={ewf.KXY_CHUNK})")
 
     # pair path: "auto" takes the Verlet list for big N in a box at least 4
     # cutoffs wide, in block form exactly where the block CUDA kernel runs

@@ -14,12 +14,17 @@ The tables take O(N*(nxy+nz)) transcendentals; the products are plain
 ``__init__``).  The (kxy, kz) grid covers exactly the half-space set of
 ``ops.ewald.setup_ewald`` (excluded combinations get ug=0).
 
-Only the cached-table path is ported: above ``KXY_CHUNK`` xy vectors the
-JAX package scans the tables in chunks, which is still to come here.
+Up to ``KXY_CHUNK`` xy vectors the (N, nxy) tables are built once per
+step and shared between the charge solve and the forces; above it they are
+never formed whole: the sums run over chunks of ``KXY_CHUNK`` xy vectors (a
+Python loop over a count fixed by the tables, so it captures in a CUDA
+graph), and the extra memory stays O(N * KXY_CHUNK).  ``make_phi_operator_kv``
+is the k-space part of the matrix-free CG operator.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -28,7 +33,8 @@ from torch import nn
 
 from .ewald import EwaldKSpace
 
-# above this kxy count the JAX package scans the (N, nxy) tables in chunks
+# above this kxy count the (N, nxy) tables are scanned in chunks instead of
+# formed whole (at 100k atoms x 5,000+ xy vectors they are GBs)
 KXY_CHUNK = 1024
 
 
@@ -144,10 +150,65 @@ def _z_tables(x, kz, unitk):
     return torch.cos(phase_z), torch.sin(phase_z)
 
 
+def axis_tables_kv(x, kx, ky, kz, unitk):
+    """((Pr, Pi) (N, nxy), (Zr, Zi) (N, nz)) phase tables for the xy
+    vectors (kx, ky) and the z vectors kz (tensors of x's dtype)."""
+    return _xy_tables(x, kx, ky, unitk), _z_tables(x, kz, unitk)
+
+
 def axis_tables(fk: FactoredKSpace, x):
     """((Pr, Pi) (N, nxy), (Zr, Zi) (N, nz)) phase tables."""
-    return (_xy_tables(x, fk.kx_t, fk.ky_t, fk.unitk),
-            _z_tables(x, fk.kz_t, fk.unitk))
+    return axis_tables_kv(x, fk.kx_t, fk.ky_t, fk.kz_t, fk.unitk)
+
+
+def _pad_kxy(kx, ky, ug, chunk):
+    """(kx, ky, ug) padded along the xy axis to a multiple of ``chunk``
+    (padded rows: k = 0, ug = 0, so they add nothing), and nxy."""
+    nxy = kx.shape[0]
+    npad = (-nxy) % chunk
+    if npad:
+        kx = torch.cat([kx, kx.new_zeros(npad)])
+        ky = torch.cat([ky, ky.new_zeros(npad)])
+        ug = torch.cat([ug, ug.new_zeros((npad, ug.shape[1]))])
+    return kx, ky, ug, nxy
+
+
+def structure_factor_f(fk: FactoredKSpace, x, q):
+    """S(kxy, kz): (Sr, Si), each (nxy, nz)."""
+    return structure_factor_fkv(x, q, fk.kx_t, fk.ky_t, fk.kz_t, fk.unitk)
+
+
+def structure_factor_fkv(x, q, kx, ky, kz, unitk):
+    if kx.shape[0] > KXY_CHUNK:
+        return _structure_factor_chunked(x, q, kx, ky, kz, unitk)
+    return structure_factor_tab(axis_tables_kv(x, kx, ky, kz, unitk), q)
+
+
+def _sf_chunks(x, q, kx, ky, ztabs, unitk, chunk):
+    """S per chunk of ``chunk`` xy vectors, the z tables built once."""
+    return [structure_factor_tab(
+        (_xy_tables(x, kx[lo:lo + chunk], ky[lo:lo + chunk], unitk), ztabs),
+        q) for lo in range(0, kx.shape[0], chunk)]
+
+
+def _structure_factor_chunked(x, q, kx, ky, kz, unitk, chunk=KXY_CHUNK):
+    """S(kxy, kz) over chunks of ``chunk`` xy vectors: O(N * chunk) extra
+    memory instead of O(N * nxy)."""
+    sfs = _sf_chunks(x, q, kx, ky, _z_tables(x, kz, unitk), unitk, chunk)
+    return (torch.cat([sr for sr, _ in sfs]),
+            torch.cat([si for _, si in sfs]))
+
+
+def potential_on_points_f(fk: FactoredKSpace, xe, sr, si):
+    """phi(xe) = sum 2 ug Re[S conj(Pe) conj(Ze)]: the b-vector readout from
+    the positions of the points."""
+    return potential_on_points_fkv(xe, sr, si, fk.kx_t, fk.ky_t, fk.kz_t,
+                                   fk.unitk, fk.ug_t)
+
+
+def potential_on_points_fkv(xe, sr, si, kx, ky, kz, unitk, ug):
+    return potential_on_points_tab(axis_tables_kv(xe, kx, ky, kz, unitk),
+                                   sr, si, ug)
 
 
 def structure_factor_tab(tabs, q):
@@ -184,14 +245,23 @@ def potential_on_points_tab(tabs_pts, sr, si, ug):
 
 def _energy_forces_from_s(fk: FactoredKSpace, q, tabs, sr, si):
     """(energy, forces) from the full tables and the complete S."""
+    return _energy_forces_tabs(q, tabs, sr, si, fk.kx_t, fk.ky_t, fk.kz_t,
+                               fk.unitk, fk.ug_t)
+
+
+def _energy_forces_tabs(q, tabs, sr, si, kx, ky, kz, unitk, ug):
+    e = torch.sum(ug * (sr * sr + si * si))
+    return e, _forces_from_s(q, tabs, sr, si, kx, ky, kz, unitk, ug)
+
+
+def _forces_from_s(q, tabs, sr, si, kx, ky, kz, unitk, ug):
+    """2 q_j sum ug k Im[P_j Z_j conj(S)] over the tables' xy vectors."""
     (pr, pi), (zr, zi) = tabs
     nxy = pr.shape[1]
-    ug = fk.ug_t
-    e = torch.sum(ug * (sr * sr + si * si))
     wr = ug * sr
     wi = -ug * si
-    ux, uy, uz = fk.unitk
-    kzv = fk.kz_t * uz
+    ux, uy, uz = unitk
+    kzv = kz * uz
     # the eight (N, nz) x (nz, nxy) products ride two matmuls with the four
     # weighted-S variants concatenated along columns
     w4 = torch.cat([wr.T, wi.T, (wr * kzv).T, (wi * kzv).T], dim=1)  # (nz, 4nxy)
@@ -203,11 +273,10 @@ def _energy_forces_from_s(fk: FactoredKSpace, q, tabs, sr, si):
     gzi = A[:, 3 * nxy:] + B[:, 2 * nxy:3 * nxy]
     im_pg = pr * gi + pi * gr
     im_pgz = pr * gzi + pi * gzr
-    kmat = torch.stack([fk.kx_t * ux, fk.ky_t * uy], dim=1)  # (nxy, 2)
+    kmat = torch.stack([kx * ux, ky * uy], dim=1)           # (nxy, 2)
     fxy = im_pg @ kmat                                       # (N, 2)
     fz = torch.sum(im_pgz, dim=1)
-    f = 2.0 * q[:, None] * torch.cat([fxy, fz[:, None]], dim=1)
-    return e, f
+    return 2.0 * q[:, None] * torch.cat([fxy, fz[:, None]], dim=1)
 
 
 def energy_forces_cached(fk: FactoredKSpace, q, tabs, sr_elyte, si_elyte,
@@ -228,10 +297,61 @@ def energy_forces_cached(fk: FactoredKSpace, q, tabs, sr_elyte, si_elyte,
 
 def energy_forces_f(fk: FactoredKSpace, x, q):
     """(energy, forces) without the qqr2e prefactor -- plain Ewald k-space
-    from the positions alone."""
-    tabs = axis_tables(fk, x)
+    from the positions alone (in chunks above KXY_CHUNK xy vectors)."""
+    return energy_forces_fkv(x, q, fk.kx_t, fk.ky_t, fk.kz_t, fk.unitk,
+                             fk.ug_t)
+
+
+def energy_forces_fkv(x, q, kx, ky, kz, unitk, ug):
+    if kx.shape[0] > KXY_CHUNK:
+        return _energy_forces_chunked(x, q, kx, ky, kz, unitk, ug)
+    tabs = axis_tables_kv(x, kx, ky, kz, unitk)
     sr, si = structure_factor_tab(tabs, q)
-    return _energy_forces_from_s(fk, q, tabs, sr, si)
+    return _energy_forces_tabs(q, tabs, sr, si, kx, ky, kz, unitk, ug)
+
+
+def _energy_forces_chunked(x, q, kx, ky, kz, unitk, ug, chunk=KXY_CHUNK):
+    """``energy_forces_fkv`` over chunks of ``chunk`` xy vectors, in two
+    passes (the forces need the complete structure factor), each
+    O(N * chunk) in extra memory; the z tables are built once for both.
+    The chunks' force sums add in chunk order."""
+    kx, ky, ug, nxy = _pad_kxy(kx, ky, ug, chunk)
+    ztabs = _z_tables(x, kz, unitk)
+    # pass 1: the structure factor per chunk (small: chunk x nz)
+    sfs = _sf_chunks(x, q, kx, ky, ztabs, unitk, chunk)
+    los = range(0, kx.shape[0], chunk)
+    e = sum(torch.sum(ug[lo:lo + chunk] * (sr * sr + si * si))
+            for lo, (sr, si) in zip(los, sfs))
+    # pass 2: the forces per chunk
+    f = torch.zeros_like(x)
+    for lo, (sr, si) in zip(los, sfs):
+        sl = slice(lo, lo + chunk)
+        tabs = (_xy_tables(x, kx[sl], ky[sl], unitk), ztabs)
+        f = f + _forces_from_s(q, tabs, sr, si, kx[sl], ky[sl], kz, unitk,
+                               ug[sl])
+    return e, f
+
+
+@dataclasses.dataclass
+class PhiOperator:
+    """p -> phi(xe) for charges p placed at the points xe: the self-adjoint
+    k-space operator of matrix-free CG, phi = sum_k 2 ug Re[S(p) conj(E_e)],
+    the structure factor of p and its readout at the points.  The points'
+    phase tables are built once (``make_phi_operator_kv``) and every apply
+    reuses them: eight (Ne, nxy, nz) products, four matmuls with the real
+    and imaginary columns side by side."""
+    tabs: tuple           # ((Pr, Pi) (Ne, nxy), (Zr, Zi) (Ne, nz))
+    ug: torch.Tensor      # (nxy, nz)
+
+    def __call__(self, p):
+        sr, si = structure_factor_tab(self.tabs, p)
+        return potential_on_points_tab(self.tabs, sr, si, self.ug)
+
+
+def make_phi_operator_kv(xe, kx, ky, kz, unitk, ug) -> PhiOperator:
+    """The k-space operator of matrix-free CG at the points xe, their phase
+    tables built here, once per solve."""
+    return PhiOperator(axis_tables_kv(xe, kx, ky, kz, unitk), ug)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ from lammps_user_conp2_tpu_torch import workloads as twl
 from lammps_user_conp2_tpu_torch.models import conp as tconp
 from lammps_user_conp2_tpu_torch.models import electrodes as tel
 from lammps_user_conp2_tpu_torch.models.md import build_engine
-from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle, Solver
+from lammps_user_conp2_tpu_torch.models.system import reorder_atoms
+from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
 from torch_cells import CPU64, S1, S2, SOLVE64, rel_err
 
 torch.set_num_threads(2)
@@ -70,26 +71,21 @@ def test_project_inverse_zneutr_matches():
         assert float(tt) == pytest.approx(float(jt), rel=1e-13)
 
 
-@pytest.mark.parametrize("change", [
-    dict(solver=Solver.CG),
-    dict(kspace=KSpaceStyle.PPPM, solver=Solver.CG), dict(nevery=2),
-    dict(matout=True), dict(mobile_electrodes=True,
-                            solver=Solver.CG_MATFREE)],
-    ids=["cg", "pppm", "nevery", "matout", "mobile"])
+@pytest.mark.parametrize("change", ["matout", "noncontig"])
 def test_setup_refuses_features_not_ported(change):
-    """PPPM with electrodes whose stencils touch more than max(nz/4, 16) z
-    planes (here spread through the box) and mobile electrodes under the
-    INV solver are ported (test_torch_fullmesh.py); the CG solvers, on
-    those paths as everywhere, are not."""
+    """Matrix file I/O and electrodes on rows other than [0, Ne) are not
+    ported; the CG solvers, mobile electrodes under them, nevery > 1 and
+    PPPM with electrodes through the box are (test_torch_cg.py,
+    test_torch_nevery_mixed.py, test_torch_fullmesh.py)."""
     system, md, cfg = twl.synthetic(**S1)
-    cfg = dataclasses.replace(cfg, **change)
-    x0 = None
-    if change.get("kspace") is KSpaceStyle.PPPM:
-        x0 = np.array(system.x0)
-        ele = system.ele_mask
-        x0[ele, 2] = np.linspace(1.0, system.box[2] - 1.0, int(ele.sum()))
+    if change == "matout":
+        cfg = dataclasses.replace(cfg, matout=True)
+    else:
+        perm = np.roll(np.arange(system.natoms), 5)
+        system = reorder_atoms(system, perm)
+        assert not system.ele_mask[0]
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconp.setup_conp(system, md, cfg, x0=x0, **SOLVE64)
+        tconp.setup_conp(system, md, cfg, **SOLVE64)
 
 
 @pytest.mark.parametrize("change", [

@@ -12,7 +12,8 @@ electrode z planes) as a whole.
   capacity on the forced tiled mesh, the run NaN-poisons, regrows the
   capacity and matches the ample-capacity run.
 * PPPM setup above KXY_CHUNK (S4: 1,411 xy vectors): setup_conp builds no
-  factored Ewald in PPPM mode, and A^-1 matches the JAX setup to 1e-8.
+  factored Ewald in PPPM mode, and A^-1 matches the JAX setup to 1e-8;
+  the EWALD setup of the same cell (the chunked sums) matches it too.
 * one step from a JAX PPPM-mode state and context through ``interop``."""
 
 import dataclasses
@@ -170,8 +171,9 @@ def test_overflow_recovery_matches_ample_run(kind, monkeypatch):
 
 def test_pppm_setup_above_kxy_chunk():
     """The charge solve in PPPM mode builds no factored Ewald (the JAX
-    package builds it only outside PPPM), so a cell whose exact Ewald sum
-    has more than KXY_CHUNK xy vectors sets up, and A^-1 matches."""
+    package builds it only outside PPPM, or for CG_MATFREE), so a cell
+    whose exact Ewald sum has more than KXY_CHUNK xy vectors sets up, and
+    A^-1 matches; under EWALD it sets up too, on the chunked sums."""
     js, jmd, jcfg = pppm_cell(jwl, JK, cell=S4)
     ts, tmd, tcfg = pppm_cell(twl, TK, cell=S4)
     tc = tsetup(ts, tmd, tcfg, **SOLVE64)
@@ -184,6 +186,11 @@ def test_pppm_setup_above_kxy_chunk():
     assert rel_err(tc.ainv.numpy(), ref) < 1e-8
     np.testing.assert_allclose(tc.elesetq.numpy(), np.asarray(jc.ctx.elesetq),
                                rtol=1e-8, atol=1e-14)
-    with pytest.raises(NotImplementedError, match="KXY_CHUNK"):
-        tsetup(ts, dataclasses.replace(tmd, kspace_style=TK.EWALD),
-               dataclasses.replace(tcfg, kspace=TK.EWALD), **SOLVE64)
+    # the EWALD solve of the same cell takes the chunked factored sums,
+    # and its A^-1 is the same as the JAX package's
+    te = tsetup(ts, dataclasses.replace(tmd, kspace_style=TK.EWALD),
+                dataclasses.replace(tcfg, kspace=TK.EWALD), **SOLVE64)
+    assert te.fksp.nxy > ewf.KXY_CHUNK and not te._ewald_cacheable()
+    je = jsetup(js, dataclasses.replace(jmd, kspace_style=JK.EWALD),
+                dataclasses.replace(jcfg, kspace=JK.EWALD))
+    assert rel_err(te.ainv.numpy(), np.asarray(je.ctx.ainv)) < 1e-8

@@ -21,7 +21,9 @@ and 100 atoms (ragged tiles), its tile-pair schedule kernel equal to
 ``tile_schedule_plain``, and K4 and K5 bit-identical across two
 launches.  The step replayed as CUDA graphs (``Engine.run``) equals the
 eager steps, and two eager runs each other, bit for bit (mid-size, tiled
-list, ionic-liquid, bonded block, unfused and mobile-electrode cells); the
+list, ionic-liquid, bonded block, unfused and mobile-electrode cells, and
+S2 under CG with nevery 2 and with a float64 solve under a float32
+engine); the blocked CG equals a per-iteration host loop bit for bit; the
 bonded forces are bit-identical across calls; the launch counters reading as after
 eager steps, no host sync per step on the dense path and one on the list
 path, and new graphs captured after a capacity growth; K6 over the
@@ -809,6 +811,19 @@ def _graph_cell(cuda, cell, tmp_path, monkeypatch):
     if cell == "mid":
         system, md, conp, eng, x, q = _cell(cuda, x_near)
         return eng, dict(x0=x.cpu().numpy())
+    if cell in ("mid_cg_nevery2", "mid_mixed"):
+        import dataclasses
+        from lammps_user_conp2_tpu_torch import workloads
+        from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+        from lammps_user_conp2_tpu_torch.models.md import build_engine
+        from lammps_user_conp2_tpu_torch.utils.config import Solver
+        system, md, cfg = workloads.synthetic(**S2)
+        sd = torch.float64 if cell == "mid_mixed" else torch.float32
+        if cell == "mid_cg_nevery2":
+            cfg = dataclasses.replace(cfg, solver=Solver.CG, nevery=2)
+        conp = setup_conp(system, md, cfg, solve_dtype=sd, device=cuda)
+        eng = build_engine(system, md, conp, dtype=torch.float32, device=cuda)
+        return eng, dict(x0=x_near(system))
     if cell == "tiled":
         from lammps_user_conp2_tpu_torch.ops import pppm as P
         monkeypatch.setattr(P, "_use_dense", lambda grid, n: False)
@@ -853,13 +868,16 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("cell", ["mid", "tiled", "il", "bonded", "unfused",
-                                  "fullmesh"])
+                                  "fullmesh", "mid_cg_nevery2", "mid_mixed"])
 def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
                                           monkeypatch):
     """``Engine.run`` replays CUDA graphs: 20 replayed steps equal 20 eager
     steps bit for bit, and two eager runs equal each other, at every cell
     (no step path adds floats with atomics: the bonded forces and the
-    list's correction sum in a fixed order), the thermo rows included."""
+    list's correction sum in a fixed order), the thermo rows included; the
+    cells include S2 under CG solving every second step (the CG blocks and
+    the skip variant replayed) and S2 with a float64 solve under a float32
+    engine."""
     eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
     st0 = eng.init_state(**kw)
     e1 = _steps(eng, st0, 20)
@@ -1061,3 +1079,37 @@ def test_kernel_build_failure_raises_on_card(cuda, monkeypatch):
         k9.window_gather(win, idx, 2)
     assert torch.equal(k9.window_gather(win.double(), idx, 2),
                        k9.window_gather_plain(win.double(), idx, 2))
+
+
+def test_cg_block_matches_while_loop_on_card(cuda):
+    """The blocked CG (``CG_BLOCK`` iterations per host read, the finished
+    iterations masked on the device) equals a loop that reads the flag on
+    the host after every iteration, as the JAX ``lax.while_loop`` tests it:
+    the same iteration count and the iterate bit for bit, float32, S2 under
+    CG_MATFREE from a cold start and from a warm start."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models import conp as C
+    from lammps_user_conp2_tpu_torch.utils.config import Solver
+    system, md, cfg = workloads.synthetic(**S2)
+    cfg = dataclasses.replace(cfg, solver=Solver.CG_MATFREE)
+    conp = C.setup_conp(system, md, cfg, solve_dtype=torch.float32,
+                        device=cuda)
+    x = torch.as_tensor(x_near(system), dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(charges_with_electrodes(system), dtype=torch.float32,
+                        device=cuda)
+    tol, maxiter = cfg.cg_tolerance, cfg.cg_maxiter
+    for warm in (False, True):
+        pend = conp.solve_begin(x, q, step=torch.ones((), dtype=torch.int64,
+                                                      device=cuda))
+        op = conp.operator(pend)
+        x0 = pend.cg.x if warm else None
+        cg = C.cg_start(op, pend.b, tol, maxiter, x0)
+        ref = C.cg_start(op, pend.b, tol, maxiter, x0)
+        while bool(cg.active):
+            cg = C.cg_block(op, cg, tol, maxiter)
+        while bool(ref.active):
+            ref = C.cg_block(op, ref, tol, maxiter, nblock=1)
+        torch.cuda.synchronize()
+        assert int(cg.it) == int(ref.it) > 0
+        assert torch.equal(cg.x, ref.x)

@@ -6,9 +6,13 @@
   float64, on S1, S2 and S4 (dense; S4 with PPPM, its exact Ewald sum
   has too many xy vectors), S3 with PPPM on the per-atom and the
   block Verlet list (a 0.05 A skin, so the list and the mesh tiles rebuild
-  inside the window) and the ionic-liquid fixture with SHAKE/RATTLE; the
+  inside the window), the ionic-liquid fixture with SHAKE/RATTLE, S1
+  under CG with a ramped target solving every second step, S3 on the
+  block list under CG_MATFREE and S4 under EWALD (the chunked sums); the
   rebuild decision of the flag equals the host test of the one-function
-  step at every step.
+  step at every step.  The one-function step solves with ``solve_full``
+  (its CG loop inside) on the ``nevery``-th steps and hands the forces the
+  electrolyte's cache on the others.
 * ``graphs.StepGraphs``, the runner ``Engine.run`` uses on the card, with
   an eager backend in place of CUDA graphs (each segment runs where a graph
   would be captured and replayed, the launch counters put back after it as
@@ -16,6 +20,8 @@
   rebuild count included, on the dense and the list paths; a counted
   wrapper counts exactly one launch per replayed step (none from the
   warm-up or the captures), and the list build once per rebuild replayed;
+  under CG the solve's graphs H, C and T replay as many CG blocks as the
+  eager steps ran, and nevery = 2 replays its skip variant;
   ``run``'s overflow recovery regrows the list capacity, captures anew
   under the new key and matches the ample run; a state whose layout
   changed is refused, naming the segment.
@@ -36,6 +42,7 @@ from lammps_user_conp2_tpu_torch.models.system import MDState
 from lammps_user_conp2_tpu_torch.ops.kernels import build
 from lammps_user_conp2_tpu_torch.ops.neighbors import needs_rebuild
 from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle as TK
+from lammps_user_conp2_tpu_torch.utils.config import Solver as TS
 from torch_cells import (CPU64, S1, S2, S3, S4, SOLVE64, il_small,
                          il_small_file, pppm_cell, x_near)
 
@@ -64,9 +71,12 @@ def step_as_one(eng, state):
             nbr.overflow = nbr.overflow | state.nbr.overflow
     step_t = state.step_t + 1
     q, scalar, kcache = state.q, state.scalar_out, None
-    if eng.conp is not None:
-        q, scalar, kcache = eng.conp.solve_full(x, q, nbr, eng.ncfg, tasg,
-                                                step=step_t)
+    if eng.conp is not None and (state.step + 1) % eng.conp.cfg.nevery == 0:
+        q, scalar, kcache = eng.conp.solve_full(
+            x, q, nbr, eng.ncfg, tasg, step=step_t,
+            scalar_prev=state.scalar_out)
+    elif eng.conp is not None:
+        kcache = eng.conp.elyte_kcache(x, q, tasg)
     f, pe = eng.compute_forces(x, q, kcache, nbr, tasg, scalar)
     v = itg.kick(v, f)
     if eng.cons is not None:
@@ -96,21 +106,29 @@ def assert_same_bits(a, b):
         assert u.dtype == w.dtype and torch.equal(u, w)
 
 
-def _synthetic(cell, **md_kw):
+def _synthetic(cell, cfg_kw=None, **md_kw):
     system, md, cfg = twl.synthetic(**cell)
     md = dataclasses.replace(md, **md_kw)
+    cfg = dataclasses.replace(cfg, **(cfg_kw or {}))
     eng = tbuild(system, md, tsetup(system, md, cfg, **SOLVE64), **CPU64)
     return eng, x_near(system)
 
 
-def _pppm(cell=S3, **md_kw):
+def _pppm(cell=S3, cfg_kw=None, **md_kw):
     ts, tmd_cfg, tcfg = pppm_cell(twl, TK, cell=cell, **md_kw)
+    tcfg = dataclasses.replace(tcfg, **(cfg_kw or {}))
     eng = tbuild(ts, tmd_cfg, tsetup(ts, tmd_cfg, tcfg, **SOLVE64), **CPU64)
     return eng, x_near(ts)
 
 
-def _pppm_list(pair_path):
-    return _pppm(pair_path=pair_path, neighbor_skin=0.05)
+def _pppm_list(pair_path, **cfg_kw):
+    return _pppm(pair_path=pair_path, neighbor_skin=0.05, **cfg_kw)
+
+
+def _cg_nevery():
+    """S1 under CG with a ramped target, solving every second step."""
+    return _synthetic(S1, cfg_kw=dict(solver=TS.CG, nevery=2,
+                                      target=lambda s: 0.5 + 0.1 * s))
 
 
 @pytest.fixture(scope="module")
@@ -131,6 +149,10 @@ CELLS = {
     "S3-nlist": lambda p: _pppm_list("nlist"),
     "S3-block": lambda p: _pppm_list("block"),
     "il": _il,
+    "S1-cg-nevery2": lambda p: _cg_nevery(),
+    "S3-block-matfree": lambda p: _pppm_list(
+        "block", cfg_kw=dict(solver=TS.CG_MATFREE)),
+    "S4-ewald": lambda p: _synthetic(S4),
 }
 
 
@@ -180,7 +202,8 @@ class EagerBackend:
         return replay
 
 
-@pytest.mark.parametrize("cell", ["S2", "S3-nlist", "S3-block", "il"])
+@pytest.mark.parametrize("cell", ["S2", "S3-nlist", "S3-block", "il",
+                                  "S1-cg-nevery2", "S3-block-matfree"])
 def test_runner_equals_eager_run(cell, il_path):
     eng, x0 = CELLS[cell](il_path)
     st0 = eng.init_state(x0=x0)
@@ -199,9 +222,18 @@ def test_runner_equals_eager_run(cell, il_path):
     for k in th:
         assert torch.equal(th[k], th_ref[k])
     # a second run from the same state replays the same graphs
+    b0 = eng.cg_blocks
     again, _ = runner.run(st0, NSTEPS, 0)
     assert_same_bits(again, ref)
     assert graphs.step_graphs(eng, st0, EagerBackend()) is runner
+    if eng.conp.cfg.solver is not TS.INV:
+        # the CG blocks replayed: as many as the eager steps ran
+        eager = eng.cg_blocks
+        eng.run(st0, NSTEPS, thermo_every=0)
+        assert eng.cg_blocks - eager == eager - b0 > 0
+        assert "cg" in runner.replays
+    if eng.conp.cfg.nevery > 1:
+        assert "step:skip" in runner.replays
 
 
 def test_runner_counts_one_launch_per_replay(il_path, monkeypatch):
