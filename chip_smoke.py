@@ -6,9 +6,12 @@
 Drives the port's paths (nine main paths through
 ``lammps_user_conp2_tpu_torch``: setup_conp -> build_engine -> init_state ->
 Engine.run, float32; three of them again in float64 on the card; the
-window gather probe ``exp_vmem_gather.run_probe``; and the CG, nevery,
+window gather probe ``exp_vmem_gather.run_probe``; the CG, nevery,
 mixed-precision, mobile-electrode and chunked-Ewald paths of phases
-30-34) and exits non-zero if any phase fails.
+30-34; and the user's surface of phases 35-40: electrodes in any row
+order, the command line, dump and rerun, checkpoints, the diagnostics and
+the pressure, the matrix files and the profile) and exits non-zero if any
+phase fails.
 
 Mid-size path, the 7,296-atom synthetic capacitor
 ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
@@ -135,7 +138,8 @@ read through the full inverse FFT and the tiled gather:
 Every main path runs ``Engine.run``, which replays the step as CUDA
 graphs; after each main-path phase a graph phase (4b, 8b, 12b, 16b, 19b,
 22b) holds the replayed step to the eager one (``Engine.step`` in a loop)
-from one state, 100 steps a run: five alternating (eager, graphed) pairs
+from one state, 100 steps a run: GRAPH_PAIRS (two) alternating (eager,
+graphed) pairs
 of ms/step on the host clock; eager vs eager, graphed vs eager and graphed
 vs graphed on x, v, q and pe, bit for bit at every cell (no step path adds
 floats with atomics); the host
@@ -225,6 +229,42 @@ host syncs per step):
      float64 on the card with phase 5's bounds, K1 in the float32 run; the
      peak device memory of a step beside the unchunked tables' size.
 
+The user's surface (phases 35-40; each phase prints the kernels it
+launched, the kernels line's ``launches_surface``):
+
+ 35. the mid-size cell with its 1,152 electrode rows spread through the
+     7,296 atoms by a seeded permutation: the main path (10 warm-up and
+     100 graphed steps, K4 with the fused correction and K5 every step,
+     finite energy, neutral electrodes), a graph phase of 2 pairs of 50
+     steps, and 3 card steps mapped by tag onto the electrodes-first card
+     run with phase 5's bounds; cond 4 scrambled the same way (PPPM z
+     planes, K4, K5, K7, K8) with the fix scalar;
+ 36. ``cli.main(["run", "il_onelayer", "0", "--f32", "--steps", "200",
+     "--thermo", "20", "--log", ..., "--checkpoint", ...])`` with
+     $CONP_REF_TESTS at a directory holding the il file: the log's header,
+     11 thermo rows, Loop time and per-phase timing lines, K4, K5, K7 and
+     K8 every step, the rows equal as printed to those of an
+     ``Engine.run`` of the same deck;
+ 37. ``run --steps 60 --thermo 20 --dump`` then ``rerun``: K5 once per
+     frame, each frame's electrode charges re-solved within RERUN_TOL of
+     the dumped ones;
+ 38. at the il and 100k cells, 50 graphed steps, a checkpoint, a fresh
+     engine, the file loaded and 50 more graphed steps: x, v, q, pe, the
+     step counter and the thermo rows bit for bit against 100 steps; the
+     file refused by the il cell scrambled and by the 100k engine;
+ 39. the il cell: each electrode's ``group_potential`` after the solve
+     (the applied 2 V to DV_TOL, the spread within an electrode below
+     SPREAD_TOL), ``potential_atom`` and ``pressure_tensor`` in float32
+     against float64 on the CPU; the 100k cell (PPPM): ``pressure_tensor``
+     and the left electrode's potential in float32, K2b launched, against
+     float64 on the card; both within DIAG_REL, with their times;
+ 40. the mid-size cell set up with ``matout`` and again from the written
+     ``inv_a_matrix`` (A^-1 to MATFILE_TOL, 3 steps with phase 5's
+     bounds); ``cli.main(["profile", "il_onelayer", "0", "--f32"])`` and
+     ``timers.profile_step`` at the 100k cell: each phase's time (CUDA
+     events) and the kernels it launched (K5, K4, K7, K8 at the il cell;
+     K1, K2a, K3 at the 100k cell).
+
 The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
 angle the three constraint directions of a straight cation are parallel,
 so SHAKE corrects along the axis only; the bend that the forces make stays,
@@ -244,7 +284,9 @@ order to the electrolyte included); K2b, K3, K7 and K8 ``device_ms`` (one
 kernel each), K7 and K8 ``kernels_per_call`` and ``floor_ms``; K4, K5, K7
 and K8 ``launches_decks`` (their launches on the main paths of phases
 27-29), K4, K5 and K6 ``max_rel_err_ehgo_fo`` and ``device_ms_ehgo_fo``
-(phase 28).  The il cell's figures carry
+(phase 28), ``bound_ms_decks`` (K4's and K5's bounds at the deck cells'
+shapes, phases 27-29) and ``launches_surface`` (launches on phases 35-40,
+by phase).  The il cell's figures carry
 the suffix ``_il``.  Every kernel's line carries its bound: the larger
 of the bytes it must move (its input tensors read once, its outputs
 written once) over 3.35 TB/s and the operations this run's data needs
@@ -652,6 +694,9 @@ def main() -> int:
     for name in DECK_COUNTERS:
         results[name]["launches_decks"] = {
             cell: n[name] for cell, n in deck_launches.items()}
+    for name, per_cell in DECK_BOUNDS.items():
+        results[name]["bound_ms_decks"] = {
+            cell: r["bound_ms"] for cell, r in per_cell.items()}
     # phases 30-34: the rest of the charge solve
     cg_matfree_path(card, dev, results)
     nevery_path(card, dev, results)
@@ -660,12 +705,19 @@ def main() -> int:
     chunked_path(card, dev, results)
     print("phases 30-34: " + json.dumps(results["solve_paths"])
           + f"  [{card}]")
-    # each kernel's launches on those main runs, by cell
+    surface_paths(card, dev, results, il_file)
+    # each kernel's launches on those main runs, by cell, and on phases
+    # 35-40, by phase
     for name, (_, counter) in KERNEL_IDS.items():
         per_cell = {cell: moved[counter] for cell, moved in
                     SOLVE_LAUNCHES.items() if moved.get(counter)}
         if per_cell:
             results[name]["launches_solve_paths"] = per_cell
+        per_phase = {phase: moved[counter] for phase, moved in
+                     SURFACE_LAUNCHES.items()
+                     if isinstance(moved.get(counter), int) and moved[counter]}
+        if per_phase:
+            results[name]["launches_surface"] = per_phase
     pallas = "lammps_user_conp2_tpu/ops/pallas/"
     replaces = {
         "pair_forces_conp": pallas + "pair_kernel.py:316",
@@ -712,15 +764,18 @@ def main() -> int:
         for g in GRAPHS:
             if g["cell"] not in r["device_ms_replay"]:
                 continue
-            # the bound at the cell's shapes; the deck cells (phases 27-29)
-            # have none measured and stay out of the order
+            # the bound at the cell's shapes (the deck cells': phases
+            # 27-29's ``deck_bounds``); cells with none stay out of the order
             key = {"mid": "bound_ms", "bonded": "bound_ms",
                    "il": "bound_ms_il", "unfused_il": "bound_ms_il",
                    "100k": "bound_ms_100k",
                    "full_mesh": "bound_ms_100k"}.get(g["cell"])
-            if key is None:
+            if g["cell"] in r.get("bound_ms_decks", {}):
+                b = r["bound_ms_decks"][g["cell"]]
+            elif key is not None:
+                b = r.get(key, r["bound_ms"])
+            else:
                 continue
-            b = r.get(key, r["bound_ms"])
             per_step = g["launches"][counter] / g["profile_steps"]
             ms = r["device_ms_replay"][g["cell"]]
             gaps.append((per_step * (ms - b), kid, g["cell"], ms, b,
@@ -736,7 +791,7 @@ def main() -> int:
             "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr",
             "floor_ms", "kernels_per_call", "shapes", "launches_decks",
             "max_rel_err_ehgo_fo", "device_ms_ehgo_fo",
-            "launches_solve_paths")
+            "launches_solve_paths", "launches_surface", "bound_ms_decks")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -1227,7 +1282,7 @@ def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):
         launches.pop(name)
     if not math.isfinite(float(st.energy)):
         raise AssertionError(f"{tag}: energy is not finite")
-    qsum = float(st.q[:ne].double().sum())
+    qsum = float(eng.conp.ele_rows(st.q).double().sum())
     if not abs(qsum) <= 1e-4:
         raise AssertionError(f"{tag}: electrode charge sum {qsum:.3e}")
     print(f"{tag}: T={float(th['temp'][-1]):.2f} K, pe={float(st.energy):.6g}, "
@@ -1238,8 +1293,8 @@ def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):
 
 
 # graphed-vs-eager pairs per cell and the steps of each run: each run
-# starts from the same state
-GRAPH_PAIRS = 3
+# starts from the same state (three before phases 35-40 were added)
+GRAPH_PAIRS = 2
 GRAPH_STEPS = 100
 GRAPHS = []
 
@@ -1925,6 +1980,7 @@ def _deck_main(tag, cell, deck, n, path, dev, card):
     from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
     from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
     system, md, cfg, conp, eng = _deck_engine(tag, deck, n, path, dev)
+    deck_bounds(tag, cell, system, md, conp, eng, card)
     counters = dict(zip(DECK_COUNTERS, (k4.launches, k5.launches,
                                         k78.shake_launches,
                                         k78.rattle_launches)))
@@ -1935,6 +1991,53 @@ def _deck_main(tag, cell, deck, n, path, dev, card):
     graph_phase(tag + "b", cell, eng, {}, card, pairs=DECK_GRAPH_PAIRS)
     s32, _ = card_vs_cpu(tag, eng, system, md, cfg, 3, scalar=True)
     return system, md, cfg, conp, eng, launches, s32
+
+
+# K4's and K5's bounds at the deck cells' shapes and x0, by cell (the
+# kernels line's ``bound_ms_decks``)
+DECK_BOUNDS = {"pair_forces_conp": {}, "b_realspace": {}}
+
+
+def deck_bounds(tag, cell, system, md, conp, eng, card):
+    """K4's and K5's bounds at the deck cell's shapes, its x0 and charges
+    (as phase 11 works them out at the il cell): their tensors read and
+    written once, and PAIR_FLOPS per pair within the cutoff, B_ROW_FLOPS
+    per electrode-electrolyte pair within the Coulomb cutoff, z periodic
+    or not as the deck is."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
+    dev = eng.type_idx.device
+    x0 = torch.as_tensor(system.x0, dtype=torch.float32, device=dev)
+    q = torch.as_tensor(system.q0, dtype=torch.float32, device=dev)
+    zsort = z_perm(x0, system.box, system.periodic)
+    pkw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+               g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    pairs = k4_pairs(tag, k4, x0, zsort, system, md.cutoff, card,
+                     m=eng.excl_idx.shape[1])
+    got = k4.pair_forces(x0, q, eng.type_idx, eng.tables, eng.exclusions,
+                         zsort=zsort, conp_fuse=fuse,
+                         ele_idx=conp.ele_idx_t, **pkw)
+    DECK_BOUNDS["pair_forces_conp"][cell] = bound(
+        (x0, q, eng.type_idx, eng.tables, eng.exclusions, zsort, fuse), got,
+        PAIR_FLOPS * pairs)
+    q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+    bargs = (x0, q_elyte, conp.ele_idx_t, conp.elyte_f, conp.eta_rows,
+             conp.fo_rows, conp.type_t)
+    got = k5.b_realspace(*bargs, zsort=zsort, box=system.box,
+                         periodic=system.periodic, cut_coulsq=conp.cut_coulsq,
+                         g_ewald=conp.ksp.g_ewald)
+    xe = conp.ele_rows(x0)
+    xl = x0[conp.elyte_t]
+    DECK_BOUNDS["b_realspace"][cell] = bound(
+        (bargs, zsort), got, B_ROW_FLOPS * pairs_within(
+            xe, xl, system.box, system.periodic, conp.cut_coulsq))
+    torch.cuda.synchronize()
+    for name in DECK_BOUNDS:
+        r = DECK_BOUNDS[name][cell]
+        print(f"{tag}: {name} bound at the {cell} cell {r['bound_ms']:.6f} "
+              f"ms ({r['bound_by']})")
 
 
 # phase 28's EHGO variant: the anions' Gaussian width (1/A)
@@ -2548,6 +2651,512 @@ def chunked_path(card, dev, results):
     results["solve_paths"]["unchunked_tables_mib"] = whole / 2**20
     del eng, st
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------- phases 35-40
+# each phase's launches by counter name (the kernels line's
+# ``launches_surface``)
+SURFACE_LAUNCHES = {}
+# phase 39: card float32 against float64, relative to the largest |value|
+DIAG_REL = 1e-3
+# phase 39's oracle on the il cell (tests/test_diagnostics.py:46-57)
+DV_TOL = 1e-3
+SPREAD_TOL = 2e-4
+# phase 37: the dump's 8 significant digits (tests/test_checkpoint_rerun.py)
+RERUN_TOL = 2e-7
+# phase 40: A^-1 as printed (%20.12f, the JAX writer's digits): half the
+# last digit, plus float64 rounding of entries below 10
+MATFILE_TOL = 5e-13 + 10 * 2.0 ** -52
+
+
+def _f32_engine(system, md, cfg, dev):
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    return build_engine(system, md, conp, dtype=torch.float32, device=dev)
+
+
+def _by_tag(st, perm):
+    """A state of the scrambled system (its row k is row perm[k] of the
+    electrodes-first one) in the electrodes-first row order."""
+    import types
+    inv = torch.as_tensor(np.argsort(perm), device=st.x.device)
+    return types.SimpleNamespace(x=st.x[inv], q=st.q[inv], f=st.f[inv],
+                                 energy=st.energy, scalar_out=st.scalar_out)
+
+
+def _cpu64(st):
+    import types
+    return types.SimpleNamespace(
+        q=st.q.double().cpu(), f=st.f.double().cpu(),
+        energy=st.energy.double().cpu(), scalar_out=st.scalar_out.double().cpu())
+
+
+def _steps_from(eng, st, n):
+    for _ in range(n):
+        st = eng.step(st)
+    return st
+
+
+def noncontig_path(card, dev, results, il_file):
+    """Phase 35: electrodes in any row order.  The mid-size cell under a
+    seeded permutation that spreads its 1,152 electrode rows through the
+    7,296 atoms: the main path (10 warm-up and 100 graphed steps, K4 with
+    the fused correction and K5 every step, finite energy, neutral
+    electrodes), a graph phase of 2 pairs (graphed and eager bit for bit),
+    and 3 card steps mapped by tag onto the electrodes-first card run from
+    the same positions within phase 5's bounds; then 3 steps of cond 4
+    scrambled (PPPM z planes, K4, K5, K7, K8) against its electrodes-first
+    run, with the fix scalar."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.system import reorder_atoms
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    tag = "phase 35"
+    t0 = time.perf_counter()
+    system, md, cfg = workloads.synthetic(**CELL)
+    perm = np.random.default_rng(35).permutation(system.natoms)
+    scr = reorder_atoms(system, perm)
+    eng = _f32_engine(scr, md, cfg, dev)
+    first = _f32_engine(system, md, cfg, dev)
+    rows = np.asarray(eng.conp.ele_idx)
+    print(f"{tag}: mid-size cell, {system.natoms} atoms, its {len(rows)} "
+          f"electrode rows spread over rows {rows.min()}-{rows.max()} (seed "
+          f"35), ele_contig {eng.conp.ele_contig}; set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+    if eng.conp.ele_contig or not first.conp.ele_contig:
+        raise AssertionError(f"{tag}: the permutation left the electrodes "
+                             "first")
+    x_near = workloads.near_wall_positions(system)
+    counters = {"pair_forces": k4.launches, "b_realspace": k5.launches}
+    _, _, _, launched = main_run(tag, eng, dict(x0=x_near[perm]), 10, 100,
+                                 counters, eng.conp.ne, card)
+    SURFACE_LAUNCHES["35 mid scrambled"] = launched
+    graph_phase(f"{tag}b", "mid_scrambled", eng, dict(x0=x_near[perm]), card,
+                pairs=2, steps=50)
+    a = first.init_state(x0=x_near)
+    b = eng.init_state(x0=x_near[perm])
+    for i in range(4):
+        if i:
+            a, b = first.step(a), eng.step(b)
+        agree(f"{tag}: step {i}, scrambled vs electrodes first (card)",
+              _by_tag(b, perm), _cpu64(a), first.conp.ne)
+    del eng, first, a, b
+    # cond 4 scrambled: PPPM with the electrodes' z planes, SHAKE/RATTLE
+    system, md, cfg = workloads.cond(4, data_path=il_file)
+    perm = np.random.default_rng(36).permutation(system.natoms)
+    eng = _f32_engine(reorder_atoms(system, perm), md, cfg, dev)
+    first = _f32_engine(system, md, cfg, dev)
+    if eng.conp.ele_contig or eng.conp.ele_zplanes is None:
+        raise AssertionError(f"{tag}: cond 4 is not scrambled on z planes")
+    a, b = first.init_state(), eng.init_state()
+    before = _launch_counts()
+    for i in range(4):
+        if i:
+            a, b = first.step(a), eng.step(b)
+        agree(f"{tag}: cond 4 step {i}, scrambled vs electrodes first "
+              "(card)", _by_tag(b, perm), _cpu64(a), first.conp.ne,
+              scalar=True)
+    moved = _moved(before)
+    SURFACE_LAUNCHES["35 cond4 scrambled"] = moved
+    print(f"{tag}: cond 4, 2 x 3 steps and 2 x init, launches {moved}")
+    for name in ("pair_forces", "b_realspace", "shake_positions",
+                 "rattle_velocities"):
+        if moved.get(name, 0) < 6:
+            raise AssertionError(f"{tag}: cond 4: {name} launched "
+                                 f"{moved.get(name, 0)} times")
+    del eng, first
+    torch.cuda.empty_cache()
+
+
+def _deck_dir(il_file) -> str:
+    """A ``$CONP_REF_TESTS`` directory holding the il file as the decks'
+    ``il_onelayer/data``; set in the environment."""
+    import shutil
+    ref = os.path.abspath(os.path.join(OUT_DIR, "ref_tests"))
+    os.makedirs(os.path.join(ref, "il_onelayer"), exist_ok=True)
+    shutil.copyfile(il_file, os.path.join(ref, "il_onelayer", "data"))
+    os.environ["CONP_REF_TESTS"] = ref
+    return ref
+
+
+def _cli(argv):
+    """(stdout, seconds) of ``cli.main(argv)`` in this process."""
+    import contextlib
+    import io
+    from lammps_user_conp2_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]}: exit code {rc}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_path(card, dev, results, il_file, tmp):
+    """Phases 36 and 37: the command line in this process.  36: ``run
+    il_onelayer 0 --f32 --steps 200 --thermo 20 --log --checkpoint`` on the
+    3,776-atom file under $CONP_REF_TESTS: the log's header, 11 thermo
+    rows, the Loop time line and the per-phase timing lines; K4, K5, K7
+    and K8 every step; the rows equal, as printed, those of an
+    ``Engine.run`` of the same deck.  37: ``run --steps 60 --thermo 20
+    --dump``, then ``rerun``: K5 once per frame, each frame's electrode
+    charges re-solved to RERUN_TOL of the dumped ones."""
+    from lammps_user_conp2_tpu_torch import cli
+    from lammps_user_conp2_tpu_torch.utils import dump
+    from lammps_user_conp2_tpu_torch.utils.lammps_log import \
+        parse_thermo_blocks
+    tag = "phase 36"
+    ref = _deck_dir(il_file)
+    log = os.path.join(OUT_DIR, "cli_il_onelayer_0.log")
+    ck = os.path.join(tmp, "cli_il.npz")
+    before = _launch_counts()
+    out, secs = _cli(["run", "il_onelayer", "0", "--f32", "--steps", "200",
+                      "--thermo", "20", "--log", log, "--checkpoint", ck])
+    moved = _moved(before)
+    SURFACE_LAUNCHES["36 cli run"] = moved
+    lines = open(log).read().splitlines()
+    rows = [ln for ln in lines if ln and ln[0].isdigit()]
+    notes = [ln for ln in lines if ln.startswith("#")]
+    print(f"{tag}: cli run il_onelayer 0 --f32 (CONP_REF_TESTS={ref}): "
+          f"{out.strip()}; {secs:.1f} s with set-up, the timing flush and "
+          f"the checkpoint; launches {moved}  [{card}]")
+    for ln in notes:
+        print(f"    {ln}")
+    if lines[0] != cli.THERMO_HEADER or len(rows) != 11:
+        raise AssertionError(f"{tag}: the log has {len(rows)} thermo rows")
+    for key in ("# Loop time", "# b_vector:", "# charge_solve:",
+                "# pair_forces:", "# kspace_forces:", "# full_step:"):
+        if not any(ln.startswith(key) for ln in notes):
+            raise AssertionError(f"{tag}: the log has no '{key}' line")
+    for name in ("pair_forces", "b_realspace", "shake_positions",
+                 "rattle_velocities"):
+        if moved.get(name, 0) < 200:
+            raise AssertionError(f"{tag}: {name} launched "
+                                 f"{moved.get(name, 0)} times in 200 steps")
+    system, md, cfg = cli.load_deck("il_onelayer", 0)
+    eng = _f32_engine(system, md, cfg, dev)
+    st0 = eng.init_state()
+    _, th = eng.run(st0, 200, thermo_every=20)
+    want = [cli.thermo_line(eng.thermo(st0))] + [cli.thermo_line(r) for r in
+                                                 cli.thermo_rows(th)]
+    if rows != want:
+        bad = [(a, b) for a, b in zip(rows, want) if a != b]
+        raise AssertionError(f"{tag}: the log's rows differ from "
+                             f"Engine.run's: {bad[:2]}")
+    print(f"{tag}: the log's 11 thermo rows equal Engine.run's as printed; "
+          f"last: {rows[-1]}")
+
+    tag = "phase 37"
+    traj = os.path.join(tmp, "il.traj")
+    log2 = os.path.join(OUT_DIR, "cli_il_onelayer_0_dump.log")
+    _, secs = _cli(["run", "il_onelayer", "0", "--f32", "--steps", "60",
+                    "--thermo", "20", "--dump", traj, "--log", log2,
+                    "--no-timing"])
+    before = _launch_counts()
+    out, rsecs = _cli(["rerun", "il_onelayer", "0", traj, "--f32"])
+    moved = _moved(before)
+    SURFACE_LAUNCHES["37 cli rerun"] = moved
+    logged = parse_thermo_blocks(log2)[0]
+    got = np.array([[float(v) for v in ln.split()]
+                    for ln in out.splitlines()[1:]])
+    print(f"{tag}: run --dump 60 steps {secs:.1f} s, rerun of "
+          f"{len(got)} frames {rsecs:.1f} s; launches in the rerun {moved}")
+    if moved.get("b_realspace", 0) != 3 or got.shape[0] != 3:
+        raise AssertionError(f"{tag}: K5 launched {moved} for 3 frames")
+    dql = np.abs(got[:, 1] - logged["c_qleft"][1:]).max()
+    frames = dump.read_dump(traj)
+    res = dump.rerun_charges(eng.conp, frames, system.q0, tags=system.tag)
+    gap = 0.0
+    for (_, ftags, cols), (_, qn, _) in zip(frames, res):
+        pos = np.searchsorted(ftags, system.tag)
+        gap = max(gap, float(np.abs(qn[system.ele_mask]
+                                    - cols["q"][pos][system.ele_mask]).max()))
+    print(f"{tag}: re-solved electrode charges vs dumped: max {gap:.3e} e "
+          f"per atom (bound {RERUN_TOL}), |dqleft| {dql:.3e} e against the "
+          f"log  [{card}]")
+    if not gap <= RERUN_TOL:
+        raise AssertionError(f"{tag}: rerun charges off by {gap:.3e} e")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def checkpoint_path(card, dev, results, il_file, tmp):
+    """Phase 38: at the il and 100k cells, 50 graphed steps, a checkpoint,
+    a fresh engine, the file loaded and 50 more graphed steps against an
+    uninterrupted 100-step run: x, v, q, pe and the thermo rows bit for
+    bit; a checkpoint loaded into the il cell scrambled, and the il
+    checkpoint into the 100k engine, raise.  Returns the il and 100k
+    engines and the 100k cell's near-wall positions."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.system import reorder_atoms
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+    from lammps_user_conp2_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    tag = "phase 38"
+    engines = {}
+    for cell in ("il", "100k"):
+        if cell == "il":
+            system, md, cfg = workloads.il_onelayer(0, data_path=il_file)
+            kw = {}
+        else:
+            system, md, cfg = large_cell()
+            kw = dict(x0=workloads.near_wall_positions(system))
+        t0 = time.perf_counter()
+        eng = _f32_engine(system, md, cfg, dev)
+        st0 = eng.init_state(**kw)
+        full, th_full = eng.run(st0, 100, thermo_every=10)
+        half, _ = eng.run(st0, 50, thermo_every=10)
+        path = os.path.join(tmp, f"ck_{cell}.npz")
+        save_checkpoint(path, eng, half)
+        size = os.path.getsize(path)
+        fresh = _f32_engine(system, md, cfg, dev)
+        before = _launch_counts()
+        resumed = load_checkpoint(path, fresh)
+        end, th_end = fresh.run(resumed, 50, thermo_every=10)
+        torch.cuda.synchronize()
+        moved = _moved(before)
+        SURFACE_LAUNCHES[f"38 {cell} resumed"] = moved
+        same = (_state_diff(end, full)[0]
+                and torch.equal(end.step_t, full.step_t)
+                and all(torch.equal(torch.as_tensor(th_end[k]).cpu(),
+                                    torch.as_tensor(th_full[k])[5:].cpu())
+                        for k in th_full))
+        print(f"{tag}: {cell}, {system.natoms} atoms: 50 + checkpoint "
+              f"({size / 2**20:.1f} MiB) + fresh engine + 50 graphed steps "
+              f"vs 100: bit-identical {same} (x, v, q, pe, step counter, 5 "
+              f"thermo rows); {time.perf_counter() - t0:.1f} s; launches "
+              f"in the resumed run {moved}  [{card}]")
+        if not same:
+            raise AssertionError(f"{tag}: {cell}: the resumed run differs: "
+                                 f"{_state_diff(end, full)}")
+        engines[cell] = (eng, kw)
+        del fresh, full, half, end, resumed
+        torch.cuda.empty_cache()
+        if cell == "il":
+            il_path = path
+            scrambled = _f32_engine(reorder_atoms(system, np.roll(np.arange(
+                system.natoms), 5)), md, cfg, dev)
+            try:
+                load_checkpoint(path, scrambled)
+            except ValueError as e:
+                print(f"{tag}: il checkpoint into the scrambled il set-up "
+                      f"raises: {e}")
+            else:
+                raise AssertionError(f"{tag}: loaded into the scrambled il")
+            del scrambled
+    try:
+        load_checkpoint(il_path, engines["100k"][0])
+    except ValueError as e:
+        print(f"{tag}: il checkpoint into the 100k engine raises: {e}")
+    else:
+        raise AssertionError(f"{tag}: the il checkpoint loaded at 100k")
+    return engines
+
+
+def _timed(fn):
+    """(result, seconds) of one call, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rel_max(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+def diagnostics_path(card, dev, results, engines):
+    """Phase 39: the diagnostics and the pressure at full width.  il cell:
+    ``group_potential`` of each electrode after the solve (right minus left
+    the applied 2 V to DV_TOL, the spread within an electrode below
+    SPREAD_TOL), ``potential_atom`` and ``pressure_tensor`` in float32 on
+    the card against float64 on the CPU (the same state).  100k cell
+    (PPPM): ``pressure_tensor`` and the left electrode's potential in
+    float32 (K2b launches in both) against float64 on the card.  Both
+    within DIAG_REL of the largest |value|; the times printed."""
+    import types
+    from lammps_user_conp2_tpu_torch.models import diagnostics as dg
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.models.pressure import pressure_tensor
+    tag = "phase 39"
+    times = {}
+    for cell in ("il", "100k"):
+        eng, kw = engines[cell]
+        system = eng.system
+        st = eng.init_state(**kw)
+        pkw = dg.engine_potential_kw(eng)
+        before = _launch_counts()
+        ele = eng.left_mask | eng.right_mask
+        group = (torch.ones_like(eng.left_mask) if cell == "il"
+                 else eng.left_mask)
+        pot, t_pot = _timed(lambda: dg.potential_atom(
+            st.x, st.q, group_mask=group, **pkw))
+        p32, t_p = _timed(lambda: pressure_tensor(eng, st))
+        moved = _moved(before)
+        SURFACE_LAUNCHES[f"39 {cell}"] = moved
+        times[cell] = dict(potential_atom_s=t_pot, pressure_tensor_s=t_p)
+        gl = float(dg.group_potential(st.x, st.q, eng.left_mask, **pkw))
+        gr = float(dg.group_potential(st.x, st.q, eng.right_mask, **pkw))
+        print(f"{tag}: {cell}, {system.natoms} atoms, float32: "
+              f"potential_atom over {int(group.sum())} atoms {t_pot:.3f} s, "
+              f"pressure_tensor {t_p:.3f} s (P = "
+              f"{[round(float(v), 3) for v in p32]} atm); group potentials "
+              f"left {gl:.6f} V, right {gr:.6f} V; launches {moved}  [{card}]")
+        if cell == "il":
+            target = eng.conp.cfg.target
+            sl = float(pot[eng.left_mask].std())
+            sr = float(pot[eng.right_mask].std())
+            print(f"{tag}: il: right - left {gr - gl:.6f} V (applied "
+                  f"{target} V, bound {DV_TOL}), spread within the left / "
+                  f"right electrode {sl:.3e} / {sr:.3e} V (bound "
+                  f"{SPREAD_TOL})")
+            if not (abs(gr - gl - target) <= DV_TOL and sl <= SPREAD_TOL
+                    and sr <= SPREAD_TOL):
+                raise AssertionError(f"{tag}: il: the electrodes are not the "
+                                     "applied equipotentials")
+            # float64 on the CPU, the same state
+            md, cfg = eng.md, eng.conp.cfg
+            conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
+                                device="cpu")
+            eng64 = build_engine(system, md, conp64, dtype=torch.float64,
+                                 device="cpu")
+            where = "the CPU"
+        else:
+            if moved.get("spread_tiles", 0) < 2:
+                raise AssertionError(f"{tag}: 100k: K2b launched {moved}")
+            conp64 = setup_conp(system, eng.md, eng.conp.cfg,
+                                solve_dtype=torch.float64, device=dev)
+            eng64 = build_engine(system, eng.md, conp64, dtype=torch.float64,
+                                 device=dev)
+            where = "the card"
+        d64 = eng64.type_idx.device
+        st64 = types.SimpleNamespace(
+            x=st.x.to(d64, torch.float64), q=st.q.to(d64, torch.float64),
+            v=st.v.to(d64, torch.float64))
+        pot64, t_pot64 = _timed(lambda: dg.potential_atom(
+            st64.x, st64.q, group_mask=group.to(d64),
+            **dg.engine_potential_kw(eng64)))
+        p64, t_p64 = _timed(lambda: pressure_tensor(eng64, st64))
+        dpot, dp = _rel_max(pot, pot64), _rel_max(p32, p64)
+        times[cell].update(potential_atom_f64_s=t_pot64,
+                           pressure_tensor_f64_s=t_p64, pot_rel=dpot,
+                           p_rel=dp)
+        print(f"{tag}: {cell}: float32 against float64 on {where}: "
+              f"potential_atom {dpot:.3e}, pressure_tensor {dp:.3e} of the "
+              f"largest (bound {DIAG_REL}); float64 {t_pot64:.3f} s and "
+              f"{t_p64:.3f} s  [{card}]")
+        if not (dpot <= DIAG_REL and dp <= DIAG_REL):
+            raise AssertionError(f"{tag}: {cell}: float32 off float64")
+        del eng64, conp64, st64, pot64
+        torch.cuda.empty_cache()
+    results["surface"] = dict(diagnostics=times)
+
+
+def matio_profile_path(card, dev, results, engines):
+    """Phase 40: matrix files and ``profile``.  The mid-size cell set up
+    with ``matout`` (``amatrix``, ``inv_a_matrix`` into a temporary working
+    directory), then with ``ainv_file`` on the written inverse: A^-1
+    equal to MATFILE_TOL, and 3 steps of both within phase 5's bounds.
+    ``cli profile il_onelayer 0 --f32``: each phase's time (CUDA events)
+    and the kernels it launched (K5 in b_vector and charge_solve, K4 in
+    pair_forces, K4, K5, K7 and K8 in full_step); ``timers.profile_step``
+    at the 100k cell: K1 in pair_forces, K2a in pppm_spread, K3 in
+    pppm_gather."""
+    import dataclasses
+    import tempfile
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.utils.timers import profile_step
+    tag = "phase 40"
+    system, md, cfg = workloads.synthetic(**CELL)
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            t0 = time.perf_counter()
+            eng = _f32_engine(system, md, dataclasses.replace(
+                cfg, matout=True), dev)
+            t_write = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        sizes = {f: os.path.getsize(os.path.join(d, f))
+                 for f in ("amatrix", "inv_a_matrix")}
+        t0 = time.perf_counter()
+        eng_f = _f32_engine(system, md, dataclasses.replace(
+            cfg, ainv_file=os.path.join(d, "inv_a_matrix")), dev)
+        t_read = time.perf_counter() - t0
+    gap = float((eng.conp.ainv - eng_f.conp.ainv).abs().max())
+    print(f"{tag}: mid-size matout set-up {t_write:.2f} s (files {sizes} "
+          f"bytes), ainv_file set-up {t_read:.2f} s; max|A^-1 file - "
+          f"memory| {gap:.3e} (bound {MATFILE_TOL})")
+    if not gap <= MATFILE_TOL:
+        raise AssertionError(f"{tag}: A^-1 from the file off by {gap:.3e}")
+    x_near = workloads.near_wall_positions(system)
+    a, b = eng.init_state(x0=x_near), eng_f.init_state(x0=x_near)
+    for i in range(4):
+        if i:
+            a, b = eng.step(a), eng_f.step(b)
+        agree(f"{tag}: step {i}, ainv_file vs in memory (card)", b, _cpu64(a),
+              eng.conp.ne)
+    del eng, eng_f, a, b
+    torch.cuda.empty_cache()
+
+    out, secs = _cli(["profile", "il_onelayer", "0", "--f32", "--iters",
+                      "10"])
+    cut = out.index("launches ")
+    prof = {k: float(v.split()[0]) for k, v in json.loads(out[:cut]).items()}
+    launched = json.loads(out[cut + len("launches "):])
+    il_need = {"b_vector": ("b_realspace",), "charge_solve": ("b_realspace",),
+               "pair_forces": ("pair_forces",),
+               "full_step": ("pair_forces", "b_realspace", "shake_positions",
+                             "rattle_velocities")}
+    eng100, kw = engines["100k"]
+    st = eng100.init_state(**kw)
+    launched100 = {}
+    prof100 = {k: v * 1e3 for k, v in profile_step(
+        eng100, st, iters=10, launches=launched100).items()}
+    big_need = {"pair_forces": ("block_pair",), "pppm_spread": ("spread_mesh",),
+                "pppm_gather": ("gather3",),
+                "full_step": ("block_pair", "spread_mesh", "gather3")}
+    for cell, p, lau, need in (("il", prof, launched, il_need),
+                               ("100k", prof100, launched100, big_need)):
+        print(f"{tag}: profile at the {cell} cell (ms per call, CUDA events; "
+              f"kernels launched per phase)  [{card}]")
+        for phase, ms in p.items():
+            print(f"    {phase:14s} {ms:10.4f} ms  {lau.get(phase, {})}")
+        for phase, names in need.items():
+            for name in names:
+                if not lau.get(phase, {}).get(name):
+                    raise AssertionError(f"{tag}: {cell}: {phase} did not "
+                                         f"launch {name}")
+        SURFACE_LAUNCHES[f"40 profile {cell}"] = {
+            phase: lau[phase] for phase in lau if lau[phase]}
+    results["surface"].update(profile_il_ms=prof, profile_100k_ms=prof100,
+                              cli_profile_s=secs)
+
+
+def surface_paths(card, dev, results, il_file):
+    """Phases 35-40: the user's surface (electrodes in any row order, the
+    command line, dump and rerun, checkpoints, the diagnostics and the
+    pressure, the matrix files and the per-phase profile)."""
+    import tempfile
+    t0 = time.perf_counter()
+    noncontig_path(card, dev, results, il_file)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_path(card, dev, results, il_file, tmp)
+        engines = checkpoint_path(card, dev, results, il_file, tmp)
+    diagnostics_path(card, dev, results, engines)
+    matio_profile_path(card, dev, results, engines)
+    del engines
+    torch.cuda.empty_cache()
+    results["surface"]["seconds"] = time.perf_counter() - t0
+    print(f"phases 35-40: {time.perf_counter() - t0:.1f} s; launches by "
+          f"phase {json.dumps(SURFACE_LAUNCHES)}  [{card}]")
 
 
 if __name__ == "__main__":

@@ -5,9 +5,11 @@ reproduces its mid-size path (factored Ewald, INV charge solve, dense pair
 sweep with the CONP Gaussian correction), its 100k-atom path (Verlet
 block list, tiled PPPM) and the ionic-liquid decks (SHAKE/RATTLE; CONP,
 CONQ and COND; FFIELD, NOSLAB, EHGO, zmirror) in PyTorch, with the TPU
-kernels of those paths written as CUDA kernels for Hopper (``csrc/``).
-The entry points run on the card unless the caller passes
-``device="cpu"``; every kernel wrapper launches its kernel on a CUDA
+kernels of those paths written as CUDA kernels for Hopper (``csrc/``),
+and the JAX package's user surface: the command line (``cli``, ``python
+-m lammps_user_conp2_tpu_torch``), the diagnostics and the pressure, the
+log, dump, rerun, checkpoint, matrix-file and timing utilities.  The
+entry points run on the card unless the caller passes ``device="cpu"``; every kernel wrapper launches its kernel on a CUDA
 float32 tensor and takes its plain PyTorch version on a CPU or a CUDA
 float64 tensor.
 

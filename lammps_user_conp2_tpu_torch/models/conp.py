@@ -59,6 +59,7 @@ from ..ops.neighbors import b_realspace_from_list
 from ..ops.pairs import gauss_table_kernels, min_image
 from ..utils.config import (ConpConfig, FFMode, KSpaceStyle, MDConfig, Mode,
                             PairMode, Solver)
+from ..utils import matio
 from ..utils.device import DEFAULT_DTYPE, resolve_device
 from .electrodes import (ConpContext, ElectrodeKernels, assemble_amatrix,
                          build_d_vector, make_kernels, project_inverse)
@@ -279,6 +280,28 @@ class ConpSolver(nn.Module):
         return len(self.ele_idx)
 
     @property
+    def ele_contig(self) -> bool:
+        """Whether the electrodes occupy rows [0, Ne), the layout
+        ``models.system.electrodes_first`` makes: every electrode read and
+        write is then a slice (``ele_rows``, ``set_ele``), else an
+        ``index_select`` / ``index_copy`` through ``ele_idx_t``."""
+        e = self.ele_idx
+        return len(e) > 0 and int(e[0]) == 0 and int(e[-1]) == len(e) - 1
+
+    def ele_rows(self, t):
+        """The electrode rows of ``t`` (along its first axis)."""
+        if self.ele_contig:
+            return t[:self.ne]
+        return t.index_select(0, self.ele_idx_t)
+
+    def set_ele(self, q, vals):
+        """q with the electrode rows replaced by ``vals`` (distinct rows: no
+        atomics, the step stays bit-reproducible)."""
+        if self.ele_contig:
+            return torch.cat([vals.to(q.dtype), q[self.ne:]])
+        return q.index_copy(0, self.ele_idx_t, vals.to(q.dtype))
+
+    @property
     def ctx(self) -> ConpContext:
         return ConpContext(ele_idx=self.ele_idx_t, **{
             name: getattr(self, name) for name in CTX_TENSORS})
@@ -342,31 +365,32 @@ class ConpSolver(nn.Module):
         ``nbr``/``ncfg``: the engine's Verlet list, whose electrode rows
         then give the real-space part.  x and q are in the solve dtype.
         Returns (b, kcache)."""
-        ne = self.ne
         q_elyte = torch.where(self.elyte_t, q, torch.zeros_like(q))
         kcache = self.elyte_kcache(x, q, tasg)
+        xe = self.ele_rows(x)
         zsort = None
         if self.pppm_grid is not None and self.ele_zplanes is not None:
             # the electrodes sit on a few z planes: read u there with a
             # small z-DFT matmul and P plane FFTs, no full inverse FFT
             grid = self.pppm_grid
             up = pppm_ops.u_on_zplanes(grid, kcache[0], self.ele_zplanes)
-            b = -pppm_ops.gather_zplanes(grid, up, x[:ne], self.ele_zpinv)
+            b = -pppm_ops.gather_zplanes(grid, up, xe, self.ele_zpinv)
         elif self.pppm_grid is not None:
             # rough, z-extended or mobile electrodes: the full potential
             # mesh and the stencil readout (tiled above the dense bound)
             u = pppm_ops.poisson_u_from_k(self.pppm_grid, kcache[0])
-            b = -pppm_ops.gather(self.pppm_grid, u, x[:ne])
+            b = -pppm_ops.gather(self.pppm_grid, u, xe)
         elif kcache is not None:
             tabs, sr, si, zsort = kcache
             (pr, pi), (zr, zi) = tabs
-            tabs_e = ((pr[:ne], pi[:ne]), (zr[:ne], zi[:ne]))
+            rows = self.ele_rows
+            tabs_e = ((rows(pr), rows(pi)), (rows(zr), rows(zi)))
             b = -ewf.potential_on_points_tab(tabs_e, sr, si, self.fksp.ug_t)
         else:
             # above KXY_CHUNK: the chunked structure factor and the
             # readout from the electrodes' own tables
             sr, si = ewf.structure_factor_f(self.fksp, x, q_elyte)
-            b = -ewf.potential_on_points_f(self.fksp, x[:ne], sr, si)
+            b = -ewf.potential_on_points_f(self.fksp, xe, sr, si)
         if nbr is not None and ncfg is not None:
             b = b + b_realspace_from_list(
                 ncfg, nbr, x, q_elyte, self.ele_idx_t, self.elyte_t,
@@ -381,7 +405,7 @@ class ConpSolver(nn.Module):
         if self.ksp.slabflag:
             slabcorr = (4.0 * math.pi / self.ksp.volume) * torch.sum(
                 q_elyte * x[:, 2])
-            b = b - x[:ne, 2] * slabcorr
+            b = b - xe[:, 2] * slabcorr
         return b, kcache
 
     # ------------------------------------------------------------- solve
@@ -426,11 +450,11 @@ class ConpSolver(nn.Module):
         """The CG_MATFREE operator at positions x (solve dtype): the
         electrodes' phase tables, and the real-space block rebuilt from x
         with mobile electrodes (the set-up one otherwise)."""
-        xe = x[:self.ne]
+        xe = self.ele_rows(x)
         real_block = self.real_block
         if self.cfg.mobile_electrodes:
             real_block = realspace_block(
-                xe, self.type_t[:self.ne], self.a_kernel,
+                xe, self.ele_rows(self.type_t), self.a_kernel,
                 g=self.ksp.g_ewald, box=self.box, periodic=self.periodic,
                 cut_coulsq=self.cut_coulsq)
         return make_matfree_operator(
@@ -452,7 +476,8 @@ class ConpSolver(nn.Module):
             potdiff_prev = scalar_prev.to(self.solve_dtype)
         else:
             return None
-        x0 = q[:self.ne] - self.eleinitq - potdiff_prev * self.elesetq
+        x0 = (self.ele_rows(q) - self.eleinitq
+              - potdiff_prev * self.elesetq)
         x0 = x0 - torch.mean(x0)
         return torch.where(torch.all(torch.isfinite(x0)), x0,
                            torch.zeros_like(x0))
@@ -515,8 +540,7 @@ class ConpSolver(nn.Module):
                                     - torch.sum(self.setzvec * eleallq))
             scalar = potdiff
         q_ele = eleallq + potdiff * self.elesetq + self.eleinitq
-        return (torch.cat([q_ele.to(q.dtype), q[self.ne:]]), scalar,
-                pend.kcache)
+        return self.set_ele(q, q_ele), scalar, pend.kcache
 
     def solve_full(self, x, q, nbr=None, ncfg=None, tasg=None, step=None,
                    scalar_prev=None):
@@ -545,20 +569,6 @@ class ConpSolver(nn.Module):
         return int(it)
 
 
-def _check_supported(cfg: ConpConfig, ele_idx: np.ndarray) -> None:
-    """Raise NotImplementedError, naming the feature, for every setting the
-    port does not cover yet (it never quietly runs something else)."""
-    missing = []
-    if cfg.a_file or cfg.ainv_file or cfg.matout:
-        missing.append("matrix file I/O")
-    ne = len(ele_idx)
-    if ne and not (ele_idx[0] == 0 and ele_idx[-1] == ne - 1):
-        missing.append("non-contiguous electrode rows (apply "
-                       "models.system.electrodes_first)")
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
-
-
 def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
                x0: Optional[np.ndarray] = None,
                q0: Optional[np.ndarray] = None,
@@ -567,7 +577,11 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
     """One-time setup: k-space tables, A assembly, inverse + projection,
     d vector, elesetq (linalg_init/linalg_setup, fix_conp.cpp:393-464).
     CG keeps A and forms no inverse; CG_MATFREE keeps only A's real-space
-    block and diagonal; both solve elesetq = A^-1 d by CG.
+    block and diagonal; both solve elesetq = A^-1 d by CG.  ``cfg.a_file``
+    / ``cfg.ainv_file`` read A / its projected inverse from a file
+    (``utils/matio``, rows by tag), ``cfg.matout`` writes ``amatrix`` and
+    ``inv_a_matrix`` into the working directory.  The electrodes may sit
+    on any rows.
 
     The linear algebra runs in float64 on the CPU, except CG_MATFREE's CG
     for elesetq, which runs in float64 on ``device`` (each apply is the
@@ -582,7 +596,6 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
     ele_idx = np.nonzero(system.ele_mask)[0]
     if len(ele_idx) == 0:
         raise ValueError("no electrode atoms")
-    _check_supported(cfg, ele_idx)
     one_electrode = not system.ele_right_mask.any()
 
     # --- k-space setup (accuracy from the host kspace style, km_ewald.cpp:63-132)
@@ -635,6 +648,7 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
     cut_coulsq = min(md.cutoff ** 2, (ERFC_MAX / g_ewald) ** 2)
     xe = np.asarray(x0[ele_idx], np.float64)
     type_e = system.type[ele_idx]
+    tags_e = system.tag[ele_idx]
 
     # --- A matrix, inverse, projection (float64, CPU); the placeholders of
     # the matrices a solver does not keep
@@ -655,10 +669,20 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
             dtype=torch.float64)
         ainv = z64(1, 1)
         ee = float("nan")
+    elif cfg.ainv_file is not None:
+        # the inverse from a file (the inv keyword), rows in tag order
+        ainv = torch.from_numpy(matio.read_matrix(cfg.ainv_file, tags_e)[1])
+        ee = float("nan")
     else:
-        a = assemble_amatrix(xe, type_e, kernels.self_diag[ele_idx], ksp,
-                             kernels, box=box, periodic=system.periodic,
-                             cut_coulsq=cut_coulsq)
+        if cfg.a_file is not None:
+            a = torch.from_numpy(matio.read_matrix(cfg.a_file, tags_e)[1])
+        else:
+            a = assemble_amatrix(xe, type_e, kernels.self_diag[ele_idx], ksp,
+                                 kernels, box=box, periodic=system.periodic,
+                                 cut_coulsq=cut_coulsq)
+        if cfg.matout:
+            # written into the working directory, as the reference does
+            matio.write_matrix("amatrix", tags_e, a.numpy())
         if use_cg:
             # CG skips the O(Ne^3) inverse; neutrality is kept by its
             # de-meaned residuals, not by a projection
@@ -696,6 +720,8 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
         # as in the JAX package, CG_MATFREE's placeholder goes through it
         ainv, ee = project_inverse(ainv, **proj)
         ee = float(ee)
+    if cfg.matout and cfg.ainv_file is None and not use_cg:
+        matio.write_matrix("inv_a_matrix", tags_e, ainv.numpy())
     eleinitq = (torch.from_numpy(np.asarray(q0[ele_idx], np.float64))
                 if cfg.qinit else torch.zeros(len(ele_idx), dtype=torch.float64))
 

@@ -263,16 +263,16 @@ class Engine(nn.Module):
                                       q)
                 slots = self._slots(x, q_elyte, tasg)
                 rhok_elyte = pppm_ops.spread_rhok(grid, x, q_elyte, slots)
-            ne = self.conp.ne
+            xe, qe = self.conp.ele_rows(x), self.conp.ele_rows(q)
             if self.conp.ele_zplanes is not None:
-                rho_ep = pppm_ops.spread_zplanes(grid, x[:ne], q[:ne],
+                rho_ep = pppm_ops.spread_zplanes(grid, xe, qe,
                                                  self.conp.ele_zpinv)
                 rhok = rhok_elyte + pppm_ops.rhok_from_zplanes(
                     grid, rho_ep, self.conp.ele_zplanes)
             else:
                 # the Ne rows alone, tiled (K2b) above the dense bound
                 rhok = rhok_elyte + pppm_ops.rfft3(
-                    grid, pppm_ops.spread(grid, x[:ne], q[:ne]))
+                    grid, pppm_ops.spread(grid, xe, qe))
         else:
             slots = self._slots(x, q, tasg)
             rhok = pppm_ops.spread_rhok(grid, x, q, slots)
@@ -315,7 +315,7 @@ class Engine(nn.Module):
         elif kcache is not None:
             tabs, sre, sie, _ = kcache
             ek, fk = ewf.energy_forces_cached(self.fksp, q, tabs, sre, sie,
-                                              self.conp.ne)
+                                              self.conp.ele_rows)
         else:
             # no cache: no solve, a solve in another dtype, or above
             # KXY_CHUNK (the chunked sums)

@@ -23,6 +23,12 @@ A5 = 1.061405429
 ERFC_MAX = 5.8
 
 
+def erfc_as(x):
+    """A&S 7.1.26 erfc(x) for x >= 0 (no clamp)."""
+    t = 1.0 / (1.0 + EWALD_P * x)
+    return t * (A1 + t * (A2 + t * (A3 + t * (A4 + t * A5)))) * torch.exp(-x * x)
+
+
 def erfcr_sqrt(a2_r2):
     """erfc(sqrt(a2_r2)) / sqrt(a2_r2), clamped to 0 beyond ERFC_MAX^2
     (FixConp::erfcr_sqrt, fix_conp.cpp:1446-1454).  For a pair term this is

@@ -4,7 +4,8 @@ k-vectors are enumerated once on the host with the reference's
 accuracy-driven kmax search (km_ewald.cpp:97-113, rms at km_ewald.cpp:277-283)
 and Green's-function weights ``ug_k = (4 pi / V) exp(-k^2/4g^2)/k^2``
 (km_ewald.cpp:366-381).  The per-step k-space sums run in factored form
-(``ops/ewald_factored.py``).
+(``ops/ewald_factored.py``); the direct sums over the k-vectors here serve
+the diagnostics (``models/diagnostics.py``).
 
 The half-space enumeration convention matches LAMMPS: each +-k pair appears
 once with an implicit factor 2 (carried in ``2*ug`` / ``ug_tot``).
@@ -121,6 +122,36 @@ def setup_ewald(*, box: tuple, accuracy_abs: float, g_ewald: float,
         kxmax=kxmax, kymax=kymax, kzmax=kzmax, kvecs=kvecs, ug=ug,
         ug_tot=ug_tot,
     )
+
+
+def trig_tables(x, kvecs):
+    """cos/sin tables (N, K) from positions (N, 3) and kvecs (K, 3)."""
+    phase = x @ kvecs.T
+    return torch.cos(phase), torch.sin(phase)
+
+
+def structure_factor(x, q, kvecs, *, chunk: int = 4096):
+    """S(k) = sum_j q_j e^{i k.x_j} as (ReS, ImS), in chunks of ``chunk``
+    k-vectors (sincos_b and the sfac reduce, km_ewald.cpp:668-786)."""
+    re, im = [], []
+    for k0 in range(0, kvecs.shape[0], chunk):
+        c, s = trig_tables(x, kvecs[k0:k0 + chunk])
+        re.append(q @ c)
+        im.append(q @ s)
+    return torch.cat(re), torch.cat(im)
+
+
+def kspace_potential_on_points(xe, kvecs, ug, sre, sim, *, chunk: int = 4096):
+    """phi_k(x_i) = sum_k 2 ug_k (cos_i ReS + sin_i ImS) at the points xe
+    (Ne, 3), summed in chunks of ``chunk`` k-vectors; the b vector's
+    k-space part is -phi (bbb_from_sincos_b, km_ewald.cpp:789-825, with csk
+    premultiplied by 2 ug at km_ewald.cpp:501-507)."""
+    acc = torch.zeros(xe.shape[0], dtype=xe.dtype, device=xe.device)
+    for k0 in range(0, kvecs.shape[0], chunk):
+        sl = slice(k0, k0 + chunk)
+        c, s = trig_tables(xe, kvecs[sl])
+        acc = acc + c @ (2.0 * ug[sl] * sre[sl]) + s @ (2.0 * ug[sl] * sim[sl])
+    return acc
 
 
 def slab_correction_energy_forces(x, q, volume):

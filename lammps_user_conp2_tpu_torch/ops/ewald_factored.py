@@ -280,16 +280,18 @@ def _forces_from_s(q, tabs, sr, si, kx, ky, kz, unitk, ug):
 
 
 def energy_forces_cached(fk: FactoredKSpace, q, tabs, sr_elyte, si_elyte,
-                         ne: int):
+                         ele_rows):
     """(energy, forces) with the per-step caches from the charge solve:
     ``tabs`` are the full-atom axis tables and (sr_elyte, si_elyte) the
     electrolyte structure factor at the same positions.  Only the electrode
-    rows [0, ne) (the electrodes-first layout) add new structure factor."""
+    rows add new structure factor; ``ele_rows`` takes them from a tensor
+    (``ConpSolver.ele_rows``: a slice in the electrodes-first layout)."""
     (pr, pi), (zr, zi) = tabs
     nz = zr.shape[1]
-    qz = q[:ne, None] * torch.cat([zr[:ne], zi[:ne]], dim=1)   # (Ne, 2nz)
-    ar = pr[:ne].T @ qz
-    br = pi[:ne].T @ qz
+    qz = ele_rows(q)[:, None] * torch.cat([ele_rows(zr), ele_rows(zi)],
+                                          dim=1)                # (Ne, 2nz)
+    ar = ele_rows(pr).T @ qz
+    br = ele_rows(pi).T @ qz
     sr = sr_elyte + ar[:, :nz] - br[:, nz:]
     si = si_elyte + ar[:, nz:] + br[:, :nz]
     return _energy_forces_from_s(fk, q, tabs, sr, si)

@@ -1033,6 +1033,11 @@ def poisson_u_from_k(grid: PPPMGrid, rhok):
                                       / grid.volume)
 
 
+def poisson_u(grid: PPPMGrid, rho):
+    """Potential mesh u = IRFFT(G * RFFT(rho)) / V of a real density mesh."""
+    return poisson_u_from_k(grid, rfft3(grid, rho))
+
+
 def pppm_energy_u_from_k(grid: PPPMGrid, rhok):
     """(energy, u mesh) from the half-spectrum density: one inverse FFT."""
     rdt, dev = _real_dtype(rhok), rhok.device

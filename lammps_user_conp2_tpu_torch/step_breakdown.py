@@ -192,7 +192,7 @@ def main() -> int:
         "inv_solve (A^-1 b + update)": lambda: conp.apply_ainv(b),
         pair[0]: pair[1],
         "ewald_forces (cached tables)": lambda: ewf.energy_forces_cached(
-            eng.fksp, q, tabs, sre, sie, conp.ne),
+            eng.fksp, q, tabs, sre, sie, conp.ele_rows),
         "compute_forces (all)": lambda: eng.compute_forces(x, q, kcache,
                                                            *lists[:1]),
         "solve_full (all)": lambda: conp.solve_full(x, q, *lists),

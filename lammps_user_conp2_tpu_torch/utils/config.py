@@ -8,13 +8,12 @@ x {ewald, pppm} (SURVEY.md section 5 "Config / flag system").
 
 The fields are those of the JAX package, so one configuration drives both
 packages.  The port covers the whole lattice with the INV, CG and
-CG_MATFREE solvers (mobile electrodes under each), any ``nevery``, and a
-solve dtype other than the engine's (mixed precision); ``setup_conp`` and
-``build_engine`` raise NotImplementedError for four settings only:
-electrodes on rows other than [0, Ne), matrix file I/O (``a_file``,
-``ainv_file``, ``matout``), the ``cell`` and ``tile`` pair paths, and an
-Ewald charge solve under PPPM forces (which the JAX engine cannot run
-either).
+CG_MATFREE solvers (mobile electrodes under each), any ``nevery``, a
+solve dtype other than the engine's (mixed precision), electrodes on any
+rows and the matrix files (``a_file``, ``ainv_file``, ``matout``);
+``build_engine`` raises NotImplementedError for two settings only: the
+``cell`` and ``tile`` pair paths, and an Ewald charge solve under PPPM
+forces (which the JAX engine cannot run either).
 """
 
 from __future__ import annotations

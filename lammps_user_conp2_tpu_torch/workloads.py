@@ -5,7 +5,7 @@
 * ``il_onelayer`` / ``il_twolayer`` / ``cond`` / ``zmirror``: the
   ionic-liquid reference decks (BMI-PF6 between graphene electrodes,
   SHAKE on the cation), every trial, read from a LAMMPS data file:
-  ``data_path``, or the deck's ``data`` under ``REF_TESTS``.  The trials
+  ``data_path``, or the deck's ``data`` under ``ref_tests()``.  The trials
   cover CONP, CONQ and COND, the NORMAL slab, FFIELD with the external or
   the feedback efield, the NOSLAB doubled cell, EHGO with a callable
   target and the zmirror fix.
@@ -31,12 +31,15 @@ from .utils.config import (ConpConfig, EhgoConfig, FFMode, KSpaceStyle,
 from .utils.data_io import LammpsData
 from .utils.units import get_units
 
-# the reference decks' directory (one subdirectory per deck, each with its
-# ``data`` file); CONP_REF_TESTS points the port and the JAX package at the
-# same place
-REF_TESTS = os.environ.get(
-    "CONP_REF_TESTS",
-    str(Path(__file__).resolve().parents[1] / "reference" / "tests"))
+
+def ref_tests() -> str:
+    """The reference decks' directory (one subdirectory per deck, each with
+    its ``data`` file): ``$CONP_REF_TESTS`` as it is when a deck is read
+    (it points the port and the JAX package at the same place), else
+    ``reference/tests`` beside the package."""
+    return os.environ.get(
+        "CONP_REF_TESTS",
+        str(Path(__file__).resolve().parents[1] / "reference" / "tests"))
 
 
 def synthetic(n_elyte: int = 64, nele_side: int = 4, *, lz: float = 30.0,
@@ -206,7 +209,7 @@ def il_onelayer(n: int = 0, *, data_path: Optional[str] = None):
     atoms (types 1-3 the cation sites, 4 the anion, 5 the electrodes; mol
     641 left, 642 right), SHAKE on the cation's two bonds and its angle,
     500 K NHC, read from ``data_path`` or the deck's ``data`` under
-    ``REF_TESTS``.  Every trial runs:
+    ``ref_tests()``.  Every trial runs:
 
     0 CONP slab, EWALD, ETA at 2 V; 1 the same (+etypes, a no-op on the
     dense pair path); 2 CONQ slab with PPPM; 3 and 7 FFIELD (z periodic)
@@ -216,7 +219,7 @@ def il_onelayer(n: int = 0, *, data_path: Optional[str] = None):
     half."""
     if n not in range(8):
         raise ValueError(f"il_onelayer has trials 0-7, not {n}")
-    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/il_onelayer/data")
+    data = data_io.parse_data_file(data_path or f"{ref_tests()}/il_onelayer/data")
     doubled = n in (5, 6)
     if doubled:
         data = _doubled_cell(data, IL_MOLLEFT, IL_MOLRIGHT, sym=(n == 5),
@@ -270,7 +273,7 @@ def il_twolayer(n: int = 0, *, data_path: Optional[str] = None):
     2 V, EWALD, ETA."""
     if n not in range(6):
         raise ValueError(f"il_twolayer has trials 0-5, not {n}")
-    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/il_twolayer/data")
+    data = data_io.parse_data_file(data_path or f"{ref_tests()}/il_twolayer/data")
     doubled = n in (3, 4)
     if doubled:
         data = _doubled_cell(data, IL_MOLLEFT, IL_MOLRIGHT, sym=(n == 3),
@@ -302,10 +305,10 @@ def cond(n: int = 0, *, data_path: Optional[str] = None, suite: str = "cond"):
     1 CONQ slab (Q = 0.35); 2 CONP FFIELD with the external efield; 3 CONQ
     FFIELD with the feedback efield; 4 COND FFIELD with the feedback
     efield.  Reads ``data_path`` or the deck's ``data`` under
-    ``REF_TESTS``."""
+    ``ref_tests()``."""
     if n not in range(5):
         raise ValueError(f"cond has trials 0-4, not {n}")
-    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/{suite}/data")
+    data = data_io.parse_data_file(data_path or f"{ref_tests()}/{suite}/data")
     periodic = (True, True, n > 1)
     system = build_system(
         data, units="real", periodic=periodic, mix="arithmetic",
@@ -337,10 +340,10 @@ def zmirror(n: int = 0, *, data_path: Optional[str] = None):
     group (zmirror/input:49-50).  0 CONP, EWALD; 1 with PPPM; 2 with the
     zmirror fix (the upper half mirrors the lower one every step instead
     of being thermostatted); 3 CONQ (Q = 0.7) with zmirror.  Reads
-    ``data_path`` or the deck's ``data`` under ``REF_TESTS``."""
+    ``data_path`` or the deck's ``data`` under ``ref_tests()``."""
     if n not in range(4):
         raise ValueError(f"zmirror has trials 0-3, not {n}")
-    data = data_io.parse_data_file(data_path or f"{REF_TESTS}/zmirror/data")
+    data = data_io.parse_data_file(data_path or f"{ref_tests()}/zmirror/data")
     molmax = int(data.mol.max())
     data = _doubled_cell(data, IL_MOLLEFT, IL_MOLRIGHT, sym=True,
                          flip_vz=True)

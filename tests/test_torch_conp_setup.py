@@ -18,7 +18,6 @@ from lammps_user_conp2_tpu_torch import workloads as twl
 from lammps_user_conp2_tpu_torch.models import conp as tconp
 from lammps_user_conp2_tpu_torch.models import electrodes as tel
 from lammps_user_conp2_tpu_torch.models.md import build_engine
-from lammps_user_conp2_tpu_torch.models.system import reorder_atoms
 from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
 from torch_cells import CPU64, S1, S2, SOLVE64, rel_err
 
@@ -69,23 +68,6 @@ def test_project_inverse_zneutr_matches():
                                      **kw)
         assert rel_err(ta.numpy(), ja) < 1e-13
         assert float(tt) == pytest.approx(float(jt), rel=1e-13)
-
-
-@pytest.mark.parametrize("change", ["matout", "noncontig"])
-def test_setup_refuses_features_not_ported(change):
-    """Matrix file I/O and electrodes on rows other than [0, Ne) are not
-    ported; the CG solvers, mobile electrodes under them, nevery > 1 and
-    PPPM with electrodes through the box are (test_torch_cg.py,
-    test_torch_nevery_mixed.py, test_torch_fullmesh.py)."""
-    system, md, cfg = twl.synthetic(**S1)
-    if change == "matout":
-        cfg = dataclasses.replace(cfg, matout=True)
-    else:
-        perm = np.roll(np.arange(system.natoms), 5)
-        system = reorder_atoms(system, perm)
-        assert not system.ele_mask[0]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tconp.setup_conp(system, md, cfg, **SOLVE64)
 
 
 @pytest.mark.parametrize("change", [

@@ -90,7 +90,8 @@ def test_factored_sums_match_on_s2():
     jphi = jewf.potential_on_points_tab(cut(jtab), jsr, jsi, jf.ug)
     assert rel_err(tphi, jphi) < 1e-10
 
-    te, tfk = tewf.energy_forces_cached(tf, qt, ttab, tsr, tsi, ne)
+    te, tfk = tewf.energy_forces_cached(tf, qt, ttab, tsr, tsi,
+                                        lambda t: t[:ne])
     je, jfk = jewf.energy_forces_cached(jf, qj, jtab, jsr, jsi,
                                         jnp.arange(ne), contig=True)
     assert float(te) == pytest.approx(float(je), rel=1e-10)

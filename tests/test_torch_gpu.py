@@ -1113,3 +1113,95 @@ def test_cg_block_matches_while_loop_on_card(cuda):
         torch.cuda.synchronize()
         assert int(cg.it) == int(ref.it) > 0
         assert torch.equal(cg.x, ref.x)
+
+
+# ------------------------------------------- the user's surface (phases 35-38)
+def test_scrambled_electrodes_on_card(cuda):
+    """Phase 35 at the test size: S2 with its electrode rows spread through
+    the atoms runs K4 (fused correction) and K5 every step, the graphed
+    run equals the eager one bit for bit, and 3 steps map by tag onto the
+    electrodes-first run within phase 5's bounds."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.models.system import reorder_atoms
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    system, md, cfg = workloads.synthetic(**S2)
+    perm = np.random.default_rng(7).permutation(system.natoms)
+    scr = reorder_atoms(system, perm)
+    f32 = dict(device=cuda)
+    engs = [build_engine(s, md, setup_conp(s, md, cfg, solve_dtype=torch.float32,
+                                           **f32), dtype=torch.float32, **f32)
+            for s in (system, scr)]
+    assert engs[0].conp.ele_contig and not engs[1].conp.ele_contig
+    x0 = x_near(system)
+    st = engs[1].init_state(x0=x0[perm])
+    n4, n5 = k4.launches.count, k5.launches.count
+    g, _ = engs[1].run(st, 10, thermo_every=0)
+    torch.cuda.synchronize()
+    assert k4.launches.count - n4 >= 10 and k5.launches.count - n5 >= 10
+    assert _same(g, _steps(engs[1], st, 10))
+    a, b = engs[0].init_state(x0=x0), st
+    for _ in range(3):
+        a, b = engs[0].step(a), engs[1].step(b)
+    dq = float((a.q[perm] - b.q).abs().max())
+    assert dq <= 1e-4 * float(a.q.abs().max()) + 1e-6
+    assert abs(float(a.energy - b.energy)) <= 1e-4 * abs(float(a.energy))
+    assert _rel(b.f, a.f[perm]) <= 1e-3
+
+
+def test_cli_run_matches_engine_run_on_card(cuda, tmp_path, monkeypatch):
+    """Phase 36 at the test size: ``cli.main(["run", ..., "--f32"])`` on the
+    352-atom file prints the thermo rows of an ``Engine.run`` of the same
+    deck, as printed."""
+    from lammps_user_conp2_tpu_torch import cli
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.utils.lammps_log import \
+        parse_thermo_blocks
+    import os
+    os.makedirs(tmp_path / "il_onelayer")
+    from lammps_user_conp2_tpu_torch.workloads import write_il_data
+    from torch_cells import IL_SMALL
+    write_il_data(str(tmp_path / "il_onelayer" / "data"), **IL_SMALL)
+    monkeypatch.setenv("CONP_REF_TESTS", str(tmp_path))
+    log = str(tmp_path / "log")
+    assert cli.main(["run", "il_onelayer", "0", "--f32", "--steps", "20",
+                     "--thermo", "5", "--log", log, "--no-timing"]) == 0
+    system, md, cfg = cli.load_deck("il_onelayer", 0)
+    eng = build_engine(system, md, setup_conp(system, md, cfg,
+                                              solve_dtype=torch.float32,
+                                              device=cuda),
+                       dtype=torch.float32, device=cuda)
+    st0 = eng.init_state()
+    _, th = eng.run(st0, 20, thermo_every=5)
+    rows = [cli.thermo_line(eng.thermo(st0))] + [
+        cli.thermo_line(r) for r in cli.thermo_rows(th)]
+    lines = open(log).read().splitlines()
+    assert lines[1:6] == rows
+    assert len(parse_thermo_blocks(log)[0]["Step"]) == 5
+
+
+@pytest.mark.parametrize("cell", ["il", "mid_cg_nevery2"])
+def test_checkpoint_resume_bit_identical_on_card(cuda, cell, tmp_path,
+                                                monkeypatch):
+    """Phase 38 at the test size: 10 graphed steps, a checkpoint, a fresh
+    engine, the file loaded and 10 more graphed steps equal 20 graphed
+    steps bit for bit (the warm start and nevery's step counter carried)."""
+    from lammps_user_conp2_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
+    st0 = eng.init_state(**kw)
+    full, th_full = eng.run(st0, 20, thermo_every=5)
+    half, _ = eng.run(st0, 10, thermo_every=5)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, eng, half)
+    fresh, _ = _graph_cell(cuda, cell, tmp_path, monkeypatch)
+    end, th_end = fresh.run(load_checkpoint(path, fresh), 10, thermo_every=5)
+    torch.cuda.synchronize()
+    assert _same(end, full), _diff(end, full)
+    assert torch.equal(end.step_t, full.step_t)
+    for k in th_full:
+        assert torch.equal(torch.as_tensor(th_end[k]).cpu(),
+                           torch.as_tensor(th_full[k])[2:].cpu()), k

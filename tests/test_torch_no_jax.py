@@ -4,7 +4,10 @@ the Verlet-list + PPPM path on S3 for 2 steps, write the test-size
 ionic-liquid data file and run il_onelayer (SHAKE/RATTLE) on it for 2
 steps, import the gather probes (``timing``, ``exp_vmem_gather``,
 ``exp_gather_chunk``, K9's ``ops.kernels.vmem_gather``) and run K9's
-plain path, and check that neither jax nor the JAX package (nor
+plain path, import the command line, the diagnostics, the pressure and
+the I/O modules, run ``cli.main(["run", "synthetic", "--cpu", ...])`` and
+a step of S1 with its electrodes scattered over the rows (and its
+pressure tensor), and check that neither jax nor the JAX package (nor
 ``tools/``) was imported and that no CUDA kernel was launched."""
 
 import json
@@ -16,6 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import json, sys, tempfile
+import numpy as np
 import torch
 torch.set_num_threads(2)
 from lammps_user_conp2_tpu_torch import workloads
@@ -48,6 +52,18 @@ md = dataclasses.replace(md, cutoff=7.0, kspace_accuracy=1e-5)
 il = build_engine(system, md, setup_conp(system, md, cfg, **S64), **C64)
 st3, th3 = il.run(il.init_state(), 2)
 probe = exp_vmem_gather.run_probe(2, 32, R=3, device="cpu", iters=2)
+from lammps_user_conp2_tpu_torch import cli
+from lammps_user_conp2_tpu_torch.models import diagnostics, pressure
+from lammps_user_conp2_tpu_torch.models.system import reorder_atoms
+from lammps_user_conp2_tpu_torch.utils import (checkpoint, dump, lammps_log,
+                                               matio, timers)
+rc = cli.main(["run", "synthetic", "--cpu", "--steps", "2", "--thermo", "1"])
+system, md, cfg = workloads.synthetic(64, 4)
+scr = reorder_atoms(system, np.random.default_rng(0).permutation(
+    system.natoms))
+sc = build_engine(scr, md, setup_conp(scr, md, cfg, **S64), **C64)
+st4 = sc.step(sc.init_state())
+p6 = pressure.pressure_tensor(sc, st4)
 mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather,
         vmem_gather)
 print(json.dumps(dict(
@@ -60,7 +76,9 @@ print(json.dumps(dict(
         shake_kernel.shake_launches.count, shake_kernel.rattle_launches.count],
     step=st.step, energy=float(st.energy), temp=float(th["temp"][-1]),
     step2=st2.step, energy2=float(st2.energy), list2=big.ncfg is not None,
-    step3=st3.step, temp3=float(th3["tempsl"][-1]), shake3=il.cons is not None)))
+    step3=st3.step, temp3=float(th3["tempsl"][-1]), shake3=il.cons is not None,
+    cli_rc=rc, scrambled=not sc.conp.ele_contig, step4=st4.step,
+    energy4=float(st4.energy), p6=[float(v) for v in p6])))
 """
 
 
@@ -77,3 +95,5 @@ def test_port_runs_without_jax():
     assert out["step3"] == 2 and out["shake3"] and out["temp3"] > 0.0
     assert out["temp"] > 0.0 and abs(out["energy"]) < 1e12
     assert abs(out["energy2"]) < 1e12
+    assert out["cli_rc"] == 0 and out["scrambled"] and out["step4"] == 1
+    assert abs(out["energy4"]) < 1e12 and len(out["p6"]) == 6
