@@ -8,10 +8,10 @@ Drives the port's paths (nine main paths through
 Engine.run, float32; three of them again in float64 on the card; the
 window gather probe ``exp_vmem_gather.run_probe``; the CG, nevery,
 mixed-precision, mobile-electrode and chunked-Ewald paths of phases
-30-34; and the user's surface of phases 35-40: electrodes in any row
+30-34; the user's surface of phases 35-40: electrodes in any row
 order, the command line, dump and rerun, checkpoints, the diagnostics and
-the pressure, the matrix files and the profile) and exits non-zero if any
-phase fails.
+the pressure, the matrix files and the profile; and the sharded step of
+phases 41-43) and exits non-zero if any phase fails.
 
 Mid-size path, the 7,296-atom synthetic capacitor
 ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
@@ -264,6 +264,33 @@ launched, the kernels line's ``launches_surface``):
      ``timers.profile_step`` at the 100k cell: each phase's time (CUDA
      events) and the kernels it launched (K5, K4, K7, K8 at the il cell;
      K1, K2a, K3 at the 100k cell).
+
+The sharded step (phases 41-43, ``parallel/sharded.py``; the card is one,
+so d > 1 runs as each rank's kernel work in turn and the step runs at d =
+1 over a one-rank NCCL group through a FileStore):
+
+ 41. the 100k cell, float32, d = 2 and 4, one rank after another, no
+     collectives: K1 over each rank's block slice of the padded list, K2a
+     and K3 on each rank's atom rows with its own tile cap (the ranks'
+     occupancy at x0 plus 25%), each against its plain version within
+     KERNEL_TOL; the ranks' slot forces put together against the whole
+     list's K1 output (whether bit for bit printed: ``block_segments``
+     may split a slice's unions otherwise) and their rhok summed against
+     the whole spread, within KERNEL_TOL; each kernel's ms per rank;
+ 42. the d = 1 sharded step at the 100k cell (K1, K2a, K3), the full-mesh
+     cell (and K2b) and cond 4 on the il file (the dense path's K5 and
+     K6, K7, K8, COND, the feedback field): SHARDED_STEPS steps from ``Engine.init_state``, twice, bit for
+     bit, each kernel of the cell launched every step of the first run
+     (counts set to 0 just before it), then ``Engine.step`` on the card
+     from the same state with phase 5's bounds per step (cond 4 also the
+     fix scalar);
+ 43. ``bench_sharded.measure`` at the 100k and mid-size cells: alternating
+     eager runs of BENCH_SHARDED_STEPS steps of ``Engine.step`` and of the
+     d = 1 sharded step (ms/step, the overhead), their host syncs per step
+     and a profile of each (device busy, kernels and NCCL ms per step, the
+     top kernels and host ops).  The process group is closed before the
+     last line.  The kernels line's ``launches_sharded`` and
+     ``ms_rank_slices`` carry phases 42 and 41.
 
 The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
 angle the three constraint directions of a straight cation are parallel,
@@ -706,6 +733,8 @@ def main() -> int:
     print("phases 30-34: " + json.dumps(results["solve_paths"])
           + f"  [{card}]")
     surface_paths(card, dev, results, il_file)
+    # phases 41-43: the sharded step
+    sharded_paths(card, dev, results, il_file)
     # each kernel's launches on those main runs, by cell, and on phases
     # 35-40, by phase
     for name, (_, counter) in KERNEL_IDS.items():
@@ -791,7 +820,8 @@ def main() -> int:
             "device_ms_replay", "ms_1p2", "device_ms_1p2", "r_corr",
             "floor_ms", "kernels_per_call", "shapes", "launches_decks",
             "max_rel_err_ehgo_fo", "device_ms_ehgo_fo",
-            "launches_solve_paths", "launches_surface", "bound_ms_decks")
+            "launches_solve_paths", "launches_surface", "bound_ms_decks",
+            "launches_sharded", "ms_rank_slices")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -1239,7 +1269,9 @@ def chain_floor(cons, xn, xo, v, dt, kw) -> dict:
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread-local, as models/graphs.py captures: the profiler's buffer
+        # thread may call CUDA while this captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             for _ in range(100):
                 fn()
         graph.replay()
@@ -3157,6 +3189,254 @@ def surface_paths(card, dev, results, il_file):
     results["surface"]["seconds"] = time.perf_counter() - t0
     print(f"phases 35-40: {time.perf_counter() - t0:.1f} s; launches by "
           f"phase {json.dumps(SURFACE_LAUNCHES)}  [{card}]")
+
+
+# phases 41-43: the sharded step (``parallel/sharded.py``)
+SHARDED_DS = (2, 4)
+SHARDED_STEPS = 3
+BENCH_SHARDED_STEPS = 20
+BENCH_SHARDED_PAIRS = 2
+# kernels line name -> the phase 42 cells' launches / phase 41's per-rank
+# device-clock times, by d
+SHARDED_LAUNCHES = {}
+RANK_MS = {}
+
+
+def _host64(st):
+    """A card state's q, f, pe and fix scalar in float64 on the host, the
+    shape ``agree`` reads its reference in."""
+    import types
+    return types.SimpleNamespace(
+        q=st.q.double().cpu(), f=st.f.double().cpu(),
+        energy=st.energy.double().cpu(), scalar_out=st.scalar_out.double()
+        .cpu())
+
+
+def rank_slices(card, dev, eng, x_np):
+    """Phase 41: K1, K2a and K3 on each rank's share of the 100k cell at d
+    in SHARDED_DS, one rank after another in one process (no collectives):
+    each against its plain version; the ranks' slot forces put together
+    against the whole list's K1 output (bit for bit printed, KERNEL_TOL
+    held); the ranks' rhok summed against the whole spread."""
+    from lammps_user_conp2_tpu_torch.ops import neighbors, pppm
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    from lammps_user_conp2_tpu_torch.parallel.sharded import make_layout
+    tag = "phase 41"
+    system, conp = eng.system, eng.conp
+    n = system.natoms
+    rng = np.random.default_rng(1)
+    q_np = system.q0.copy()
+    q_np[system.ele_mask] = 0.05 * rng.standard_normal(conp.ne)
+    q = torch.as_tensor(q_np, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(x_np, dtype=torch.float32, device=dev)
+    q_elyte = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    bkw = dict(box=eng.ncfg.grid.box, periodic=eng.ncfg.grid.periodic,
+               cutoff=eng.md.cutoff, g_ewald=conp.ksp.g_ewald,
+               qqr2e=system.units().qqr2e)
+    nbr, _ = eng.derived_state(x)
+    grid = eng.pppm_grid
+    whole = k1.block_pair(x, q, eng.type_idx, nbr.bun, nbr.brows, eng.tables,
+                          conp_fuse=fuse, **bkw)
+    rhok_w = pppm._spread_rhok_tiled(grid, x, q_elyte,
+                                     pppm.tile_slots(grid, x, q_elyte))
+    cfd = pppm._coeffs(grid, torch.float32, dev)
+    for d in SHARDED_DS:
+        lay = make_layout(eng, d, x0=x_np)
+        rg = lay.rank_grid
+        geom = pppm._tile_geometry(rg, lay.nrow)
+        nbp = neighbors.pad_block_list(nbr, n, d)
+        nb_l = nbp.bun.shape[0] // d
+        print(f"{tag}: d={d}: {lay.nrow} atom rows and {nb_l} blocks per "
+              f"rank, rank tile cap {geom.cap} (the grid's "
+              f"{pppm._tile_geometry(grid, n).cap})")
+        f_parts, rhok, ms = [], 0.0, {"block_pair_conp": [],
+                                      "spread_mesh": [], "gather3": []}
+        for r in range(d):
+            sl = slice(r * nb_l, (r + 1) * nb_l)
+            args = (x, q, eng.type_idx, nbp.bun[sl], nbp.brows[sl],
+                    eng.tables)
+            kern = lambda: k1.block_pair(*args, conp_fuse=fuse, **bkw)
+            got = kern()
+            torch.cuda.synchronize()
+            compare(f"{tag}: d={d} rank {r} block_pair", got,
+                    k1.block_pair_plain(*args, conp_fuse=fuse, **bkw))
+            f_parts.append(got[0])
+            ms["block_pair_conp"].append(median_ms(kern, reps=10))
+            xi = lay.my_rows(x, r)
+            qi = lay.my_rows(q_elyte, r, 0.0)
+            slots = pppm.refresh_tile_slots(rg, pppm.tile_assign(rg, xi), xi,
+                                            qi)
+            if bool(slots.overflow):
+                raise AssertionError(f"{tag}: d={d} rank {r}: tile overflow")
+            kern = lambda: k2.spread_mesh(slots.rows, cfd, geom)
+            got = kern()
+            torch.cuda.synchronize()
+            compare(f"{tag}: d={d} rank {r} spread_mesh", (got,),
+                    (k2.spread_mesh_plain(slots.rows, cfd, geom),))
+            ms["spread_mesh"].append(median_ms(kern, reps=10))
+            rhok = rhok + pppm._spread_rhok_tiled(rg, xi, qi, slots)
+            _, uz = pppm.pppm_energy_u_zbin(rg, rhok_w, lay.nrow)
+            up = pppm._wrap_pad_xy(uz, geom.hw + geom.dm).contiguous()
+            kern = lambda: k3.gather3(up, slots.rows, cfd, geom)
+            got = kern()
+            torch.cuda.synchronize()
+            compare(f"{tag}: d={d} rank {r} gather3", (got,),
+                    (k3.gather3_plain(up, slots.rows, cfd, geom),))
+            ms["gather3"].append(median_ms(kern, reps=10))
+        f_all = torch.cat(f_parts)[:nbr.brows.numel()]
+        print(f"{tag}: d={d}: the ranks' slot forces put together equal the "
+              f"whole list's K1 output bit for bit: "
+              f"{torch.equal(f_all, whole[0])}")
+        compare(f"{tag}: d={d} slot forces put together", (f_all,),
+                (whole[0],))
+        compare(f"{tag}: d={d} rhok of the ranks summed",
+                (torch.view_as_real(rhok),), (torch.view_as_real(rhok_w),))
+        for name, v in ms.items():
+            RANK_MS.setdefault(name, {})[f"d{d}"] = v
+        print(f"{tag}: d={d}: ms per rank (CUDA events) " + json.dumps(ms)
+              + f"  [{card}]")
+
+
+def sharded_cell(tag, cell, eng, x0, comm, counters, card, scalar=False):
+    """Phase 42 at one cell: SHARDED_STEPS d = 1 sharded steps from
+    ``eng.init_state``, twice (bit for bit), each kernel in ``counters``
+    launched every step of the first run; then ``Engine.step`` on the card
+    from the same state, every step held to phase 5's bounds.  Returns the
+    sharded engine and the start state."""
+    from lammps_user_conp2_tpu_torch.parallel.sharded import (
+        build_sharded_engine)
+    t0 = time.perf_counter()
+    sheng = build_sharded_engine(
+        eng, comm, x0=None if x0 is None else np.asarray(x0))
+    st0 = eng.init_state(x0=x0)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    runs = []
+    for _ in range(2):
+        st, states = st0, []
+        for _ in range(SHARDED_STEPS):
+            st = sheng.step(st)
+            states.append(st)
+        torch.cuda.synchronize()
+        if not runs:
+            launches = {name: c.count for name, c in counters.items()}
+        runs.append(states)
+    same = all(_state_diff(a, b)[0] for a, b in zip(*runs))
+    print(f"{tag}: {cell}: {SHARDED_STEPS} sharded steps over a one-rank "
+          f"NCCL group, launches {launches}; two runs bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: {cell}: the sharded step is not "
+                             "bit-reproducible")
+    for name, cnt in launches.items():
+        if cnt < SHARDED_STEPS:
+            raise AssertionError(f"{tag}: {cell}: {name} launched {cnt} "
+                                 f"times in {SHARDED_STEPS} sharded steps")
+        SHARDED_LAUNCHES.setdefault(name, {})[cell] = cnt
+    st = st0
+    for i, s_sh in enumerate(runs[0]):
+        st = eng.step(st)
+        agree(f"{tag}: {cell} step {i + 1}, sharded vs Engine.step", s_sh,
+              _host64(st), eng.conp.ne, scalar)
+    print(f"{tag}: {cell}: {time.perf_counter() - t0:.1f} s  [{card}]")
+    return sheng, st0
+
+
+def sharded_paths(card, dev, results, il_file):
+    """Phases 41-43: the sharded step on one card."""
+    import dataclasses
+    import tempfile
+    from lammps_user_conp2_tpu_torch import bench_sharded, workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
+    from lammps_user_conp2_tpu_torch.parallel import comm as C
+    from lammps_user_conp2_tpu_torch.parallel.sharded import (
+        build_sharded_engine)
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+    from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+    t0 = time.perf_counter()
+    system, md, cfg = large_cell()
+    x_near = workloads.near_wall_positions(system)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    # ---- phase 41: per-rank kernel slices
+    rank_slices(card, dev, eng, x_near)
+    # ---- phase 42: the d = 1 sharded step over NCCL, three cells
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    comm = C.init_group(dev, 0, 1, store)
+    try:
+        big = dict(block_pair=k1.launches, spread_mesh=k2.launches,
+                   gather3=k3.launches)
+        sheng, st0 = sharded_cell("phase 42", "100k", eng, x_near, comm, big,
+                                  card)
+        # ---- phase 43: bench_sharded at the 100k and mid-size cells
+        bench = {"100k": bench_sharded.measure(
+            eng, sheng, st0, BENCH_SHARDED_STEPS, BENCH_SHARDED_PAIRS)}
+        del sheng, st0, eng, conp
+        torch.cuda.empty_cache()
+        fsys, fmd, fcfg = workloads.synthetic(98304, 40, lz=240.0, lxy=120.0)
+        fmd = dataclasses.replace(fmd, kspace_style=KSpaceStyle.PPPM)
+        fcfg = dataclasses.replace(fcfg, kspace=KSpaceStyle.PPPM,
+                                   mobile_electrodes=True)
+        feng = build_engine(fsys, fmd, setup_conp(
+            fsys, fmd, fcfg, solve_dtype=torch.float32, device=dev),
+            dtype=torch.float32, device=dev)
+        sharded_cell("phase 42", "full_mesh", feng,
+                     workloads.near_wall_positions(fsys), comm,
+                     dict(big, spread_tiles=k2.tiles_launches), card)
+        del feng
+        torch.cuda.empty_cache()
+        *_, ceng = _deck_engine("phase 42", "cond", 4, il_file, dev)
+        sharded_cell("phase 42", "cond4", ceng, None, comm,
+                     dict(shake_positions=k78.shake_launches,
+                          rattle_velocities=k78.rattle_launches,
+                          b_realspace=k56.launches,
+                          conp_correction=k56.corr_launches), card,
+                     scalar=True)
+        meng, mx = bench_sharded.cell_engine("mid", dev)
+        msh = build_sharded_engine(meng, comm, x0=mx)
+        bench["mid"] = bench_sharded.measure(
+            meng, msh, meng.init_state(x0=mx), BENCH_SHARDED_STEPS,
+            BENCH_SHARDED_PAIRS)
+    finally:
+        C.close_group()
+    for cell, r in bench.items():
+        print(f"phase 43: cell={cell} single_ms={r['single_ms']:.4f} "
+              f"sharded_d1_ms={r['sharded_d1_ms']:.4f} "
+              f"overhead_pct={r['overhead_pct']:.1f} (eager, {r['steps']} "
+              f"steps x {r['pairs']} alternating pairs: single "
+              f"{r['single_runs_ms']}, sharded {r['sharded_runs_ms']}), host "
+              f"syncs per step {r['host_syncs_per_step']}  [{card}]")
+        for name, pr in r["profile"].items():
+            step_ms = r["single_ms" if name == "single" else "sharded_d1_ms"]
+            print(f"phase 43: cell={cell} {name}: device busy "
+                  f"{pr['busy_ms']:.4f} ms/step ({pr['busy_ms'] / step_ms:.3f} "
+                  f"of the step), {pr['kernels_per_step']:.0f} kernels/step, "
+                  f"NCCL {pr['nccl_ms']:.4f} ms/step; top device kernels "
+                  f"(ms/step, per step) {pr['top_device']}; top host ops "
+                  f"(self ms/step, per step) {pr['top_host']}")
+    results["sharded"] = dict(bench=bench, rank_ms=RANK_MS,
+                              launches=SHARDED_LAUNCHES,
+                              seconds=time.perf_counter() - t0)
+    for name, per_d in RANK_MS.items():
+        results[name]["ms_rank_slices"] = per_d
+    names = {"block_pair": "block_pair_conp", "spread_mesh": "spread_mesh",
+             "gather3": "gather3", "spread_tiles": "spread_tiles",
+             "shake_positions": "shake_positions",
+             "rattle_velocities": "rattle_velocities",
+             "b_realspace": "b_realspace",
+             "conp_correction": "conp_correction"}
+    for counter, per_cell in SHARDED_LAUNCHES.items():
+        results[names[counter]]["launches_sharded"] = per_cell
+    print(f"phases 41-43: {time.perf_counter() - t0:.1f} s  [{card}]")
 
 
 if __name__ == "__main__":

@@ -200,17 +200,26 @@ def cg_solve(amat, b, tol: float, maxiter: int, x0=None):
 
 
 def realspace_block(xe, type_e, potential_a, *, g, box, periodic,
-                    cut_coulsq):
+                    cut_coulsq, rows=None, valid=None):
     """The (Ne, Ne) real-space erfc + Gaussian block of A, off the
-    diagonal, in xe's dtype on xe's device."""
+    diagonal, in xe's dtype on xe's device; with ``rows`` (R,) (indices
+    into xe) only those rows, (R, Ne), and ``valid`` (R,) bool zeroes the
+    rows it marks False (the sharded step's padded rows)."""
     ne = xe.shape[0]
-    dx = min_image(xe[:, None, :] - xe[None, :, :], box, periodic)
+    if rows is None:
+        xr, tr = xe, type_e
+        offdiag = ~torch.eye(ne, dtype=torch.bool, device=xe.device)
+    else:
+        xr, tr = xe[rows], type_e[rows]
+        offdiag = rows[:, None] != torch.arange(ne, device=xe.device)[None, :]
+        if valid is not None:
+            offdiag = offdiag & valid[:, None]
+    dx = min_image(xr[:, None, :] - xe[None, :, :], box, periodic)
     rsq = torch.sum(dx * dx, dim=-1)
-    eye = torch.eye(ne, dtype=torch.bool, device=xe.device)
-    mask = (rsq < cut_coulsq) & ~eye
+    mask = (rsq < cut_coulsq) & offdiag
     rsq_safe = torch.where(mask, rsq, torch.ones_like(rsq))
     dudq = erfcr_sqrt(g * g * rsq_safe) * g + potential_a(
-        rsq_safe, type_e[:, None], type_e[None, :])
+        rsq_safe, tr[:, None], type_e[None, :])
     return torch.where(mask, dudq, torch.zeros_like(dudq))
 
 

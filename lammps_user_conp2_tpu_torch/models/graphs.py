@@ -123,7 +123,11 @@ class CudaGraphBackend:
 
     def capture(self, fn):
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+        # thread-local: a CUDA call that another thread makes meanwhile (a
+        # profiler's buffer thread) leaves this capture valid; an unsafe
+        # call on this thread still fails it
+        with torch.cuda.graph(g, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
             fn()
         self.graphs.append(g)
         return g.replay

@@ -289,6 +289,39 @@ class Engine(nn.Module):
             e3 = pppm_ops.gather3(grid, efield, x, slots=slots)
         return ek, q[:, None] * e3
 
+    def _kspace(self, x, q, kcache, tasg):
+        """(ek, fk) of k-space without the qqr2e prefactor: the mesh, or
+        the factored Ewald sum from the solve's cache where there is one."""
+        if self.pppm_grid is not None:
+            return self._pppm(x, q, kcache, tasg)
+        if kcache is not None:
+            tabs, sre, sie, _ = kcache
+            return ewf.energy_forces_cached(self.fksp, q, tabs, sre, sie,
+                                            self.conp.ele_rows)
+        # no cache: no solve, a solve in another dtype, or above KXY_CHUNK
+        # (the chunked sums)
+        return ewf.energy_forces_f(self.fksp, x, q)
+
+    def _correction(self, x, q, kcache, nbr):
+        """(f, ecorr) of the CONP Gaussian correction where no sweep fused
+        it: from the electrode rows of the list, or K6 on the dense path."""
+        u = self.units
+        if self.ncfg is not None and nbr is not None:
+            pot, frc = self.conp.step_kernels
+            return conp_correction_from_list(
+                self.ncfg, nbr, x, q, self.conp.ele_idx_t,
+                self.conp.elyte_t, self.type_idx, frc, pot,
+                cutoff=self.md.cutoff, qqr2e=u.qqr2e)
+        # the unfused dense branch: K6 on the card at every size (the JAX
+        # engine's 8M-pair threshold, PALLAS_ROWS_MIN_PAIRS, is its TPU
+        # crossover; the port's K5 runs at every size too)
+        return conp_correction(
+            x, q, self.type_idx, self.conp.ele_idx_t, self.ele_flag,
+            self.elyte_flag, self.eta_tab, self.fo_tab,
+            box=self.ksp_force.box, periodic=self.system.periodic,
+            cutoff=self.md.cutoff, qqr2e=u.qqr2e, zsort=self._zsort(kcache),
+            r_corr=self.r_corr, gtab=self.corr_gtab)
+
     def compute_forces(self, x, q, kcache=None, nbr=None, tasg=None,
                        scalar=None):
         """Returns (f, pe) for the current configuration.  ``kcache`` is the
@@ -310,16 +343,7 @@ class Engine(nn.Module):
                 table=self.bonded_tab)
             f = f + fba
             pe = pe + eba
-        if self.pppm_grid is not None:
-            ek, fk = self._pppm(x, q, kcache, tasg)
-        elif kcache is not None:
-            tabs, sre, sie, _ = kcache
-            ek, fk = ewf.energy_forces_cached(self.fksp, q, tabs, sre, sie,
-                                              self.conp.ele_rows)
-        else:
-            # no cache: no solve, a solve in another dtype, or above
-            # KXY_CHUNK (the chunked sums)
-            ek, fk = ewf.energy_forces_f(self.fksp, x, q)
+        ek, fk = self._kspace(x, q, kcache, tasg)
         g = self.ksp_force.g_ewald
         eself = -u.qqr2e * g / MY_PIS * torch.sum(q * q)
         qsum = torch.sum(q)
@@ -340,23 +364,8 @@ class Engine(nn.Module):
             # electrode-row sweep K6), the correction energy and the
             # Gaussian self energy qqr2e * self_fac * sum(self_diag q^2)
             ecorr = fused_ecorr
-            if ecorr is None and self.ncfg is not None and nbr is not None:
-                pot, frc = self.conp.step_kernels
-                fc, ecorr = conp_correction_from_list(
-                    self.ncfg, nbr, x, q, self.conp.ele_idx_t,
-                    self.conp.elyte_t, self.type_idx, frc, pot,
-                    cutoff=self.md.cutoff, qqr2e=u.qqr2e)
-                f = f + fc
-            elif ecorr is None:
-                # the unfused dense branch: K6 on the card at every size
-                # (the JAX engine's 8M-pair threshold, PALLAS_ROWS_MIN_PAIRS,
-                # is its TPU crossover; the port's K5 runs at every size too)
-                fc, ecorr = conp_correction(
-                    x, q, self.type_idx, self.conp.ele_idx_t, self.ele_flag,
-                    self.elyte_flag, self.eta_tab, self.fo_tab, box=box,
-                    periodic=sys.periodic, cutoff=self.md.cutoff,
-                    qqr2e=u.qqr2e, zsort=self._zsort(kcache),
-                    r_corr=self.r_corr, gtab=self.corr_gtab)
+            if ecorr is None:
+                fc, ecorr = self._correction(x, q, kcache, nbr)
                 f = f + fc
             qsq_ele = torch.sum(torch.where(
                 self.elecheck != 0, self.self_diag * q * q,
@@ -514,6 +523,11 @@ class Engine(nn.Module):
                      step_t=torch.zeros((), dtype=torch.int64, device=dev))
         return self._heal_state(st)
 
+    def _solve_full(self, x, q, nbr, tasg, step):
+        """A whole charge solve at x with no previous fix scalar (the
+        set-up's and a heal's): (q, scalar, kcache)."""
+        return self.conp.solve_full(x, q, nbr, self.ncfg, tasg, step=step)
+
     def _heal_state(self, state: MDState) -> MDState:
         """Rebuild the derived state (list, mesh tiles, electrode charges,
         forces) from x with the current capacities; positions, velocities
@@ -523,8 +537,8 @@ class Engine(nn.Module):
         nbr, tasg = self.derived_state(state.x)
         q, scalar, kcache = state.q, state.scalar_out, None
         if self.conp is not None:
-            q, scalar, kcache = self.conp.solve_full(
-                state.x, state.q, nbr, self.ncfg, tasg, step=state.step_t)
+            q, scalar, kcache = self._solve_full(state.x, state.q, nbr, tasg,
+                                                 state.step_t)
         f, pe = self.compute_forces(state.x, q, kcache, nbr, tasg, scalar)
         return dataclasses.replace(state, q=q, f=f, scalar_out=scalar,
                                    energy=pe, nbr=nbr, tasg=tasg)

@@ -173,6 +173,18 @@ def _pad_kxy(kx, ky, ug, chunk):
     return kx, ky, ug, nxy
 
 
+def kxy_shard(fk: FactoredKSpace, d: int, rank: int):
+    """Rank ``rank``'s share of the xy vectors among ``d``: (kx, ky, ug),
+    the contiguous rows [rank nl, (rank + 1) nl) of the tables padded to d
+    nl rows with k = 0 and ug = 0, so pad rows add nothing (JAX
+    ``parallel/sharded.py:138-145``).  The ``*_fkv`` functions take a
+    shard as they take the whole, in chunks of ``KXY_CHUNK`` above it."""
+    nl = -(-fk.nxy // d)
+    kx, ky, ug, _ = _pad_kxy(fk.kx_t, fk.ky_t, fk.ug_t, nl * d)
+    sl = slice(rank * nl, (rank + 1) * nl)
+    return kx[sl].contiguous(), ky[sl].contiguous(), ug[sl].contiguous()
+
+
 def structure_factor_f(fk: FactoredKSpace, x, q):
     """S(kxy, kz): (Sr, Si), each (nxy, nz)."""
     return structure_factor_fkv(x, q, fk.kx_t, fk.ky_t, fk.kz_t, fk.unitk)

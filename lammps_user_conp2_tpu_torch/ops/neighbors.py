@@ -135,9 +135,17 @@ def build_neighbor_list(ncfg: NeighborConfig, x, tables: PairTables,
     to the front in ascending id; out-of-range ones carry the ``miss`` key
     (id N + 1) and decode to the pad id N.  Atom-major: each row chunk
     gathers its atoms' cell candidate rows."""
+    prep = nlist_prep(ncfg, x, type_idx)
+    keys, ovf = row_keys(ncfg, x, prep, 0, x.shape[0])
+    return list_from_keys(ncfg, x, prep, keys, ovf, tables, type_idx)
+
+
+def nlist_prep(ncfg: NeighborConfig, x, type_idx):
+    """The replicated inputs of a rebuild (JAX ``_nlist_prep``): (cell of
+    each atom, binning overflow, packed (id, type) candidate columns (C,
+    27 cap) and their positions (C, 27 cap, 3))."""
     grid = ncfg.grid
     n = x.shape[0]
-    k = ncfg.k_max
     dev = x.device
     table, cell, overflow = bin_atoms(grid, x)
     nb, uniq = neighbor_cells(grid, dev)
@@ -145,27 +153,48 @@ def build_neighbor_list(ncfg: NeighborConfig, x, tables: PairTables,
                     torch.zeros(1, dtype=torch.int64, device=dev)])
     ptab = (table << TYPE_BITS) | tp[table]              # packed (id, type)
     xp = torch.cat([x, torch.full((1, 3), 1e6, dtype=x.dtype, device=dev)])
-    cap = table.shape[1]
-    m = 27 * cap
+    m = 27 * table.shape[1]
     pcols = torch.where(uniq[:, :, None], ptab[nb],
                         n << TYPE_BITS).reshape(-1, m)   # (C, m)
     xj = xp[table][nb].reshape(-1, m, 3)                 # (C, m, 3)
+    return cell, overflow, pcols, xj
+
+
+def row_keys(ncfg: NeighborConfig, x, prep, r0: int, r1: int):
+    """The sorted packed keys of the atom rows [r0, r1), (r1 - r0, K), in
+    ``ROW_CHUNK`` chunks, and their () bool K overflow.  A row's keys
+    depend on that row alone, so ranks that split the rows and gather the
+    keys get the one-rank list bit for bit (the sharded rebuild, in place
+    of JAX ``_cell_block_keys``, ``_scatter_rows`` and the ``pmin``)."""
+    grid = ncfg.grid
+    n = x.shape[0]
+    k = ncfg.k_max
+    dev = x.device
+    cell, _, pcols, xj = prep
     miss = (n + 1) << TYPE_BITS
     rlistsq = grid.cutoff ** 2
-    keys = torch.full((n, k), miss, dtype=torch.int64, device=dev)
+    keys = torch.full((r1 - r0, k), miss, dtype=torch.int64, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
-    for r0 in range(0, n, ROW_CHUNK):
-        r1 = min(n, r0 + ROW_CHUNK)
-        cb = cell[r0:r1]
+    for c0 in range(r0, r1, ROW_CHUNK):
+        c1 = min(r1, c0 + ROW_CHUNK)
+        cb = cell[c0:c1]
         pc = pcols[cb]                                   # (chunk, m)
-        d = min_image(x[r0:r1, None, :] - xj[cb], grid.box, grid.periodic)
+        d = min_image(x[c0:c1, None, :] - xj[cb], grid.box, grid.periodic)
         rsq = torch.sum(d * d, dim=-1)
         colsb = pc >> TYPE_BITS
-        rb = torch.arange(r0, r1, device=dev)
+        rb = torch.arange(c0, c1, device=dev)
         inr = (colsb != rb[:, None]) & (colsb < n) & (rsq < rlistsq)
         sk = torch.sort(torch.where(inr, pc, miss), dim=1).values[:, :k]
-        keys[r0:r1, :sk.shape[1]] = sk
+        keys[c0 - r0:c1 - r0, :sk.shape[1]] = sk
         ovf = ovf | (torch.max(torch.sum(inr, dim=1)) > k)
+    return keys, ovf
+
+
+def list_from_keys(ncfg: NeighborConfig, x, prep, keys, ovf,
+                   tables: PairTables, type_idx) -> NeighborList:
+    """The list from every row's keys: decoded, with the block form
+    attached when ``ncfg.block``."""
+    cell, overflow = prep[0], prep[1]
     nlist = _decode_list(ncfg, x, keys, overflow | ovf, type_idx, tables,
                          build_lj=not ncfg.block)
     if ncfg.block:
@@ -414,5 +443,80 @@ def conp_correction_from_list(ncfg: NeighborConfig, nlist: NeighborList, x,
     f = torch.sum((fc_r / rsq_r)[:, :, None] * dr, dim=1)
     # one add per electrode row: the rows are distinct
     f = f.index_add(0, ele_idx, f_ele)
+    return (torch.where(nlist.overflow, torch.full_like(f, float("nan")), f),
+            torch.sum(epair))
+
+
+# ---------------------------------------------------------------------------
+# the sharded step's shares of the list sweeps (parallel/sharded.py)
+# ---------------------------------------------------------------------------
+
+def pad_block_list(nlist: NeighborList, n: int, d: int) -> NeighborList:
+    """The block axis padded to a multiple of ``d`` with empty blocks (rows
+    and union ids N), which add nothing to the sweep, so that each of d
+    ranks takes an equal contiguous slice (JAX ``pad_block_list``)."""
+    padb = (-nlist.bun.shape[0]) % d
+    if padb == 0:
+        return nlist
+    pad = torch.nn.functional.pad
+    return dataclasses.replace(
+        nlist, bun=pad(nlist.bun, (0, 0, 0, padb), value=n),
+        brows=pad(nlist.brows, (0, 0, 0, padb), value=n))
+
+
+def block_pair_rows(ncfg: NeighborConfig, nlist: NeighborList, x, q, b0: int,
+                    nb_l: int, type_idx, tables: PairTables, exclusions, *,
+                    g_ewald, qqr2e, conp_fuse=None):
+    """The block sweep over the block slice [b0, b0 + nb_l) of a padded
+    list (``pad_block_list``), K1 on CUDA float32: (f_slots (nb_l B, 3),
+    evdwl, ecoul[, ecorr]) with the full list's 0.5 applied.  The caller
+    gathers the slot forces of every slice and applies ``binv``."""
+    sl = slice(b0, b0 + nb_l)
+    out = _block_sweep(ncfg, x, q, nlist.bun[sl], nlist.brows[sl], type_idx,
+                       tables, g_ewald=g_ewald, qqr2e=qqr2e,
+                       conp_fuse=conp_fuse, exclusions=exclusions)
+    return (out[0],) + tuple(0.5 * e for e in out[1:])
+
+
+def conp_correction_rows_from_list(ncfg: NeighborConfig, nlist: NeighborList,
+                                   x, q, eidx_rows, evalid, eslot,
+                                   elyte_mask, type_idx, pair_force_fn,
+                                   pair_potential_fn, *, cutoff, qqr2e):
+    """A rank's share of ``conp_correction_from_list``: the correction of
+    its electrode rows ``eidx_rows`` (padded rows, ``evalid`` False, add
+    nothing) with their Newton reactions.  ``eslot`` (N + 1,) int64 maps
+    an atom to its place in ``eidx_rows``, len(eidx_rows) for every other
+    atom and for the pad id N.  Each electrolyte atom sums its reactions
+    over its own row of the full list, restricted to this rank's
+    electrodes, in the row's order (no scatter).  Returns (f (N, 3),
+    ecorr); the shares sum to the whole."""
+    n = x.shape[0]
+    nr = eidx_rows.shape[0]
+    idx_e, d, mask, rsq_safe, te, tj = _ele_geometry(
+        ncfg, nlist, x, eidx_rows, elyte_mask, type_idx, cutoff ** 2)
+    mask = mask & evalid[:, None]
+    qp = torch.cat([q, torch.zeros(1, dtype=q.dtype, device=x.device)])
+    pref = qqr2e * q[eidx_rows][:, None] * qp[idx_e]
+    zero = torch.zeros_like(rsq_safe)
+    forcecoul = torch.where(mask, pref * pair_force_fn(rsq_safe, te, tj), zero)
+    epair = torch.where(mask, pref * pair_potential_fn(rsq_safe, te, tj), zero)
+    f_ele = torch.sum((forcecoul / rsq_safe)[:, :, None] * d, dim=1)
+    idx = nlist.idx
+    mine = eslot[idx] < nr
+    xp = torch.cat([x, torch.full((1, 3), 1e6, dtype=x.dtype,
+                                  device=x.device)])
+    tp = torch.cat([type_idx, torch.zeros(1, dtype=type_idx.dtype,
+                                          device=x.device)])
+    dr = min_image(x[:, None, :] - xp[idx], ncfg.grid.box, ncfg.grid.periodic)
+    rsq = torch.sum(dr * dr, dim=-1)
+    mask_r = mine & elyte_mask[:, None] & (rsq < cutoff ** 2)
+    rsq_r = torch.where(mask_r, rsq, torch.ones_like(rsq))
+    fc_r = torch.where(mask_r, qqr2e * qp[idx] * q[:, None] * pair_force_fn(
+        rsq_r, tp[idx], type_idx[:, None]), torch.zeros_like(rsq))
+    f = torch.sum((fc_r / rsq_r)[:, :, None] * dr, dim=1)
+    # each electrode row's own force, gathered by atom (no scatter)
+    f_ele = torch.cat([f_ele, torch.zeros((1, 3), dtype=x.dtype,
+                                          device=x.device)])
+    f = f + f_ele[eslot[:n]]
     return (torch.where(nlist.overflow, torch.full_like(f, float("nan")), f),
             torch.sum(epair))

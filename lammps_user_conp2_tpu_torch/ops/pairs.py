@@ -70,58 +70,80 @@ def special_factors(exi, exv, cols, dtype):
     return si
 
 
+def pair_rowblock(xi, qi, ti, exi, exv, rowvalid, i0, x, q, type_idx,
+                  tables: PairTables, *, box, periodic, cutoff, g_ewald,
+                  qqr2e):
+    """LJ + real-space Ewald Coulomb of one block of rows against all atoms
+    (JAX ``ops/pairs.py`` ``pair_rowblock``): xi (B, 3), qi (B,), ti (B,)
+    the rows' positions, charges and types, global ids i0 .. i0 + B - 1;
+    ``exi``/``exv`` (B, m) their special-bond lists (or None), applied per
+    pair through ``special_factors``; ``rowvalid`` (B,) bool, or None when
+    every row is an atom.  Returns (f_rows (B, 3), evdwl, ecoul) with the
+    energies halved for the double count."""
+    n = x.shape[0]
+    dtype = x.dtype
+    cutsq = cutoff * cutoff
+    cols = torch.arange(n, device=x.device)
+    dx = min_image(xi[:, None, :] - x[None, :, :], box, periodic)
+    rsq = torch.sum(dx * dx, dim=-1)
+    rid = torch.arange(i0, i0 + xi.shape[0], device=x.device)
+    inrange = (rsq < cutsq) & (rid[:, None] != cols[None, :])
+    if rowvalid is not None:
+        inrange = inrange & rowvalid[:, None]
+    if exi is None:
+        si = torch.ones_like(rsq)
+    else:
+        si = special_factors(exi, exv, cols[None, :], dtype)
+    rsq_safe = torch.where(inrange, rsq, torch.ones_like(rsq))
+    r2inv = 1.0 / rsq_safe
+    r6inv = r2inv * r2inv * r2inv
+    lj_on = inrange & (si > 0.0)
+    tij = (ti[:, None], type_idx[None, :])
+    l1, l2 = tables.lj1[tij], tables.lj2[tij]
+    l3, l4 = tables.lj3[tij], tables.lj4[tij]
+    zero = torch.zeros_like(rsq)
+    flj = torch.where(lj_on, si * r6inv * (l1 * r6inv - l2) * r2inv, zero)
+    elj = torch.where(lj_on, si * r6inv * (l3 * r6inv - l4), zero)
+    r = torch.sqrt(rsq_safe)
+    grij = g_ewald * r
+    expm2 = torch.exp(-grij * grij)
+    t = 1.0 / (1.0 + 0.3275911 * grij)
+    erfc = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                + t * (-1.453152027 + t * 1.061405429)))) * expm2
+    prefactor = qqr2e * qi[:, None] * q[None, :] / r
+    fcoul = prefactor * (erfc + EWALD_F * grij * expm2)
+    fcoul = fcoul - (1.0 - si) * prefactor
+    ecoul_pair = prefactor * erfc - (1.0 - si) * prefactor
+    fcoul = torch.where(inrange, fcoul, zero)
+    ecoul_pair = torch.where(inrange, ecoul_pair, zero)
+    fpair = flj + fcoul * r2inv             # F/r
+    return (torch.einsum("bn,bnc->bc", fpair, dx), 0.5 * torch.sum(elj),
+            0.5 * torch.sum(ecoul_pair))
+
+
 def dense_pair_forces(x, q, type_idx, tables: PairTables, exclusions, *,
                       box, periodic, cutoff, g_ewald, qqr2e, block=512):
-    """All-pairs LJ + real-space Ewald Coulomb over row blocks.
+    """All-pairs LJ + real-space Ewald Coulomb over row blocks
+    (``pair_rowblock`` per block).
 
     exclusions: (excl_idx, excl_val) tensors from
     models.system.exclusion_lists, or None when the system has none.
     Returns (forces (N,3), evdwl, ecoul)."""
     n = x.shape[0]
-    dtype = x.dtype
-    cutsq = cutoff * cutoff
-    cols = torch.arange(n, device=x.device)
     fs = []
-    ev = torch.zeros((), dtype=dtype, device=x.device)
-    ec = torch.zeros((), dtype=dtype, device=x.device)
+    ev = torch.zeros((), dtype=x.dtype, device=x.device)
+    ec = torch.zeros((), dtype=x.dtype, device=x.device)
     for i0 in range(0, n, block):
         i1 = min(i0 + block, n)
-        xi, qi, ti = x[i0:i1], q[i0:i1], type_idx[i0:i1]
-        dx = min_image(xi[:, None, :] - x[None, :, :], box, periodic)
-        rsq = torch.sum(dx * dx, dim=-1)
-        notself = torch.arange(i0, i1, device=x.device)[:, None] != cols[None, :]
-        inrange = (rsq < cutsq) & notself
-        if exclusions is None:
-            si = torch.ones_like(rsq)
-        else:
-            si = special_factors(exclusions[0][i0:i1], exclusions[1][i0:i1],
-                                 cols[None, :], dtype)
-        rsq_safe = torch.where(inrange, rsq, torch.ones_like(rsq))
-        r2inv = 1.0 / rsq_safe
-        r6inv = r2inv * r2inv * r2inv
-        lj_on = inrange & (si > 0.0)
-        tij = (ti[:, None], type_idx[None, :])
-        l1, l2 = tables.lj1[tij], tables.lj2[tij]
-        l3, l4 = tables.lj3[tij], tables.lj4[tij]
-        zero = torch.zeros_like(rsq)
-        flj = torch.where(lj_on, si * r6inv * (l1 * r6inv - l2) * r2inv, zero)
-        elj = torch.where(lj_on, si * r6inv * (l3 * r6inv - l4), zero)
-        r = torch.sqrt(rsq_safe)
-        grij = g_ewald * r
-        expm2 = torch.exp(-grij * grij)
-        t = 1.0 / (1.0 + 0.3275911 * grij)
-        erfc = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
-                    + t * (-1.453152027 + t * 1.061405429)))) * expm2
-        prefactor = qqr2e * qi[:, None] * q[None, :] / r
-        fcoul = prefactor * (erfc + EWALD_F * grij * expm2)
-        fcoul = fcoul - (1.0 - si) * prefactor
-        ecoul_pair = prefactor * erfc - (1.0 - si) * prefactor
-        fcoul = torch.where(inrange, fcoul, zero)
-        ecoul_pair = torch.where(inrange, ecoul_pair, zero)
-        fpair = flj + fcoul * r2inv             # F/r
-        fs.append(torch.einsum("bn,bnc->bc", fpair, dx))
-        ev = ev + 0.5 * torch.sum(elj)
-        ec = ec + 0.5 * torch.sum(ecoul_pair)
+        ex = (None, None) if exclusions is None else (
+            exclusions[0][i0:i1], exclusions[1][i0:i1])
+        f_rows, ev_b, ec_b = pair_rowblock(
+            x[i0:i1], q[i0:i1], type_idx[i0:i1], *ex, None, i0, x, q,
+            type_idx, tables, box=box, periodic=periodic, cutoff=cutoff,
+            g_ewald=g_ewald, qqr2e=qqr2e)
+        fs.append(f_rows)
+        ev = ev + ev_b
+        ec = ec + ec_b
     return torch.cat(fs, dim=0), ev, ec
 
 

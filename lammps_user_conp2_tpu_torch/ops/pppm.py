@@ -555,6 +555,15 @@ def with_tile_cap(grid: PPPMGrid, x0, *, headroom=1.25) -> PPPMGrid:
     return dataclasses.replace(grid, tile_cap=min(cap, len(x0) + 1))
 
 
+def with_shared_cache(grid: PPPMGrid, **changes) -> PPPMGrid:
+    """``dataclasses.replace(grid, **changes)`` that shares ``grid``'s
+    device constants (the influence function is not copied); the keys
+    that depend on the tile geometry carry it."""
+    out = dataclasses.replace(grid, **changes)
+    object.__setattr__(out, "_dev", grid._dev)
+    return out
+
+
 def tile_assign(grid: PPPMGrid, x) -> TileAssign:
     """Bin atoms by 3-D mesh tile: one sort of packed (tile << shift | i)
     keys, the rank in each tile by cummax of the segment starts, two
@@ -885,6 +894,46 @@ def spread_tiled(grid: PPPMGrid, x, q=None, slots: TileSlots = None):
 GATHER_CHUNK = 16384
 
 
+def _tiled_stencil_chunks(grid: PPPMGrid, geom: TileGeom, slots: TileSlots,
+                          n: int, ys: int, zs: int, cf, deriv: bool):
+    """Per chunk of ``GATHER_CHUNK`` atoms: (i0, flat node ids (c p^3,) in
+    the padded brick of row strides ``ys``/``zs``, the three (c, p) axis
+    weights, and with ``deriv`` their three derivative weights) at each
+    atom's tile window, from its slot row; a node outside the patch has
+    no weight (one-hot semantics)."""
+    bw, ex, ey, ez = _patch_dims(geom)
+    p, cap = geom.p, geom.cap
+    a = torch.arange(p, device=slots.rows.device)
+    for i0 in range(0, n, GATHER_CHUNK):
+        slot = slots.slot[i0:i0 + GATHER_CHUNK]
+        t = slot // cap
+        r = slots.rows[t, :, slot % cap]                 # (c, 8)
+        origin = ((t // (geom.nty * geom.ntz)) * geom.tlx,
+                  ((t // geom.ntz) % geom.nty) * geom.tly,
+                  (t % geom.ntz) * geom.tlz)
+        idx, w, dw = [], [], []
+        for ax, e in enumerate((ex, ey, ez)):
+            loc = r[:, ax].to(torch.int64)[:, None] + a[None, :]  # (c, p)
+            inside = (loc >= 0) & (loc < e)
+            wa = _horner_w(r[:, 3 + ax], cf)
+            w.append(torch.where(inside, wa, torch.zeros_like(wa)))
+            if deriv:
+                da = _horner_dw(r[:, 3 + ax], cf)
+                dw.append(torch.where(inside, da, torch.zeros_like(da)))
+            idx.append(origin[ax][:, None] + loc.clamp(0, e - 1))
+        node = ((idx[0][:, :, None, None] * ys + idx[1][:, None, :, None])
+                * zs + idx[2][:, None, None, :]).reshape(-1)
+        yield i0, node, w, dw
+
+
+def _padded_bricks(grid: PPPMGrid, geom: TileGeom, bricks, dtype):
+    """(nb, X Y Z) flat wrap-padded bricks and their strides (Y, Z)."""
+    bp = torch.stack([_pad_brick(b.to(dtype), geom, grid.nz)
+                      for b in bricks])                  # (nb, X, Y, Z)
+    nb, _, ys, zs = bp.shape
+    return bp.reshape(nb, -1), ys, zs
+
+
 def gather_tiled(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
     """Stencil readout of one or more (nx, ny, nz) meshes at the atoms
     through their tile slots: each atom's p^3 nodes are read from its
@@ -898,36 +947,43 @@ def gather_tiled(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
         slots = tile_slots(grid, x, torch.zeros((n,), dtype=dtype,
                                                 device=dev))
     geom = _tile_geometry(grid, n)
-    bw, ex, ey, ez = _patch_dims(geom)
-    p, cap = geom.p, geom.cap
-    cf = _coeffs(grid, dtype, dev)
-    bp = torch.stack([_pad_brick(b.to(dtype), geom, grid.nz)
-                      for b in bricks])                  # (nb, X, Y, Z)
-    nb, _, ys, zs = bp.shape
-    flat = bp.reshape(nb, -1)
-    a = torch.arange(p, device=dev)
+    p = geom.p
+    flat, ys, zs = _padded_bricks(grid, geom, bricks, dtype)
+    nb = flat.shape[0]
     outs = []
-    for i0 in range(0, n, GATHER_CHUNK):
-        slot = slots.slot[i0:i0 + GATHER_CHUNK]
-        t = slot // cap
-        r = slots.rows[t, :, slot % cap]                 # (c, 8)
-        origin = ((t // (geom.nty * geom.ntz)) * geom.tlx,
-                  ((t // geom.ntz) % geom.nty) * geom.tly,
-                  (t % geom.ntz) * geom.tlz)
-        idx, w = [], []
-        for ax, e in enumerate((ex, ey, ez)):
-            loc = r[:, ax].to(torch.int64)[:, None] + a[None, :]  # (c, p)
-            wa = _horner_w(r[:, 3 + ax], cf)
-            # one-hot semantics: a node outside the patch has no weight
-            w.append(torch.where((loc >= 0) & (loc < e), wa,
-                                 torch.zeros_like(wa)))
-            idx.append(origin[ax][:, None] + loc.clamp(0, e - 1))
-        node = ((idx[0][:, :, None, None] * ys + idx[1][:, None, :, None])
-                * zs + idx[2][:, None, None, :]).reshape(-1)
+    for _, node, w, _ in _tiled_stencil_chunks(
+            grid, geom, slots, n, ys, zs, _coeffs(grid, dtype, dev), False):
         vals = flat[:, node].reshape(nb, -1, p, p, p)
         outs.append(torch.einsum("bcxyz,cx,cy,cz->bc", vals, *w))
     out = _nan_where(slots.overflow, torch.cat(outs, dim=1))
     return list(out)
+
+
+def gather3_ad_tiled(grid: PPPMGrid, u, x, slots: TileSlots = None):
+    """E = -grad(phi) at the atoms by differentiating the B-spline
+    interpolant of ONE potential mesh (the ad scheme, JAX
+    ``gather3_ad_tiled``) through the atoms' tile windows, as
+    ``gather_tiled`` reads them: E_x = delinv_x sum w'(dxx) w(dxy) w(dxz)
+    u over the p^3 nodes, likewise y and z.  Returns (N, 3), NaN on tile
+    overflow."""
+    n = x.shape[0]
+    dtype, dev = x.dtype, x.device
+    if slots is None:
+        slots = tile_slots(grid, x, torch.zeros((n,), dtype=dtype,
+                                                device=dev))
+    geom = _tile_geometry(grid, n)
+    p = geom.p
+    flat, ys, zs = _padded_bricks(grid, geom, [u], dtype)
+    outs = []
+    for _, node, (wx, wy, wz), (dwx, dwy, dwz) in _tiled_stencil_chunks(
+            grid, geom, slots, n, ys, zs, _coeffs(grid, dtype, dev), True):
+        vals = flat[0, node].reshape(-1, p, p, p)
+        outs.append(torch.stack([
+            torch.einsum("cxyz,cx,cy,cz->c", vals, dwx, wy, wz),
+            torch.einsum("cxyz,cx,cy,cz->c", vals, wx, dwy, wz),
+            torch.einsum("cxyz,cx,cy,cz->c", vals, wx, wy, dwz)], dim=1))
+    e = torch.cat(outs, dim=0) * _dev_delinv(grid, dtype, dev)
+    return _nan_where(slots.overflow, e)
 
 
 # ---------------------------------------------------------------------------
@@ -994,12 +1050,11 @@ def gather3(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
 
 def gather3_ad(grid: PPPMGrid, u, x):
     """E = -grad(phi) at the atoms from one potential mesh (ad scheme;
-    exactly -d/dx of the discrete mesh energy): (N, 3)."""
+    exactly -d/dx of the discrete mesh energy): (N, 3); through the tile
+    windows (``gather3_ad_tiled``) above the dense bound.  The engines read
+    ad forces through the z-binned ``gather3_ad_zbin`` on a tiled mesh."""
     if not _use_dense(grid, x.shape[0]):
-        raise NotImplementedError(
-            "not ported yet: gather3_ad on a mesh above the dense bound (the "
-            "JAX package's gather3_ad_tiled; the engine reads ad forces "
-            "through the z-binned gather3_ad_zbin)")
+        return gather3_ad_tiled(grid, u, x)
     (ix, iy, iz), (wx, wy, wz), (dxx, dxy, dxz), _, _ = _stencil_full(grid, x)
     cf = _coeffs(grid, x.dtype, x.device)
     mk = _weight_matrix

@@ -1205,3 +1205,62 @@ def test_checkpoint_resume_bit_identical_on_card(cuda, cell, tmp_path,
     for k in th_full:
         assert torch.equal(torch.as_tensor(th_end[k]).cpu(),
                            torch.as_tensor(th_full[k])[2:].cpu()), k
+
+
+@pytest.mark.parametrize("cell", ["mid", "il"])
+def test_sharded_d1_nccl_matches_engine_on_card(cuda, cell, tmp_path):
+    """The sharded step at d = 1 over a one-rank NCCL group (a FileStore
+    in tmp_path), float32: 3 steps against ``Engine.step`` on the card
+    (charges 1e-4 of max|q_ele|, pe 1e-4 and forces 1e-3 relative, phase
+    5's bounds of chip_smoke.py), two sharded runs bit for bit, and K7
+    and K8 every step at the il cell, with K5 and K6 on its dense path."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel
+    from lammps_user_conp2_tpu_torch.parallel import comm as C
+    from lammps_user_conp2_tpu_torch.parallel.sharded import (
+        build_sharded_engine)
+    if cell == "mid":
+        system, md, cfg = workloads.synthetic(6144, 24, lz=60.0, lxy=50.0)
+        x0 = workloads.near_wall_positions(system)
+    else:
+        path = workloads.write_il_data(str(tmp_path / "il.data"))
+        system, md, cfg = workloads.il_onelayer(0, data_path=path)
+        x0 = None
+    eng = build_engine(system, md, setup_conp(
+        system, md, cfg, solve_dtype=torch.float32, device=cuda),
+        dtype=torch.float32, device=cuda)
+    ne = eng.conp.ne
+    comm = C.init_group(cuda, 0, 1, str(tmp_path / "store"))
+    try:
+        sheng = build_sharded_engine(eng, comm, x0=x0)
+        st0 = eng.init_state(x0=x0)
+        counters = (shake_kernel.shake_launches, shake_kernel.rattle_launches)
+        dense = (k56.launches, k56.corr_launches)
+        for c in counters + dense:
+            c.reset()
+        runs = []
+        for _ in range(2):
+            st, out = st0, []
+            for _ in range(3):
+                st = sheng.step(st)
+                out.append(st)
+            runs.append(out)
+        torch.cuda.synchronize()
+    finally:
+        C.close_group()
+    assert all(_same(a, b) for a, b in zip(*runs))
+    if cell == "il":
+        assert all(c.count == 6 for c in counters)
+        assert all(c.count >= 6 for c in dense)
+    st = st0
+    for s_sh in runs[0]:
+        st = eng.step(st)
+        dq = float((s_sh.q[:ne] - st.q[:ne]).abs().max())
+        assert dq <= 1e-4 * float(st.q[:ne].abs().max()) + 1e-6
+        assert abs(float(s_sh.energy) - float(st.energy)) <= 1e-4 * abs(
+            float(st.energy))
+        assert float((s_sh.f - st.f).abs().max()) <= 1e-3 * float(
+            st.f.abs().max())

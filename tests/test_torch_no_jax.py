@@ -7,7 +7,8 @@ steps, import the gather probes (``timing``, ``exp_vmem_gather``,
 plain path, import the command line, the diagnostics, the pressure and
 the I/O modules, run ``cli.main(["run", "synthetic", "--cpu", ...])`` and
 a step of S1 with its electrodes scattered over the rows (and its
-pressure tensor), and check that neither jax nor the JAX package (nor
+pressure tensor), run the sharded step (``parallel/``) on S3 over a
+one-rank gloo group and import ``bench_sharded``, and check that neither jax nor the JAX package (nor
 ``tools/``) was imported and that no CUDA kernel was launched."""
 
 import json
@@ -64,6 +65,14 @@ scr = reorder_atoms(system, np.random.default_rng(0).permutation(
 sc = build_engine(scr, md, setup_conp(scr, md, cfg, **S64), **C64)
 st4 = sc.step(sc.init_state())
 p6 = pressure.pressure_tensor(sc, st4)
+from lammps_user_conp2_tpu_torch import bench_sharded
+from lammps_user_conp2_tpu_torch.parallel import comm as pcomm
+from lammps_user_conp2_tpu_torch.parallel.sharded import build_sharded_engine
+group = pcomm.init_group("cpu", 0, 1, tempfile.mkdtemp() + "/store")
+sh = build_sharded_engine(big, group)
+st5, _ = sh.run(big.init_state(x0=workloads.near_wall_positions(big.system)),
+                2, thermo_every=0)
+pcomm.close_group()
 mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather,
         vmem_gather)
 print(json.dumps(dict(
@@ -78,7 +87,8 @@ print(json.dumps(dict(
     step2=st2.step, energy2=float(st2.energy), list2=big.ncfg is not None,
     step3=st3.step, temp3=float(th3["tempsl"][-1]), shake3=il.cons is not None,
     cli_rc=rc, scrambled=not sc.conp.ele_contig, step4=st4.step,
-    energy4=float(st4.energy), p6=[float(v) for v in p6])))
+    energy4=float(st4.energy), p6=[float(v) for v in p6], step5=st5.step,
+    energy5=float(st5.energy))))
 """
 
 
@@ -97,3 +107,4 @@ def test_port_runs_without_jax():
     assert abs(out["energy2"]) < 1e12
     assert out["cli_rc"] == 0 and out["scrambled"] and out["step4"] == 1
     assert abs(out["energy4"]) < 1e12 and len(out["p6"]) == 6
+    assert out["step5"] == 2 and abs(out["energy5"]) < 1e12
