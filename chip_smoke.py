@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 44-46    # or 45: those phases alone
 
 Drives the port's paths (nine main paths through
 ``lammps_user_conp2_tpu_torch``: setup_conp -> build_engine -> init_state ->
@@ -10,8 +11,9 @@ window gather probe ``exp_vmem_gather.run_probe``; the CG, nevery,
 mixed-precision, mobile-electrode and chunked-Ewald paths of phases
 30-34; the user's surface of phases 35-40: electrodes in any row
 order, the command line, dump and rerun, checkpoints, the diagnostics and
-the pressure, the matrix files and the profile; and the sharded step of
-phases 41-43) and exits non-zero if any phase fails.
+the pressure, the matrix files and the profile; the sharded step of
+phases 41-43; and the cell-list and tile pair paths of phases 44-46) and
+exits non-zero if any phase fails.
 
 Mid-size path, the 7,296-atom synthetic capacitor
 ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
@@ -138,13 +140,13 @@ read through the full inverse FFT and the tiled gather:
 Every main path runs ``Engine.run``, which replays the step as CUDA
 graphs; after each main-path phase a graph phase (4b, 8b, 12b, 16b, 19b,
 22b) holds the replayed step to the eager one (``Engine.step`` in a loop)
-from one state, 100 steps a run: GRAPH_PAIRS (two) alternating (eager,
+from one state, GRAPH_STEPS (50) steps a run: GRAPH_PAIRS (two) alternating (eager,
 graphed) pairs
 of ms/step on the host clock; eager vs eager, graphed vs eager and graphed
 vs graphed on x, v, q and pe, bit for bit at every cell (no step path adds
 floats with atomics); the host
 syncs of a graphed run (none per step on the dense paths, one on the list
-paths); and a torch.profiler window of 100 replayed steps from the same
+paths); and a torch.profiler window of the same replayed steps from the same
 state (so with the timed runs' list rebuilds): the device-busy share of
 the graphed step and each hand kernel's device time per launch
 (``device_ms_replay`` in the kernels line, per cell; the profile tables go
@@ -291,6 +293,44 @@ so d > 1 runs as each rank's kernel work in turn and the step runs at d =
      top kernels and host ops).  The process group is closed before the
      last line.  The kernels line's ``launches_sharded`` and
      ``ms_rank_slices`` carry phases 42 and 41.
+
+The cell list and the tile path (``pair_path="cell"`` and ``"tile"``; each
+cell's main run PATH_STEPS graphed steps after 3, the counts set to 0 just
+before; graph phases of PATH_GRAPH_STEPS steps):
+
+ 44. the cell list at the mid-size cell (EWALD: the cell sweep, K5, K6)
+     and the 100k cell (PPPM: and K2a, K3): cells, cap, chunks and pair
+     slots; K5, K6 (K2a, K3) every step, K4 and K1 never; 3 steps against
+     the CPU float64 engine on the cell path (mid-size) or phase 9's CPU
+     float64 run (100k: the per-atom list, the same pair set; a CPU cell
+     sweep of 269 M slots would take minutes), phase 5's bounds; the graph
+     phase (bit for bit, no host read per step) beside the cell's default
+     path; at mid-size the cap set to half the occupancy: ``run``
+     recovers and equals the eager steps at the grown cap bit for bit;
+ 45. the tile path at the 100k and mid-size cells (K4 over the live tile
+     pairs of k-d bricks; at 100k the mesh tiles rebuilt by their drift
+     test): K4's item-list entry against its plain version (KERNEL_TOL),
+     two launches bit-identical, the wrapper's whole tile path equal to
+     the entry, at 100k once against the dense plain sweep; the live
+     items, pair_cap, the side buffer beside the tile-pair triangle's,
+     K4's event and device ms beside its bound (PAIR_FLOPS per pair in
+     range; the pairs tested out of range are reported beside it as the
+     schedule's overhead) and the plain version's; NaN at
+     half the live count; K4 (K2a, K3) and K5 every step, K1 and K6
+     never; 3 steps against phase 5's or 9's CPU float64 run (the JAX
+     engine's fallbacks off its accelerator: dense, the list); the drift
+     flag at least once in DRIFT_STEPS graphed steps (100k); the graph
+     phase (one flag read per step at 100k); the cap at half the live
+     count: ``run`` recovers bit for bit against the eager steps;
+ 46. the d = 1 sharded step on the cell path at the 100k cell over a
+     one-rank NCCL group (phase 42's checks), and SHARDED_STEPS steps
+     against ``Engine.step`` bit for bit.
+
+The kernels line's K4 entry carries the tile path's numbers per cell
+(``launches_tile``, ``ms_tile``, ``device_ms_tile``, ``plain_ms_tile``,
+``bound_ms_tile``, ``live_items_tile``, ``pair_cap_tile``,
+``side_buffer_bytes_tile``, ``tested_pairs_tile``, ``inrange_pairs_tile``);
+K2a, K3, K5 and K6 ``launches_cell``.
 
 The bonds' residual is not ShakeConfig.tol's: at the decks' 180-degree
 angle the three constraint directions of a straight cation are parallel,
@@ -735,6 +775,8 @@ def main() -> int:
     surface_paths(card, dev, results, il_file)
     # phases 41-43: the sharded step
     sharded_paths(card, dev, results, il_file)
+    # phases 44-46: the cell list and the tile path
+    pair_path_phases(card, dev, results)
     # each kernel's launches on those main runs, by cell, and on phases
     # 35-40, by phase
     for name, (_, counter) in KERNEL_IDS.items():
@@ -821,7 +863,11 @@ def main() -> int:
             "floor_ms", "kernels_per_call", "shapes", "launches_decks",
             "max_rel_err_ehgo_fo", "device_ms_ehgo_fo",
             "launches_solve_paths", "launches_surface", "bound_ms_decks",
-            "launches_sharded", "ms_rank_slices")
+            "launches_sharded", "ms_rank_slices", "launches_cell",
+            "launches_tile", "ms_tile", "plain_ms_tile", "device_ms_tile",
+            "bound_ms_tile", "bound_by_tile", "max_rel_err_tile",
+            "live_items_tile", "pair_cap_tile", "side_buffer_bytes_tile",
+            "tested_pairs_tile", "inrange_pairs_tile")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -1325,9 +1371,10 @@ def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):
 
 
 # graphed-vs-eager pairs per cell and the steps of each run: each run
-# starts from the same state (three before phases 35-40 were added)
+# starts from the same state (three pairs before phases 35-40 were added,
+# 100 steps before phases 44-46)
 GRAPH_PAIRS = 2
-GRAPH_STEPS = 100
+GRAPH_STEPS = 50
 GRAPHS = []
 
 
@@ -1436,7 +1483,7 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None, steps=None):
             loc = f"{os.path.basename(w.filename)}:{w.lineno}"
             where[loc] = where.get(loc, 0) + 1
     syncs = sum(where.values())
-    listed = eng.ncfg is not None
+    listed = eng.split_step
     blocks = eng.cg_blocks - b0
     solves = sum(eng.solves(st0.step + i) for i in range(nsteps)) if cg \
         else 0
@@ -3439,5 +3486,388 @@ def sharded_paths(card, dev, results, il_file):
     print(f"phases 41-43: {time.perf_counter() - t0:.1f} s  [{card}]")
 
 
+# phases 44-46: the steps of the timed window, of the graph phases, of the
+# runs that recover from a short capacity, and of the tile path's drift
+# window
+PATH_STEPS = 20
+PATH_GRAPH_STEPS = 30
+RECOVER_STEPS = 5
+DRIFT_STEPS = 100
+# K4's item-list entry: its CUDA kernels
+K4_ITEM_PARTS = ("pair_sweep", "pair_reduce_items")
+
+
+def _path_engine(tag, cell, path, dev):
+    """(system, md, cfg, x0, engine) of ``cell`` ("mid", the mid-size cell,
+    or "100k") on ``pair_path=path``, float32 on the card."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+    if cell == "mid":
+        system, md, cfg = workloads.synthetic(**CELL)
+        md = dataclasses.replace(md, pair_path=path)
+    else:
+        system, md, cfg = large_cell(path)
+    t0 = time.perf_counter()
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    print(f"{tag}: {cell} on pair_path={path!r}: {system.natoms} atoms, "
+          f"Ne={conp.ne}, set-up {time.perf_counter() - t0:.2f} s")
+    return system, md, cfg, workloads.near_wall_positions(system), eng
+
+
+def _timed_run(tag, cell, eng, x0, counters, never, card):
+    """PATH_STEPS graphed steps after 3 warm-up ones, the counters set to 0
+    just before init_state: each kernel of ``counters`` launched every
+    step, none of ``never``; finite, neutral.  Returns (ms/step, launches,
+    rebuilds in the timed window)."""
+    for c in list(counters.values()) + list(never.values()):
+        c.reset()
+    torch.cuda.synchronize()
+    st = eng.init_state(x0=x0)
+    st, _ = eng.run(st, 3, thermo_every=0)
+    torch.cuda.synchronize()
+    r0 = eng.rebuilds
+    t0 = time.perf_counter()
+    st, _ = eng.run(st, PATH_STEPS, thermo_every=0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / PATH_STEPS * 1e3
+    launches = {name: c.count for name, c in counters.items()}
+    banned = {name: c.count for name, c in never.items() if c.count}
+    print(f"{tag}: {cell}: launches in {PATH_STEPS + 3} steps and init_state "
+          f"{launches}; {ms:.4f} ms/step graphed  [{card}]")
+    if banned or any(n < PATH_STEPS + 3 for n in launches.values()):
+        raise AssertionError(f"{tag}: {cell}: launches {launches}, and of "
+                             f"kernels off this path {banned}")
+    qsum = float(eng.conp.ele_rows(st.q).double().sum())
+    if not (math.isfinite(float(st.energy)) and abs(qsum) <= 1e-4):
+        raise AssertionError(f"{tag}: {cell}: energy {float(st.energy)}, "
+                             f"electrode charge sum {qsum:.3e}")
+    return ms, launches, eng.rebuilds - r0
+
+
+def _against_cpu64(tag, cell, eng, x0):
+    """3 card steps against the CPU float64 run of phase 5 or 9 (the dense
+    path and the per-atom list: the same pair set) with phase 5's bounds."""
+    _, _, _, x_ref, s64 = CPU64[cell]
+    s32 = eng.init_state(x0=x0)
+    for _ in range(F64_STEPS):
+        s32 = eng.step(s32)
+    agree(f"{tag}: {cell} step {F64_STEPS} against the CPU float64 run of "
+          f"phase {5 if cell == 'mid' else 9}", s32, s64, eng.conp.ne)
+
+
+def _recovers(tag, cell, eng, x0, shrink, grown):
+    """``shrink()`` sets a capacity below the need; ``run`` must recover
+    through its retry (the capacity grown, the graphs captured anew) to a
+    finite state equal bit for bit to the eager steps from the healed
+    entry state at the grown capacity; ``grown()`` reads it."""
+    st0 = eng.init_state(x0=x0)
+    before = grown()
+    shrink()
+    short = grown()
+    g, _ = eng.run(st0, RECOVER_STEPS, thermo_every=0)
+    torch.cuda.synchronize()
+    e = st0 = eng._heal_state(st0)
+    for _ in range(RECOVER_STEPS):
+        e = eng.step(e)
+    same = _state_diff(g, e)[0]
+    print(f"{tag}: {cell}: capacity {before} set to {short}, run recovered "
+          f"at {grown()}: finite {math.isfinite(float(g.energy))}, equal to "
+          f"the eager steps at that capacity bit for bit: {same}")
+    if not (math.isfinite(float(g.energy)) and same and grown() > short):
+        raise AssertionError(f"{tag}: {cell}: no recovery from the short "
+                             "capacity")
+
+
+def _graph_beside(tag, cell, rec, card):
+    """The new path's graph record beside that of its cell's default path
+    (phase 4b's dense sweep at mid-size, phase 8b's block list at 100k)."""
+    base = next((g for g in GRAPHS if g["cell"] == cell), None)
+    if base is None:
+        return
+    print(f"{tag}: {cell}: graphed {float(np.median(rec['graph_ms'])):.4f} "
+          f"ms/step, {rec['kernels_per_step']:.0f} kernels/step, busy share "
+          f"{rec['busy_share']:.3f}; the cell's default path "
+          f"({'dense K4' if cell == 'mid' else 'block list, K1'}) "
+          f"{float(np.median(base['graph_ms'])):.4f} ms/step, "
+          f"{base['kernels_per_step']:.0f} kernels/step  [{card}]")
+
+
+def cell_phase(card, dev, results):
+    """Phase 44: the cell list at the mid-size and 100k cells.  Returns
+    the 100k engine and its start positions for phase 46."""
+    import dataclasses
+    from lammps_user_conp2_tpu_torch.ops import cells
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    keep = None
+    for cell in ("mid", "100k"):
+        tag = "phase 44"
+        system, md, cfg, x0, eng = _path_engine(tag, cell, "cell", dev)
+        g = eng.cell_grid
+        chunk = cells.chunk_cells(g.cap, torch.float32)
+        print(f"{tag}: {cell}: {g.total} cells {g.ncells}, cap {g.cap}, "
+              f"{g.total * g.cap * 27 * g.cap} pair slots per sweep, "
+              f"{-(-g.total // chunk)} chunks of {chunk} cells "
+              f"({chunk * g.cap * 27 * g.cap * 4 / 2 ** 30:.2f} GiB per "
+              "float32 temporary)")
+        counters = dict(b_realspace=k56.launches,
+                        conp_correction=k56.corr_launches)
+        if cell == "100k":
+            counters.update(spread_mesh=k2.launches, gather3=k3.launches)
+        ms, launched, _ = _timed_run(tag, cell, eng, x0, counters, dict(
+            pair_forces=k4.launches, block_pair=k1.launches), card)
+        for name, n in launched.items():
+            results[{"spread_mesh": "spread_mesh", "gather3": "gather3",
+                     "b_realspace": "b_realspace",
+                     "conp_correction": "conp_correction"}[name]].setdefault(
+                "launches_cell", {})[cell] = n
+        if cell == "mid":
+            # the CPU float64 engine on the same path
+            card_vs_cpu(tag, eng, system, md, cfg, 3, x0=x0)
+        else:
+            # phase 9's CPU float64 run (per-atom list): a CPU float64 cell
+            # sweep here would take minutes (269 M pair slots per force)
+            _against_cpu64(tag, cell, eng, x0)
+        per_kernel, _ = graph_phase(f"{tag}b", f"{cell}_cell", eng,
+                                    dict(x0=x0), card,
+                                    steps=PATH_GRAPH_STEPS)
+        _graph_beside(tag, cell, GRAPHS[-1], card)
+        if cell == "mid":
+            # (the 100k engine goes on to phase 46 with its capacities)
+            occ = max(int(torch.bincount(cells.bin_atoms(g, torch.as_tensor(
+                x0, dtype=torch.float32, device=dev))[1],
+                minlength=g.total).max()), 2)
+
+            def shrink(eng=eng, occ=occ):
+                eng.cell_grid = dataclasses.replace(eng.cell_grid,
+                                                    cap=-(-occ // 2))
+            _recovers(tag, cell, eng, x0, shrink, lambda eng=eng:
+                      eng.cell_grid.cap)
+        else:
+            keep = (eng, x0)
+        del eng
+        torch.cuda.empty_cache()
+    return keep
+
+
+def tile_phase(card, dev, results):
+    """Phase 45: the tile path at the 100k and mid-size cells."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    r4 = results["pair_forces_conp"]
+    for cell in ("100k", "mid"):
+        tag = "phase 45"
+        system, md, cfg, x0, eng = _path_engine(tag, cell, "tile", dev)
+        if not (eng.pair_order == "kd" and eng.pair_cap and eng.ncfg is None
+                and eng.split_step == (cell == "100k")):
+            raise AssertionError(f"{tag}: {cell}: not the tile path")
+        rng = np.random.default_rng(1)
+        q_np = system.q0.copy()
+        q_np[system.ele_mask] = 0.05 * rng.standard_normal(eng.conp.ne)
+        x = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+        q = torch.as_tensor(q_np, dtype=torch.float32, device=dev)
+        fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+        kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+                  g_ewald=eng.ksp_force.g_ewald, qqr2e=system.units().qqr2e)
+        zsort = k4.order_atoms(x, system.box, system.periodic, "kd")
+        items = k4.tile_items(x, zsort[0], pair_cap=eng.pair_cap,
+                              conp_fuse=fuse, box=system.box,
+                              periodic=system.periodic, cutoff=md.cutoff)
+        args = (x, q, eng.type_idx, eng.tables, eng.exclusions)
+        ekw = dict(conp_fuse=fuse, ele_idx=eng.conp.ele_idx_t, **kw)
+        # the kernel entry alone (the order and the items built above) and
+        # the whole tile path of the wrapper
+        kern = lambda: k4.pair_forces_items(*args, zsort=zsort, items=items,
+                                            **ekw)
+        whole = lambda: k4.pair_forces(*args, order="kd",
+                                       pair_cap=eng.pair_cap, **ekw)
+        plain = lambda: k4.pair_items_plain(*args, zsort[0], items, **ekw)
+        got = kern()
+        torch.cuda.synchronize()
+        rel, dabs = compare(f"pair_forces_tile {cell}", got, plain())
+        same_bits(f"pair_forces_tile {cell}", got, kern())
+        if not all(torch.equal(a, b) for a, b in zip(got, whole())):
+            raise AssertionError(f"{tag}: the wrapper's tile path differs "
+                                 "from its kernel entry")
+        if cell == "100k":
+            # once: the dense plain version, every pair of the cell
+            compare(f"pair_forces_tile {cell} against the dense plain sweep",
+                    got, k4.pair_forces_plain(*args, **ekw))
+        live = int(items.count[0])
+        cap = items.ti.shape[0]
+        nt = items.row_off.shape[0] - 1
+        ti, tj = items.ti[:live].long(), items.tj[:live].long()
+        size = lambda t: torch.clamp(system.natoms - t * k4.TILE,
+                                     0, k4.TILE)
+        ri, cj = size(ti), size(tj)
+        tested = int(torch.where(ti == tj, ri * (ri - 1) // 2,
+                                 ri * cj).sum())
+        inrange = pairs_within(x, x, system.box, system.periodic,
+                               md.cutoff ** 2, same=True) // 2
+        side = cap * k4.SLOT * 4
+        tri = nt * (nt + 1) // 2 * k4.SLOT * 4
+        # the bound counts what the function needs, PAIR_FLOPS per pair in
+        # range, as K4's z-order rows do; the pairs tested out of range are
+        # the schedule's overhead and are reported beside it
+        b = bound((x, q, eng.type_idx, eng.tables, zsort[0], items.packed,
+                   fuse), got, PAIR_FLOPS * inrange)
+        ms, plain_ms = median_ms(kern), median_ms(plain, reps=5)
+        dms = device_ms(kern, K4_ITEM_PARTS, tag=f"pair_forces_tile {cell}")
+        if not dms > 0.0:
+            # the profiler kept no record of the kernels: not measured here
+            # (the graph phase's replay time per launch stands beside it)
+            dms = None
+        whole_ms = median_ms(whole)
+        dtxt = "not measured" if dms is None else f"{dms:.4f} ms"
+        print(f"{tag}: {cell}: {live} live tile pairs of {nt * (nt + 1) // 2} "
+              f"(pair_cap {eng.pair_cap}), {tested} pairs tested, {inrange} "
+              f"in range ({100.0 * inrange / max(tested, 1):.1f}%); side "
+              f"buffer {side / 2 ** 20:.2f} MiB for the cap (the tile-pair "
+              f"triangle would take {tri / 2 ** 20:.1f} MiB); K4 item entry "
+              f"{ms:.4f} ms (events), {dtxt} device, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); with the k-d order "
+              f"and the items {whole_ms:.4f} ms; plain {plain_ms:.4f} ms  "
+              f"[{card}]")
+        if side > tri and cell == "100k":
+            raise AssertionError(f"{tag}: the side buffer is not sized by "
+                                 "the cap")
+        for key, val in (("ms_tile", ms), ("plain_ms_tile", plain_ms),
+                         ("device_ms_tile", dms),
+                         ("bound_ms_tile", b["bound_ms"]),
+                         ("bound_by_tile", b["bound_by"]),
+                         ("tested_pairs_tile", tested),
+                         ("inrange_pairs_tile", inrange),
+                         ("max_rel_err_tile", rel), ("live_items_tile", live),
+                         ("pair_cap_tile", eng.pair_cap),
+                         ("side_buffer_bytes_tile", side)):
+            r4.setdefault(key, {})[cell] = val
+        short = k4.pair_forces(*args, order="kd", pair_cap=live // 2, **ekw)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isnan(t).all()) for t in short):
+            raise AssertionError(f"{tag}: {cell}: a cap of half the live "
+                                 "count did not give NaN")
+        print(f"{tag}: {cell}: pair_cap {live // 2} (half the live count): "
+              "forces and energies NaN")
+        counters = dict(pair_forces=k4.launches, b_realspace=k56.launches)
+        if cell == "100k":
+            counters.update(spread_mesh=k2.launches, gather3=k3.launches)
+        _, launched, _ = _timed_run(tag, cell, eng, x0, counters, dict(
+            block_pair=k1.launches, conp_correction=k56.corr_launches), card)
+        r4.setdefault("launches_tile", {})[cell] = launched["pair_forces"]
+        _against_cpu64(tag, cell, eng, x0)
+        if cell == "100k":
+            st = eng.init_state(x0=x0)
+            r0 = eng.rebuilds
+            eng.run(st, DRIFT_STEPS, thermo_every=0)
+            torch.cuda.synchronize()
+            fired = eng.rebuilds - r0
+            print(f"{tag}: {cell}: the mesh tiles' drift flag fired {fired} "
+                  f"times in {DRIFT_STEPS} graphed steps from x0 (a rebuild "
+                  "when an atom moved 0.9 mesh cells on an axis)")
+            if fired < 1:
+                raise AssertionError(f"{tag}: the drift flag never fired")
+        graph_phase(f"{tag}b", f"{cell}_tile", eng, dict(x0=x0), card,
+                    steps=PATH_GRAPH_STEPS)
+        _graph_beside(tag, cell, GRAPHS[-1], card)
+
+        def shrink(eng=eng, live=live):
+            eng.pair_cap = live // 2
+        _recovers(tag, cell, eng, x0, shrink, lambda eng=eng: eng.pair_cap)
+        del eng
+        torch.cuda.empty_cache()
+
+
+def pair_path_phases(card, dev, results):
+    """Phases 44-46: the cell list, the tile path, the sharded cell step."""
+    import tempfile
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
+    from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
+    from lammps_user_conp2_tpu_torch.parallel import comm as C
+    t0 = time.perf_counter()
+    eng, x0 = cell_phase(card, dev, results)
+    # ---- phase 46: the d = 1 sharded cell step against Engine.step
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    comm = C.init_group(dev, 0, 1, store)
+    try:
+        sheng, st0 = sharded_cell(
+            "phase 46", "100k_cell", eng, x0, comm,
+            dict(b_realspace=k56.launches, conp_correction=k56.corr_launches,
+                 spread_mesh=k2.launches, gather3=k3.launches), card)
+        a, b = st0, st0
+        for i in range(SHARDED_STEPS):
+            a, b = sheng.step(a), eng.step(b)
+        torch.cuda.synchronize()
+        same = _state_diff(a, b)[0] and torch.equal(a.f, b.f)
+        print(f"phase 46: 100k_cell: {SHARDED_STEPS} sharded d = 1 steps "
+              f"against Engine.step bit for bit: {same}  [{card}]")
+        if not same:
+            raise AssertionError("phase 46: the d = 1 sharded cell step "
+                                 "differs from Engine.step")
+    finally:
+        C.close_group()
+    del eng, sheng
+    torch.cuda.empty_cache()
+    tile_phase(card, dev, results)
+    print(f"phases 44-46: {time.perf_counter() - t0:.1f} s  [{card}]")
+
+
+def pair_paths_only(which: str) -> int:
+    """Phases 44-46 (``which`` "44-46") or phase 45 alone ("45"), with what
+    they compare with: the CPU float64 runs of phases 5 and 9 and the graph
+    phases of the mid-size and 100k cells on their default paths.  Prints
+    the kernels' numbers of those phases as one JSON line and no contract
+    line: the whole run is ``main``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
+    t0 = time.perf_counter()
+    build.load_library()
+    card = gpu_line()
+    print(f"phases {which} alone: card {card}")
+    dev = torch.device("cuda:0")
+    for cell, (system, md, cfg) in (("mid", workloads.synthetic(**CELL)),
+                                    ("100k", large_cell())):
+        conp = setup_conp(system, md, cfg, solve_dtype=torch.float32,
+                          device=dev)
+        eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+        x0 = workloads.near_wall_positions(system)
+        card_vs_cpu(f"phase {5 if cell == 'mid' else 9}", eng, system, md,
+                    cfg, F64_STEPS, x0=x0, cell=cell)
+        graph_phase("default", cell, eng, dict(x0=x0), card,
+                    steps=PATH_GRAPH_STEPS)
+        del eng, conp
+        torch.cuda.empty_cache()
+    results = {k: {} for k in ("pair_forces_conp", "b_realspace",
+                               "conp_correction", "spread_mesh", "gather3")}
+    if which == "45":
+        tile_phase(card, dev, results)
+    else:
+        pair_path_phases(card, dev, results)
+    print(json.dumps(results, default=str))
+    print(f"phases {which} alone: {time.perf_counter() - t0:.1f} s  [{card}]")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phases"]:
+        if sys.argv[2:] not in (["44-46"], ["45"]):
+            sys.exit("chip_smoke: --phases takes 44-46 or 45")
+        sys.exit(pair_paths_only(sys.argv[2]))
     sys.exit(main())

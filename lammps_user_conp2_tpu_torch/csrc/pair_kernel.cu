@@ -55,6 +55,20 @@
 //    energies in a fixed order.  Two launches on the same input give
 //    bit-identical outputs.
 //
+// The item-list entry (conp2_pair_items_f32, the tile pair path): the atoms
+// come in any order (k-d bricks, ops/kernels/zorder.kd_perm) and the work
+// items are an explicit list built with plain PyTorch (pair_kernel.
+// tile_items): row tile I, column tile J and a meta word per item, i-major,
+// at most ``cap`` of them, the live count on the device.  The same sweep
+// body takes item k from the list (pair_sweep<..., ITEMS = true>), with the
+// fused correction gated by the item's correction bit; each item has its
+// own slot in a side buffer of cap x SLOT floats.  pair_reduce_items sums,
+// per tile, its row slots over the items [row_off(t), row_off(t + 1)) and
+// its column slots over the items that the by-column index lists for it
+// (a stable sort of J), in order: no atomics, fixed-order sums.  A live
+// count above the cap writes NaN forces and energies (the JAX kernel's
+// fail-loud contract; Engine.run doubles the cap and reruns).
+//
 // The type tables sit in shared memory; LJ from the row's side (the tables
 // are symmetric, as LAMMPS mixes them), the Gaussian correction from the
 // electrode's side, as the plain version's electrode rows read it.  |d|^2 is
@@ -93,6 +107,7 @@ constexpr int SCHED_SMEM = 2048;  // tiles whose keys the schedule stages
 constexpr int VALID = 1 << 8;     // column info bits above the type
 constexpr int ELE = 1 << 9;
 constexpr int ELY = 1 << 10;
+constexpr int CORR_BIT = 8;       // item meta: the pair may need the correction
 
 // the schedule, one int32 array of 6T + 1 + T(T+1)/2: off (T + 1), hi,
 // wp, lo_col, wc (T each), the raw wrapped starts w (T, scratch) and each
@@ -259,7 +274,27 @@ struct PairArgs {
   float cutsq, cutsq_hi, g, qqr2e;   // cutsq_hi: pass A's margin
   float* buf;              // (T(T+1)/2, SLOT) side buffer
   float* partials;         // (gridDim.x, 3) per-CTA energy sums
+  const int* items;        // the item list (ITEMS only), see Items
+  int cap;                 // items the list holds (ITEMS only)
 };
+
+// the item list of the tile path, one int32 array: row tile, column tile
+// and meta of each item (cap each), row_off and col_off (T + 1 each), the
+// by-column index (cap) and the live count (1)
+struct Items {
+  const int* ti;
+  const int* tj;
+  const int* meta;
+  const int* row_off;
+  const int* col_off;
+  const int* col_items;
+  const int* count;
+};
+
+__host__ __device__ inline Items item_views(const int* s, int cap, int t) {
+  return Items{s, s + cap, s + 2 * cap, s + 3 * cap, s + 3 * cap + t + 1,
+               s + 3 * cap + 2 * (t + 1), s + 4 * cap + 2 * (t + 1)};
+}
 
 // one warp's staged item: its 32 row and 32 column atoms, and the list of
 // in-range pairs of a sparse item with their forces
@@ -281,7 +316,7 @@ __device__ __forceinline__ float pair_term(const PairArgs& a,
                                            const float* s_tab, int tsz,
                                            float rsq, float qi, int rinfo,
                                            float cq, int cinfo, float sij,
-                                           float& ev, float& ec,
+                                           bool corr, float& ev, float& ec,
                                            float& ecorr) {
   const int ti = rinfo & 0xff, tj = cinfo & 0xff;
   const int nt1 = a.nt1;
@@ -312,8 +347,8 @@ __device__ __forceinline__ float pair_term(const PairArgs& a,
     ec += pref * erfc;
     fpair = flj + pref * (erfc + EWALD_F * grij * expm2) * r2inv;
   }
-  if (FUSE && (((rinfo & ELE) && (cinfo & ELY)) ||
-               ((rinfo & ELY) && (cinfo & ELE)))) {
+  if (FUSE && corr && (((rinfo & ELE) && (cinfo & ELY)) ||
+                       ((rinfo & ELY) && (cinfo & ELE)))) {
     // CONP Gaussian correction (fix_conp.cpp:1467-1573), with the
     // (electrode type, electrolyte type) entry of the tables
     const int te = (rinfo & ELE) ? ti * nt1 + tj : tj * nt1 + ti;
@@ -346,7 +381,7 @@ __device__ __forceinline__ float special(const int* exj, const float* exs,
   return sij;
 }
 
-template <bool FUSE, bool EXCL>
+template <bool FUSE, bool EXCL, bool ITEMS>
 __global__ void __launch_bounds__(SWEEP_TB) pair_sweep(PairArgs a) {
   __shared__ float s_tab[6 * MAX_NT1 * MAX_NT1];
   __shared__ WarpStage s_stage[SWEEP_WARPS];
@@ -371,7 +406,8 @@ __global__ void __launch_bounds__(SWEEP_TB) pair_sweep(PairArgs a) {
 
   const int nt = a.nt;
   const Sched sc = sched_views(const_cast<int*>(a.sched), nt);
-  const int nitems = sc.off[nt];
+  const Items il = item_views(a.items, a.cap, nt);
+  const int nitems = ITEMS ? min(*il.count, a.cap) : sc.off[nt];
   WarpStage& ws = s_stage[wid];
   int* exj = s_excl + wid * 2 * a.m * TILE;
   float* exs = reinterpret_cast<float*>(exj + a.m * TILE);
@@ -380,11 +416,20 @@ __global__ void __launch_bounds__(SWEEP_TB) pair_sweep(PairArgs a) {
   float ev = 0.f, ec = 0.f, ecorr = 0.f;
   for (int k = blockIdx.x * SWEEP_WARPS + wid; k < nitems;
        k += gridDim.x * SWEEP_WARPS) {
-    // the item's tiles: row tile I, and column tile J from I's ranges
-    const int ti_ = sc.item_row[k];
-    const int d = k - sc.off[ti_];
-    const int nd = sc.hi[ti_] - ti_ + 1;
-    const int tj_ = d < nd ? ti_ + d : sc.wp[ti_] + (d - nd);
+    // the item's tiles: row tile I, and column tile J from the list or
+    // from I's ranges
+    int ti_, tj_;
+    bool corr = true;
+    if (ITEMS) {
+      ti_ = il.ti[k];
+      tj_ = il.tj[k];
+      corr = (il.meta[k] & CORR_BIT) != 0;
+    } else {
+      ti_ = sc.item_row[k];
+      const int d = k - sc.off[ti_];
+      const int nd = sc.hi[ti_] - ti_ + 1;
+      tj_ = d < nd ? ti_ + d : sc.wp[ti_] + (d - nd);
+    }
     const bool diag = ti_ == tj_;
 
     __syncwarp();                       // the previous item's stage is read
@@ -489,7 +534,7 @@ __global__ void __launch_bounds__(SWEEP_TB) pair_sweep(PairArgs a) {
                                              exhi, ws.cid[jl]) : 1.0f;
             const float fpair = pair_term<FUSE, EXCL>(
                 a, s_tab, tsz, rsq, qi, rinfo, ws.cq[jl], ws.cinfo[jl], sij,
-                ev, ec, ecorr);
+                corr, ev, ec, ecorr);
             const float ox = fpair * dx, oy = fpair * dy, oz = fpair * dz;
             fx += ox;
             fy += oy;
@@ -533,7 +578,7 @@ __global__ void __launch_bounds__(SWEEP_TB) pair_sweep(PairArgs a) {
                                            ws.rexhi[r], ws.cid[c]) : 1.0f;
           fpair = pair_term<FUSE, EXCL>(a, s_tab, tsz, rsq, ws.rq[r],
                                         ws.rinfo[r], ws.cq[c], ws.cinfo[c],
-                                        sij, ev, ec, ecorr);
+                                        sij, corr, ev, ec, ecorr);
         }
         ws.lf[0][e] = fpair * dx;
         ws.lf[1][e] = fpair * dy;
@@ -631,6 +676,53 @@ __global__ void __launch_bounds__(RED_TB) pair_reduce(ReduceArgs a) {
   }
 }
 
+struct ItemReduceArgs {
+  const int64_t* perm;     // (n,) ordered position -> atom index
+  const int* items;
+  const float* buf;
+  const float* partials;   // (nparts, 3)
+  int nparts, n, nt, cap;
+  float* f_out;            // (n, 3) original order
+  float* energies;         // (3,) evdwl, ecoul, ecorr
+};
+
+// the item list's reduction: a warp per (tile, force component); each
+// lane's atom sums its row slots over the tile's row items, then its column
+// slots over the items of the by-column index, in order.  NaN everywhere
+// when the live count passed the cap.
+__global__ void __launch_bounds__(RED_TB) pair_reduce_items(ItemReduceArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int wg = blockIdx.x * RED_WARPS + (threadIdx.x >> 5);
+  const int tj = wg / 3, c = wg - 3 * (wg / 3);
+  const Items il = item_views(a.items, a.cap, a.nt);
+  const bool over = *il.count > a.cap;
+  if (tj < a.nt) {
+    const float* row = a.buf + c * TILE + lane;
+    const float* col = a.buf + (3 + c) * TILE + lane;
+    float f = 0.f;
+    const int k1 = il.row_off[tj + 1];
+#pragma unroll 4
+    for (int k = il.row_off[tj]; k < k1; ++k) {
+      f += row[static_cast<int64_t>(k) * SLOT];
+    }
+    const int e1 = il.col_off[tj + 1];
+#pragma unroll 4
+    for (int e = il.col_off[tj]; e < e1; ++e) {
+      f += col[static_cast<int64_t>(il.col_items[e]) * SLOT];
+    }
+    const int p = TILE * tj + lane;
+    if (p < a.n) a.f_out[3 * a.perm[p] + c] = over ? __int_as_float(0x7fc00000) : f;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    for (int e = 0; e < 3; ++e) {
+      float acc = 0.f;
+      for (int b = lane; b < a.nparts; b += 32) acc += a.partials[3 * b + e];
+      acc = warp_sum(acc);
+      if (lane == 0) a.energies[e] = over ? __int_as_float(0x7fc00000) : acc;
+    }
+  }
+}
+
 // dynamic shared memory of the sweep: the exclusion lists of each warp's
 // 32 rows (ids and factors)
 inline int sweep_excl_bytes(int m) {
@@ -638,16 +730,18 @@ inline int sweep_excl_bytes(int m) {
 }
 
 // the CTAs the card holds at once with the shared memory of m special
-// partners per row.  The dynamic shared memory a launch may ask for (above
-// 48 KB only through the attribute) is raised to the largest m asked for,
-// never lowered, so that every m asked for stays launchable; the count
-// depends on this m alone.
-template <bool FUSE, bool EXCL>
+// partners per row, for the entry ITEMS selects (each entry is sized from its
+// own instantiation's occupancy, so the z entry's CTA count, and with it the
+// order of its per-CTA energy sums, does not depend on the item entry).  The
+// dynamic shared memory a launch may ask for (above 48 KB only through the
+// attribute) is raised to the largest m asked for, never lowered, so that
+// every m asked for stays launchable; the count depends on this m alone.
+template <bool FUSE, bool EXCL, bool ITEMS>
 int sweep_setup(int m) {
   static int allowed = 0;
   const int dyn = sweep_excl_bytes(m);
   if (dyn > allowed) {
-    if (cudaFuncSetAttribute(pair_sweep<FUSE, EXCL>,
+    if (cudaFuncSetAttribute(pair_sweep<FUSE, EXCL, ITEMS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dyn) != cudaSuccess) {
       return -1;
@@ -657,26 +751,46 @@ int sweep_setup(int m) {
   int dev = 0, sms = 0, per = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, pair_sweep<FUSE, EXCL>,
-                                                SWEEP_TB, dyn);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per, pair_sweep<FUSE, EXCL, ITEMS>, SWEEP_TB, dyn);
   return (sms > 0 ? sms : 1) * (per > 0 ? per : 1);
+}
+
+template <bool ITEMS>
+int sweep_ctas(bool fuse, int m) {
+  if (fuse && m > 0) return sweep_setup<true, true, ITEMS>(m);
+  if (fuse) return sweep_setup<true, false, ITEMS>(0);
+  if (m > 0) return sweep_setup<false, true, ITEMS>(m);
+  return sweep_setup<false, false, ITEMS>(0);
+}
+
+template <bool ITEMS>
+void launch_sweep(const PairArgs& a, bool fuse, int nctas, cudaStream_t s) {
+  const int dyn = sweep_excl_bytes(a.m);
+  if (fuse && a.m > 0) {
+    pair_sweep<true, true, ITEMS><<<nctas, SWEEP_TB, dyn, s>>>(a);
+  } else if (fuse) {
+    pair_sweep<true, false, ITEMS><<<nctas, SWEEP_TB, 0, s>>>(a);
+  } else if (a.m > 0) {
+    pair_sweep<false, true, ITEMS><<<nctas, SWEEP_TB, dyn, s>>>(a);
+  } else {
+    pair_sweep<false, false, ITEMS><<<nctas, SWEEP_TB, 0, s>>>(a);
+  }
 }
 
 }  // namespace conp2
 
 extern "C" {
 
-// CTAs of the persistent sweep for a schedule of ``items_cap`` items with m
-// listed special partners per atom: the CTAs this card holds at once, at
-// most one per SWEEP_WARPS items; -1 if the card refuses the shared memory.
-// The wrapper sizes the per-CTA energy buffer from it and keeps the one
-// cache of it.
-int conp2_pair_sweep_ctas(int fuse, int m, int items_cap) {
-  int ctas;
-  if (fuse && m > 0) ctas = conp2::sweep_setup<true, true>(m);
-  else if (fuse) ctas = conp2::sweep_setup<true, false>(0);
-  else if (m > 0) ctas = conp2::sweep_setup<false, true>(m);
-  else ctas = conp2::sweep_setup<false, false>(0);
+// CTAs of the persistent sweep of the z entry (items == 0) or the item-list
+// entry (items != 0) for ``items_cap`` items with m listed special partners
+// per atom: the CTAs this card holds at once of that entry's sweep, at most
+// one per SWEEP_WARPS items; -1 if the card refuses the shared memory.  The
+// wrapper sizes the per-CTA energy buffer from it and keeps the one cache of
+// it.
+int conp2_pair_sweep_ctas(int fuse, int m, int items_cap, int items) {
+  const int ctas = items ? conp2::sweep_ctas<true>(fuse != 0, m)
+                         : conp2::sweep_ctas<false>(fuse != 0, m);
   if (ctas < 0) return -1;
   const int need = (items_cap + conp2::SWEEP_WARPS - 1) / conp2::SWEEP_WARPS;
   return need < ctas ? (need > 0 ? need : 1) : ctas;
@@ -727,22 +841,50 @@ int conp2_pair_forces_f32(const float* x, const float* q, const int64_t* type,
   conp2::PairArgs a{x, q, type, ele_f, ely_f, perm, sched,
                     {lj1, lj2, lj3, lj4}, eta, fo, exi, exv, m, n, nt1, nt,
                     bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz, px, py, pz,
-                    cutsq, cutsq * 1.0001f, g_ewald, qqr2e, buf, partials};
-  const bool fuse = ele_f != nullptr;
-  const int dyn = conp2::sweep_excl_bytes(m);
-  if (fuse && m > 0) {
-    conp2::pair_sweep<true, true><<<nctas, conp2::SWEEP_TB, dyn, s>>>(a);
-  } else if (fuse) {
-    conp2::pair_sweep<true, false><<<nctas, conp2::SWEEP_TB, 0, s>>>(a);
-  } else if (m > 0) {
-    conp2::pair_sweep<false, true><<<nctas, conp2::SWEEP_TB, dyn, s>>>(a);
-  } else {
-    conp2::pair_sweep<false, false><<<nctas, conp2::SWEEP_TB, 0, s>>>(a);
-  }
+                    cutsq, cutsq * 1.0001f, g_ewald, qqr2e, buf, partials,
+                    nullptr, 0};
+  conp2::launch_sweep<false>(a, ele_f != nullptr, nctas, s);
   conp2::ReduceArgs r{perm, sched, buf, partials, nctas, n, nt, f_out,
                       energies};
   const int nred = (3 * nt + conp2::RED_WARPS - 1) / conp2::RED_WARPS;
   conp2::pair_reduce<<<nred, conp2::RED_TB, 0, s>>>(r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile path's entry: the sweep over the item list ``items`` (int32,
+// 4 cap + 2 (nt + 1) + 1: see conp2::Items; nt = tiles, the pad tile that
+// makes their count odd included) of the atoms in the order ``perm``, then
+// its reduction.  Workspace from the wrapper: buf (cap * 192 float32) and
+// partials (nctas * 3).  f_out (n, 3) and energies (3) = (evdwl, ecoul,
+// ecorr), NaN when the live count is above cap.  ele_f == NULL and m == 0
+// as in conp2_pair_forces_f32.  Returns cudaGetLastError().
+int conp2_pair_items_f32(const float* x, const float* q, const int64_t* type,
+                         const float* ele_f, const float* ely_f,
+                         const int64_t* perm, const int* items,
+                         const float* lj1, const float* lj2,
+                         const float* lj3, const float* lj4, const float* eta,
+                         const float* fo, const int64_t* exi,
+                         const float* exv, int m, int n, int nt1, int nt,
+                         int cap, float bx, float by, float bz, int px,
+                         int py, int pz, float cutsq, float g_ewald,
+                         float qqr2e, int nctas, float* buf, float* partials,
+                         float* f_out, float* energies, void* stream) {
+  if (n <= 0 || nt1 <= 0 || nt1 > conp2::MAX_NT1 || m < 0 ||
+      m > conp2::MAX_EXCL || nctas <= 0 || cap <= 0 ||
+      nt < (n + conp2::TILE - 1) / conp2::TILE) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  conp2::PairArgs a{x, q, type, ele_f, ely_f, perm, nullptr,
+                    {lj1, lj2, lj3, lj4}, eta, fo, exi, exv, m, n, nt1, nt,
+                    bx, by, bz, 1.0f / bx, 1.0f / by, 1.0f / bz, px, py, pz,
+                    cutsq, cutsq * 1.0001f, g_ewald, qqr2e, buf, partials,
+                    items, cap};
+  conp2::launch_sweep<true>(a, ele_f != nullptr, nctas, s);
+  conp2::ItemReduceArgs r{perm, items, buf, partials, nctas, n, nt, cap,
+                          f_out, energies};
+  const int nred = (3 * nt + conp2::RED_WARPS - 1) / conp2::RED_WARPS;
+  conp2::pair_reduce_items<<<nred, conp2::RED_TB, 0, s>>>(r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,15 +8,17 @@ launches them all with one call.  ``Engine.run`` on a CUDA state replays
 the segments of ``Engine.step`` captured here, on static buffers that hold
 the state between replays:
 
-* dense paths (no Verlet list): one graph of the whole step, replayed
-  ``nsteps`` times with no host sync in the loop (INV);
-* list paths: graph A (``Engine._pre``: thermostat half, kicks, drift,
-  SHAKE, the skin check into a device flag), then one host read of the flag
+* dense and cell paths (no rebuild flag): one graph of the whole step,
+  replayed ``nsteps`` times with no host sync in the loop (INV);
+* list and tile paths (``Engine.split_step``): graph A (``Engine._pre``:
+  thermostat half, kicks, drift, SHAKE, the Verlet skin check or the mesh
+  tiles' drift test into a device flag), then one host read of the flag
   (the one sync per step the eager step has too), graph R
-  (``Engine._rebuild``: the list, the mesh tiles, the sticky overflow) when
-  it is set, then graph B (``Engine._post``: the charge solve, the forces,
-  the kick, RATTLE, thermostat half).  That is the eager control flow
-  exactly, so the replayed step computes what ``step`` computes, op for op;
+  (``Engine._rebuild``: the list, the mesh tiles, the sticky overflow; the
+  mesh tiles alone on the tile path) when it is set, then graph B
+  (``Engine._post``: the charge solve, the forces, the kick, RATTLE,
+  thermostat half).  That is the eager control flow exactly, so the
+  replayed step computes what ``step`` computes, op for op;
 * the CG solvers split the solve out of the step's last graph: graph H
   (on the dense paths ``_pre`` and) ``Engine._solve_begin`` up to the CG
   carry, graph C (``CG_BLOCK`` CG iterations, ``ConpSolver.cg_block``)
@@ -34,8 +36,9 @@ the state between replays:
 Each segment runs once on a side stream before its capture (the cuFFT
 plans, the cuBLAS workspaces, the kernels' build and launch attributes),
 and all the graphs of one ``StepGraphs`` share one memory pool.  The graphs
-are keyed by the engine's capacities (list K, U and cell cap, the mesh tile
-cap): when ``run`` grows one after an overflow, the next run captures anew.
+are keyed by the engine's capacities (list K, U and cell cap, the cell
+list's cap, the tile path's pair cap, the mesh tile cap): when ``run`` grows
+one after an overflow, the next run captures anew.
 
 A kernel wrapper counts its launches in Python (``build.LaunchCounter``),
 which a replay does not run: each capture records the counts its segment
@@ -150,10 +153,10 @@ class StepGraphs:
     def __init__(self, eng, state, backend):
         self.eng = eng
         self.backend = backend
-        self.listed = eng.ncfg is not None
+        self.listed = eng.split_step
         # the capacities these graphs were captured at; holding them keeps
         # the device constants cached on them alive for the replays
-        self.refs = (eng.ncfg, eng.pppm_grid)
+        self.refs = (eng.ncfg, eng.pppm_grid, eng.cell_grid)
         self.s = clone_state(state)
         self.p = [torch.empty_like(state.x), torch.empty_like(state.v),
                   torch.empty_like(state.nhc_xi),
@@ -334,9 +337,10 @@ def replayed(state) -> bool:
 
 def graph_key(eng, state) -> tuple:
     """The capacities and the state layout a set of graphs is valid for."""
-    ncfg, grid = eng.ncfg, eng.pppm_grid
+    ncfg, grid, cells = eng.ncfg, eng.pppm_grid, eng.cell_grid
     caps = (None if ncfg is None else (ncfg.k_max, ncfg.u_max, ncfg.grid.cap),
-            None if grid is None else grid.tile_cap)
+            None if grid is None else grid.tile_cap,
+            None if cells is None else cells.cap, eng.pair_cap)
     tensors = []
 
     def walk(o):

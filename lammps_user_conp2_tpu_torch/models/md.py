@@ -20,6 +20,15 @@ Two paths, chosen by ``build_engine`` as the JAX engine chooses them:
   rows elsewhere; the tiled z-binned PPPM mesh with the spread (K2a) and
   the ad gather (K3); the electrode transforms on their z planes.
 
+Two more pair paths on request, as in the JAX engine: ``pair_path="cell"``,
+the cell-list sweep (plain PyTorch, ``ops/cells.py``) with the CONP
+correction on its own (K6), a one-graph step like the dense paths; and
+``pair_path="tile"``, which on the card in float32 is K4 over the live
+tile pairs of the atoms in k-d bricks (``pair_cap`` items, no Verlet
+list; the persistent mesh tiles rebuilt by their own drift test, one flag
+read per step) and elsewhere the Verlet list (big N) or the dense sweep,
+as the JAX engine falls back off its accelerator.
+
 Both paths run SHAKE (K7) and RATTLE (K8) when the configuration
 constrains bonds and angles (the ionic-liquid decks), then zmirror when
 the deck asks for it; the forces take the external or the feedback
@@ -55,9 +64,10 @@ from ..ops import ewald as ewald_ops
 from ..ops import ewald_factored as ewf
 from ..ops import pppm as pppm_ops
 from ..ops.bonded import bonded_forces, term_table
+from ..ops.cells import build_cell_grid, cell_pair_forces
 from ..ops.kernels import build
 from ..ops.kernels.ele_rows_kernel import conp_correction, correction_range
-from ..ops.kernels.pair_kernel import pair_forces
+from ..ops.kernels.pair_kernel import pair_forces, pair_tile_count
 from ..ops.kernels.shake_kernel import rattle_velocities, shake_positions
 from ..ops.neighbors import (block_pair_forces, build_neighbor_list,
                              conp_correction_from_list, make_neighbor_config,
@@ -90,7 +100,8 @@ class Engine(nn.Module):
                  ksp_force: ewald_ops.EwaldKSpace,
                  fksp: Optional[ewf.FactoredKSpace], pppm_grid, ncfg,
                  mesh_persist: bool, dtype, device,
-                 zmirror: Optional[ZMirror] = None):
+                 zmirror: Optional[ZMirror] = None, cell_grid=None,
+                 pair_order: str = "z", pair_cap: Optional[int] = None):
         super().__init__()
         self.system = system
         self.md = md
@@ -102,10 +113,15 @@ class Engine(nn.Module):
         self.fksp = fksp                 # factored Ewald, or None under PPPM
         self.pppm_grid = pppm_grid       # PPPMGrid, or None under EWALD
         self.ncfg = ncfg                 # NeighborConfig, or None (dense)
+        self.cell_grid = cell_grid       # CellGrid of pair_path="cell", or None
+        # the tile path (pair_path="tile" on the card): K4's atom order and
+        # its live tile-pair capacity (None: the z schedule, no cap)
+        self.pair_order = pair_order
+        self.pair_cap = pair_cap
         # persistent mesh-tile binning rebuilt with the Verlet list: only on
         # the tiled mesh, and only while skin/2 fits the tile drift margin
         self.mesh_persist = mesh_persist
-        self.rebuilds = 0                # Verlet-list rebuilds in step()
+        self.rebuilds = 0                # list or mesh-tile rebuilds in step()
         self.cg_blocks = 0               # CG blocks run by the steps
         # graphs.StepGraphs by graphs.graph_key: the step's CUDA graphs at
         # each set of capacities run() has met
@@ -201,7 +217,16 @@ class Engine(nn.Module):
                 self.ncfg, nbr, x, q, self.type_idx, self.tables,
                 self.exclusions, g_ewald=g, qqr2e=u.qqr2e)
             return f, ev, ec, None
-        if self.md.use_pallas_pair is False:
+        if self.cell_grid is not None:
+            # the cell list; the correction runs on its own (K6), as the
+            # JAX engine's cell branch leaves it to its unfused sweep
+            f, ev, ec, overflow = cell_pair_forces(
+                self.cell_grid, x, q, self.type_idx, self.tables,
+                self.exclusions, g_ewald=g, qqr2e=u.qqr2e)
+            nan = torch.full_like(ev, float("nan"))
+            return (f, torch.where(overflow, nan, ev),
+                    torch.where(overflow, nan, ec), None)
+        if self.pair_cap is None and self.md.use_pallas_pair is False:
             # the unfused dense sweep, as the JAX engine runs it with
             # use_pallas_pair=False: no TPU kernel computes it there, so it
             # is plain PyTorch here on every device; compute_forces then
@@ -215,7 +240,8 @@ class Engine(nn.Module):
             x, q, self.type_idx, self.tables, self.exclusions,
             box=self.ksp_force.box, periodic=self.system.periodic,
             cutoff=self.md.cutoff, g_ewald=g, qqr2e=u.qqr2e,
-            zsort=self._zsort(kcache), conp_fuse=fuse,
+            zsort=self._zsort(kcache) if self.pair_order == "z" else None,
+            order=self.pair_order, pair_cap=self.pair_cap, conp_fuse=fuse,
             ele_idx=None if fuse is None else self.conp.ele_idx_t)
         return out[0], out[1], out[2], (out[3] if fuse is not None else None)
 
@@ -385,6 +411,13 @@ class Engine(nn.Module):
         return f, pe
 
     # --------------------------------------------------------------- step
+    @property
+    def split_step(self) -> bool:
+        """Whether the step reads a rebuild flag between ``_pre`` and
+        ``_post``: the Verlet skin check, or on the tile path the mesh
+        tiles' drift test."""
+        return self.ncfg is not None or self.mesh_persist
+
     def derived_state(self, x):
         """(nbr, tasg) built at positions x: the Verlet list and the
         persistent mesh-tile assignment, each None when the engine keeps
@@ -398,10 +431,11 @@ class Engine(nn.Module):
 
     def _pre(self, state: MDState):
         """The step up to the charge solve: thermostat half, kick, drift,
-        SHAKE, zmirror and the Verlet skin check.  Returns (x, v, xi, vxi,
-        flag):
-        ``flag`` is the () bool device tensor of the skin check (LAMMPS
-        Neighbor::check_distance), None without a list."""
+        SHAKE, zmirror and the rebuild check.  Returns (x, v, xi, vxi,
+        flag): ``flag`` is the () bool device tensor of the Verlet skin check
+        (LAMMPS Neighbor::check_distance), or on the tile path of the mesh
+        tiles' drift test (JAX md.py:367-375); None when the step has
+        neither."""
         itg = self.integrator
         v, xi, vxi = itg.thermostat_half(state.v, state.nhc_xi, state.nhc_vxi)
         v = itg.kick(v, state.f)
@@ -416,6 +450,8 @@ class Engine(nn.Module):
         flag = None
         if self.ncfg is not None:
             flag = needs_rebuild(self.ncfg, state.nbr, x)
+        elif self.mesh_persist:
+            flag = pppm_ops.tile_drift_exceeded(self.pppm_grid, state.tasg, x)
         return x, v, xi, vxi, flag
 
     def _rebuild(self, x, nbr_old):
@@ -423,7 +459,8 @@ class Engine(nn.Module):
         a rebuild from NaN-poisoned positions must not clear it, so run()
         can see the cause.  The mesh-tile assignment shares the trigger."""
         nbr, tasg = self.derived_state(x)
-        nbr.overflow = nbr.overflow | nbr_old.overflow
+        if nbr is not None:
+            nbr.overflow = nbr.overflow | nbr_old.overflow
         return nbr, tasg
 
     def solves(self, step: int) -> bool:
@@ -575,11 +612,22 @@ class Engine(nn.Module):
                     pe=state.energy)
 
     def _grow_neighbor_capacity(self) -> None:
-        """Double the cell capacity, K and U after a list overflow."""
-        g = self.ncfg.grid
-        self.ncfg = dataclasses.replace(
-            self.ncfg, grid=dataclasses.replace(g, cap=2 * g.cap),
-            k_max=2 * self.ncfg.k_max, u_max=2 * self.ncfg.u_max)
+        """Double the cell capacity, K and U after a list overflow, or the
+        cell list's capacity (JAX md.py:544-558)."""
+        if self.ncfg is not None:
+            g = self.ncfg.grid
+            self.ncfg = dataclasses.replace(
+                self.ncfg, grid=dataclasses.replace(g, cap=2 * g.cap),
+                k_max=2 * self.ncfg.k_max, u_max=2 * self.ncfg.u_max)
+        elif self.cell_grid is not None:
+            self.cell_grid = dataclasses.replace(self.cell_grid,
+                                                 cap=2 * self.cell_grid.cap)
+
+    def _grow_pair_cap(self) -> None:
+        """Double the tile path's live tile-pair capacity after K4 came
+        back NaN (JAX md.py:566-571); ``pair_forces`` clamps it to every
+        tile pair."""
+        self.pair_cap = 2 * int(self.pair_cap)
 
     def _mesh_tiled(self) -> bool:
         return (self.pppm_grid is not None
@@ -607,9 +655,10 @@ class Engine(nn.Module):
         per set of capacities; a capture or replay error raises.
 
         If the run ends NaN-poisoned through a list overflow (sticky
-        ``nbr.overflow``) or on the tiled mesh, the capacity is grown, the
-        derived state rebuilt from the entry state, and the whole run
-        repeated (at most 3 times), as the JAX engine does."""
+        ``nbr.overflow``), or with no such flag on the tiled mesh, the cell
+        list or the tile path, every capacity in play is grown, the derived
+        state rebuilt from the entry state, and the whole run repeated (at
+        most 3 times), as the JAX engine does (md.py:606-628)."""
         def execute(st):
             if graphs.replayed(st):
                 return graphs.step_graphs(self, st).run(st, nsteps,
@@ -628,8 +677,17 @@ class Engine(nn.Module):
             if (self.ncfg is not None and state.nbr is not None
                     and bool(final.nbr.overflow)):
                 self._grow_neighbor_capacity()
-            elif self._mesh_tiled():
-                self._grow_tile_capacity()
+            elif (self._mesh_tiled() or self.cell_grid is not None
+                  or self.pair_cap is not None):
+                # no sticky flag tells these overflows (or a physics NaN)
+                # apart: grow each capacity in play, a bounded number of
+                # times
+                if self._mesh_tiled():
+                    self._grow_tile_capacity()
+                if self.cell_grid is not None:
+                    self._grow_neighbor_capacity()
+                if self.pair_cap is not None:
+                    self._grow_pair_cap()
             else:
                 break
             state = self._heal_state(state)
@@ -649,14 +707,23 @@ def stack_thermo(rows) -> dict:
     return th
 
 
+def kernels_run(device, dtype) -> bool:
+    """Whether the hand kernels run for an engine on ``device`` in
+    ``dtype`` (CUDA float32): the condition under which ``build_engine``
+    takes the paths the JAX engine takes on its accelerator (the block
+    list for "auto", K4 over k-d bricks for "tile")."""
+    return device.type == "cuda" and dtype == torch.float32
+
+
+# the pair paths of the JAX engine (MDConfig.pair_path)
+PAIR_PATHS = ("auto", "dense", "nlist", "block", "cell", "tile")
+
+
 def _check_supported(system: System, md: MDConfig) -> None:
     """Raise NotImplementedError, naming the feature, for every setting the
-    port does not cover yet."""
-    missing = []
-    if md.pair_path not in ("auto", "dense", "nlist", "block"):
-        missing.append(f"pair_path={md.pair_path!r}")
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+    port does not cover: a pair path the JAX engine does not name."""
+    if md.pair_path not in PAIR_PATHS:
+        raise NotImplementedError(f"not ported: pair_path={md.pair_path!r}")
 
 
 def build_engine(system: System, md: MDConfig,
@@ -670,7 +737,7 @@ def build_engine(system: System, md: MDConfig,
     _check_supported(system, md)
     device = resolve_device(device)
     u = system.units()
-    on_card = device.type == "cuda" and dtype == torch.float32
+    on_card = kernels_run(device, dtype)
     pppm_grid = fksp = None
     if conp is not None:
         # the forces take the charge solve's k-space, as in the JAX
@@ -709,13 +776,32 @@ def build_engine(system: System, md: MDConfig,
             fksp = ewf.factorize(ksp, device=device, dtype=dtype)
 
     # pair path: "auto" takes the Verlet list for big N in a box at least 4
-    # cutoffs wide, in block form exactly where the block CUDA kernel runs
+    # cutoffs wide, in block form exactly where the block CUDA kernel runs;
+    # "tile" is K4 over k-d bricks on the card in float32 and, as in the
+    # JAX engine off its accelerator, the list (big N) or dense elsewhere
     big_n = (system.natoms > DENSE_MAX_ATOMS
              and all(b >= 4.0 * md.cutoff for b in system.box))
+    want_tile = md.pair_path == "tile" and on_card
     want_block = md.pair_path == "block" or (md.pair_path == "auto" and big_n
                                              and on_card)
     want_nlist = (want_block or md.pair_path == "nlist"
-                  or (md.pair_path == "auto" and big_n))
+                  or (md.pair_path in ("auto", "tile") and big_n
+                      and not want_tile))
+    cell_grid = None
+    if md.pair_path == "cell":
+        cell_grid = build_cell_grid(system.box, tuple(system.box_lo),
+                                    md.cutoff, system.natoms,
+                                    periodic=system.periodic)
+    pair_order, pair_cap = "z", None
+    if want_tile:
+        # k-d bricks of TILE atoms, the 3-D culled live tile pairs; the cap
+        # from x0 with headroom, regrown by run() (JAX md.py:785-795)
+        pair_order = "kd"
+        cnt = pair_tile_count(torch.as_tensor(system.x0, dtype=dtype,
+                                              device=device),
+                              box=system.box, periodic=system.periodic,
+                              cutoff=md.cutoff, order=pair_order)
+        pair_cap = int(math.ceil(cnt * 1.5)) + 8
     ncfg = None
     if want_nlist:
         ncfg = make_neighbor_config(
@@ -738,11 +824,16 @@ def build_engine(system: System, md: MDConfig,
     # the persistent mesh-tile assignment stays exact iff skin/2 fits the
     # tile drift margin on every axis (else per-step binning)
     mesh_persist = False
-    if (pppm_grid is not None and ncfg is not None
-            and not pppm_ops._use_dense(pppm_grid, system.natoms)):
+    tiled = (pppm_grid is not None
+             and not pppm_ops._use_dense(pppm_grid, system.natoms))
+    if tiled and ncfg is not None:
         g = pppm_grid
         min_cell = min(g.box[0] / g.nx, g.box[1] / g.ny, g.zprd_grid / g.nz)
         mesh_persist = 0.5 * ncfg.skin <= pppm_ops.TILE_DM * min_cell
+    elif tiled and want_tile:
+        # the tile path has no skin bound: the assignment carries its own
+        # drift reference (tile_drift_exceeded; JAX md.py:820-824)
+        mesh_persist = True
 
     cons = build_constraints(system, md.shake, dtype=dtype, device=device)
     thermos = [make_nhc_params(
@@ -770,4 +861,5 @@ def build_engine(system: System, md: MDConfig,
     return Engine(system=system, md=md, conp=conp, integrator=integrator,
                   cons=cons, ksp_force=ksp, fksp=fksp, pppm_grid=pppm_grid, ncfg=ncfg,
                   mesh_persist=mesh_persist, dtype=dtype, device=device,
-                  zmirror=zmirror)
+                  zmirror=zmirror, cell_grid=cell_grid, pair_order=pair_order,
+                  pair_cap=pair_cap)

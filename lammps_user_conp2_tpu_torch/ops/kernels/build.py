@@ -115,7 +115,10 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_pair_forces_f32.argtypes = (
         [P] * 15 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 5 + [I] + [P] * 6)
     lib.conp2_pair_forces_f32.restype = I
-    lib.conp2_pair_sweep_ctas.argtypes = [I, I, I]
+    lib.conp2_pair_items_f32.argtypes = (
+        [P] * 15 + [I] * 5 + [F] * 3 + [I] * 3 + [F] * 3 + [I] + [P] * 5)
+    lib.conp2_pair_items_f32.restype = I
+    lib.conp2_pair_sweep_ctas.argtypes = [I, I, I, I]
     lib.conp2_pair_sweep_ctas.restype = I
     lib.conp2_pair_schedule_i32.argtypes = [P, I, I, F, F, P, P]
     lib.conp2_pair_schedule_i32.restype = I

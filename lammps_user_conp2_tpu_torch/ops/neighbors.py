@@ -29,14 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cells import (CellGrid, bin_atoms, build_cell_grid, candidate_columns,
-                    neighbor_cells)
+from .cells import (TYPE_BITS, CellGrid, bin_atoms, build_cell_grid,
+                    candidate_columns, neighbor_cells)
 from .erfc import A1, A2, A3, A4, A5, EWALD_F, EWALD_P, erfcr_sqrt
 from .kernels.block_pair import block_pair
 from .pairs import PairTables, min_image, special_factors
 
-# bits reserved for the neighbour's atom type in the packed sort key
-TYPE_BITS = 5
+# the neighbour's atom type in the packed sort key (cells.TYPE_BITS bits)
 TYPE_MASK = (1 << TYPE_BITS) - 1
 # atom rows per chunk of the rebuild sweep: bounds the (chunk, 27 cap, 3)
 # displacement transient

@@ -591,6 +591,23 @@ def tile_assign(grid: PPPMGrid, x) -> TileAssign:
     return TileAssign(slot, table.reshape(geom.t_tiles, cap), overflow, x)
 
 
+def tile_drift_exceeded(grid: PPPMGrid, asg: TileAssign, x):
+    """() bool: whether any atom moved more than 90% of the TILE_DM-cell
+    patch margin on an axis since ``asg`` was built (JAX pppm.py:664): the
+    rebuild trigger of the persistent assignment where no Verlet skin
+    bounds the drift (the tile pair path).  The 10% absorbs one step's
+    motion between the check and the rebuild; a margin still exceeded
+    sets the slots' overflow flag."""
+    geom = _tile_geometry(grid, x.shape[0])
+    cells = (grid.box[0] / grid.nx, grid.box[1] / grid.ny,
+             grid.zprd_grid / grid.nz)
+    d = torch.abs(x - asg.x_ref)
+    out = d[:, 0] > 0.9 * geom.dm * cells[0]
+    for ax in (1, 2):
+        out = out | (d[:, ax] > 0.9 * geom.dm * cells[ax])
+    return torch.any(out)
+
+
 def refresh_tile_slots(grid: PPPMGrid, asg: TileAssign, x, q) -> TileSlots:
     """TileSlots for the current (x, q) under a (possibly stale)
     assignment: local coordinates are taken relative to each atom's
@@ -624,6 +641,12 @@ def refresh_tile_slots(grid: PPPMGrid, asg: TileAssign, x, q) -> TileSlots:
 
     overflow = asg.overflow | torch.any(oob(lx, tlx) | oob(ly, tly)
                                         | oob(lz, tlz))
+    # the slot rows stay inside their patch even past the margin (or at
+    # NaN positions after an overflow elsewhere): K2a and K3 index the
+    # patch with them, and the flag already poisons what they compute
+    lx = torch.clamp(lx, 0, tlx + 2 * dm - 1)
+    ly = torch.clamp(ly, 0, tly + 2 * dm - 1)
+    lz = torch.clamp(lz, 0, tlz + 2 * dm - 1)
     packed = torch.stack([lx.to(dtype), ly.to(dtype), lz.to(dtype), dxx, dxy,
                           dxz, q.to(dtype), torch.zeros_like(dxx)], dim=0)
     packed = torch.cat([packed, torch.zeros((8, 1), dtype=dtype,

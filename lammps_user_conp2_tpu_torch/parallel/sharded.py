@@ -8,17 +8,24 @@ What is split, as in the JAX step:
 * the factored-Ewald kxy rows: each rank owns a contiguous share, padded
   with ``ug = 0`` rows (``ewald_factored.kxy_shard``): its structure
   factor, electrode potentials and forces are summed over the ranks;
-* the pair rows: the dense rows (``pairs.pair_rowblock``), the per-atom
-  list rows or the block list's blocks (``neighbors.block_pair_rows``,
-  K1 on CUDA float32), gathered back;
+* the pair rows: the dense rows (``pairs.pair_rowblock``; the tile
+  path's engine takes them too, as the JAX step sweeps dense rows for it,
+  JAX ``sharded.py:387-401``), the per-atom list rows or the block list's
+  blocks (``neighbors.block_pair_rows``, K1 on CUDA float32), gathered
+  back; on the cell path a contiguous slice
+  of the cells, padded to d slices, whose slot forces go back to atom
+  order and are summed over the ranks (JAX ``sharded.py:258-270``,
+  ``:352-386``);
 * the solve's matrix rows: A^-1 (INV), A (CG: a distributed A p per
   iteration) or the real-space block (CG_MATFREE, beside the k-shard
   operator; rebuilt from the live positions for mobile electrodes);
 * the electrode rows of b and of the CONP correction (on the dense path
   K5 and K6 on CUDA float32, over this rank's rows);
 * the PPPM spread and gather of each rank's own atom rows, with a tile
-  slot capacity sized from the ranks' occupancy at x0 plus 25% and a
-  persistent per-rank tile assignment (K2a and K3 on CUDA float32); the
+  slot capacity sized from the ranks' occupancy at x0 plus 25% and, under
+  a Verlet skin, a persistent per-rank tile assignment (K2a and K3 on CUDA
+  float32; elsewhere, the tile path included, the ranks bin their rows
+  every step, JAX ``sharded.py:253-256``); the
   Poisson solve and the electrode re-spread (K2b) are replicated;
 * the list rebuild's row sweep: each rank sorts the candidate keys of its
   atom rows, the keys are gathered (``neighbors.row_keys``; a row's keys
@@ -47,6 +54,8 @@ from ..models.md import Engine, _check_supported, stack_thermo
 from ..models.system import MDState
 from ..ops import ewald_factored as ewf
 from ..ops import pppm as pppm_ops
+from ..ops.cells import (cell_slab_tables, pad_slab_tables, slot_exclusions,
+                         slot_forces_to_atoms, sweep_cell_slabs)
 from ..ops.kernels import build
 from ..ops.kernels.ele_rows_kernel import b_realspace, conp_correction
 from ..ops.neighbors import (TYPE_BITS, _poison, b_realspace_from_list,
@@ -179,6 +188,11 @@ class ShardedEngine(Engine):
         self.layout = layout
         self.rank_grid = layout.rank_grid
         self.tiled = layout.rank_grid is not None
+        # the persistent assignment is kept under the Verlet skin's trigger
+        # alone (JAX sharded.py:253-256): the tile path's engine bins the
+        # ranks' rows every step, with no drift flag to read
+        self.mesh_persist = bool(engine.mesh_persist
+                                 and engine.ncfg is not None)
         dev = self.type_idx.device
         rank = comm.rank
         n = layout.n
@@ -226,12 +240,13 @@ class ShardedEngine(Engine):
     # ------------------------------------------------------------ state
     def prep_state(self, state: MDState) -> MDState:
         """``state`` with the engine's mesh-tile assignment replaced by this
-        rank's (built at the same reference positions); a state of this
-        engine passes through."""
+        rank's (built at the same reference positions), or dropped where
+        this engine keeps none; a state of this engine passes through."""
         t = state.tasg
-        if not self.mesh_persist or t is None or isinstance(t,
-                                                            RankTileAssign):
+        if t is None or isinstance(t, RankTileAssign):
             return state
+        if not self.mesh_persist:
+            return dataclasses.replace(state, tasg=None)
         return dataclasses.replace(state, tasg=self._rank_assign(t.x_ref))
 
     def _rank_assign(self, x):
@@ -283,6 +298,8 @@ class ShardedEngine(Engine):
         g = self.ksp_force.g_ewald
         lay, comm = self.layout, self.comm
         rank = comm.rank
+        if self.cell_grid is not None:
+            return self._cell_pair(x, q)
         if self.ncfg is not None and nbr is not None and self.ncfg.block:
             fuse = None
             if self.conp is not None and build.kernel_route("block_pair", x):
@@ -332,6 +349,31 @@ class ShardedEngine(Engine):
         sums = comm.psum(torch.stack([ev, ec]))
         return comm.all_gather_rows(torch.cat(fs), lay.n), sums[0], sums[1], \
             None
+
+    def _cell_pair(self, x, q):
+        """The cell sweep of this rank's slice of the cells (the cells
+        padded with empty ones to d equal slices), its slot forces in atom
+        order (0 for the atoms of other slices) and its energies, summed
+        over the ranks in one collective; at d = 1 the one-rank sweep bit
+        for bit."""
+        grid, lay = self.cell_grid, self.layout
+        n = lay.n
+        table, xq, pt, overflow = cell_slab_tables(grid, x, q, self.type_idx)
+        ncell, cap = table.shape
+        cl = -(-ncell // lay.d)
+        padc = cl * lay.d - ncell
+        xq, pt, nb, uq = pad_slab_tables(grid, xq, pt, padc, n)
+        table = torch.cat([table, table.new_full((padc, cap), n)])
+        c0 = self.comm.rank * cl
+        ev, ec, fslots = sweep_cell_slabs(
+            grid, self.tables, xq, pt, nb, uq, c0, cl,
+            g_ewald=self.ksp_force.g_ewald, qqr2e=self.units.qqr2e, n=n,
+            excl=slot_exclusions(table, self.exclusions, n))
+        f = slot_forces_to_atoms(table[c0:c0 + cl], fslots, n)
+        out = self.comm.psum(torch.cat([f.reshape(-1), torch.stack([ev, ec])]))
+        nan = torch.full_like(ev, float("nan"))
+        return (out[:3 * n].view(n, 3), torch.where(overflow, nan, out[-2]),
+                torch.where(overflow, nan, out[-1]), None)
 
     # ---------------------------------------------------------- k-space
     def _kspace(self, x, q, kcache, tasg):
@@ -524,7 +566,7 @@ def build_sharded_engine(engine: Engine, group: Comm = None, *,
     engine's tensors checks (``pmin == pmax``).  ``x0``: the positions to
     size the per-rank tile cap from (default: the system's).  Raises
     NotImplementedError for a solve in another dtype than the engine's
-    (the JAX step runs in the engine's dtype only), and for what
+    (the JAX step runs in the engine's dtype only) and for what
     ``build_engine`` refuses."""
     _check_supported(engine.system, engine.md)
     if engine.conp is not None and engine.conp.solve_dtype != engine.dtype:

@@ -77,13 +77,22 @@ def test_project_inverse_zneutr_matches():
 def test_build_engine_refuses_features_not_ported(change):
     """PPPM forces are ported, but not under an Ewald charge solve (the
     JAX engine cannot run that either; a PPPM solve gives PPPM forces);
-    the cell and tile pair paths are left out; SHAKE/RATTLE, zmirror and
-    the external field are ported (test_torch_shake.py,
-    test_torch_decks.py)."""
+    the cell and tile pair paths are ported (test_torch_cells.py,
+    test_torch_tile_path.py): ``build_engine`` takes them (the tile path
+    falls back to the dense sweep off the card, as the JAX engine does
+    off its accelerator) and refuses a pair path the JAX engine does not
+    name; SHAKE/RATTLE, zmirror and the external field are ported
+    (test_torch_shake.py, test_torch_decks.py)."""
     system, md, cfg = twl.synthetic(**S1)
     conp = None
     if "kspace_style" in change:
         conp = tconp.setup_conp(system, md, cfg, **SOLVE64)
+    if "pair_path" in change:
+        eng = build_engine(system, dataclasses.replace(md, **change), conp,
+                           **CPU64)
+        assert (eng.cell_grid is not None) == (change["pair_path"] == "cell")
+        assert eng.pair_cap is None and eng.ncfg is None
+        change = dict(pair_path=change["pair_path"] + "s")
     with pytest.raises(NotImplementedError, match="not ported"):
         build_engine(system, dataclasses.replace(md, **change), conp,
                      **CPU64)

@@ -32,7 +32,13 @@ anions 1 and 1.2 A off the sheets, bit-identical across two launches;
 K7 and K8 equal to their plain versions bit for bit (every LAMMPS cluster
 shape, the il decks' cation, clusters across the periodic face, a cluster
 within 1e-6 of a minimum-image tie, unaligned arrays, the il and bonded
-cells), two launches alike, one CUDA kernel per call.
+cells), two launches alike, one CUDA kernel per call.  The cell-list and
+tile paths (S3 on the tiled mesh, the il cell on the tile path): graphed
+against eager bit for bit, one flag read per step on the tile path and
+none on the cell path; K4's item-list entry against its plain version
+(kd bricks, fused, with exclusions), bit-identical across launches, NaN
+at half the live count; ``run`` recovering from a short cell cap and a
+short pair cap.
 Needs a CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
@@ -250,16 +256,19 @@ def test_kernels_bit_identical_across_launches_on_card(cuda, tmp_path):
                        k5.b_realspace(*bargs, **bkw))
 
 
-def _tiled_cell(cuda, positions):
-    """S3 with PPPM, the block list and the tiled z-binned mesh forced."""
+def _tiled_cell(cuda, positions, monkeypatch=None, pair_path="block"):
+    """S3 with PPPM, the block list (or ``pair_path``) and the tiled
+    z-binned mesh forced (through ``monkeypatch`` when given)."""
     import dataclasses
     from lammps_user_conp2_tpu_torch import workloads
     from lammps_user_conp2_tpu_torch.models.conp import setup_conp
     from lammps_user_conp2_tpu_torch.models.md import build_engine
     from lammps_user_conp2_tpu_torch.ops import pppm
     from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+    if monkeypatch is not None:
+        monkeypatch.setattr(pppm, "_use_dense", lambda grid, n: False)
     system, md, cfg = workloads.synthetic(**S3)
-    md = dataclasses.replace(md, pair_path="block", pppm_diff="ad",
+    md = dataclasses.replace(md, pair_path=pair_path, pppm_diff="ad",
                              kspace_style=KSpaceStyle.PPPM)
     cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM)
     conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=cuda)
@@ -849,6 +858,13 @@ def _graph_cell(cuda, cell, tmp_path, monkeypatch):
     if cell == "bonded":
         system, md, eng = _il_cell(cuda, tmp_path, pair_path="block")
         return eng, {}
+    if cell in ("cell", "tile"):
+        system, md, conp, eng, x, q, _ = _tiled_cell(
+            cuda, x_near, monkeypatch, pair_path=cell)
+        return eng, dict(x0=x.cpu().numpy())
+    if cell == "il_tile":
+        system, md, eng = _il_cell(cuda, tmp_path, pair_path="tile")
+        return eng, {}
     system, md, eng = _il_cell(cuda, tmp_path,
                                use_pallas_pair=(cell != "unfused"))
     if cell == "unfused":
@@ -868,7 +884,8 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("cell", ["mid", "tiled", "il", "bonded", "unfused",
-                                  "fullmesh", "mid_cg_nevery2", "mid_mixed"])
+                                  "fullmesh", "mid_cg_nevery2", "mid_mixed",
+                                  "cell", "tile", "il_tile"])
 def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
                                           monkeypatch):
     """``Engine.run`` replays CUDA graphs: 20 replayed steps equal 20 eager
@@ -934,10 +951,11 @@ def test_launch_counters_under_replay_on_card(cuda, tmp_path):
     assert [c.count for c in counters] == [9, 9, 8, 8]
 
 
-@pytest.mark.parametrize("cell", ["mid", "tiled"])
+@pytest.mark.parametrize("cell", ["mid", "tiled", "cell", "tile"])
 def test_graphed_run_host_syncs_on_card(cuda, cell, tmp_path, monkeypatch):
-    """No host sync per replayed step on the dense path, one (the skin
-    flag) on the list path, beside the end-of-run finiteness check."""
+    """No host sync per replayed step on the dense and cell paths, one (the
+    skin flag, or the mesh tiles' drift flag) on the list and tile paths,
+    beside the end-of-run finiteness check."""
     import warnings
     eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
     st0 = eng.init_state(**kw)
@@ -952,7 +970,7 @@ def test_graphed_run_host_syncs_on_card(cuda, cell, tmp_path, monkeypatch):
             torch.cuda.set_sync_debug_mode("default")
     syncs = [f"{w.filename}:{w.lineno}" for w in caught
              if "called a synchronizing" in str(w.message)]
-    assert len(syncs) <= (10 if eng.ncfg is not None else 0) + 1, syncs
+    assert len(syncs) <= (10 if eng.split_step else 0) + 1, syncs
 
 
 def test_recapture_after_capacity_growth_on_card(cuda, monkeypatch):
@@ -1264,3 +1282,89 @@ def test_sharded_d1_nccl_matches_engine_on_card(cuda, cell, tmp_path):
             float(st.energy))
         assert float((s_sh.f - st.f).abs().max()) <= 1e-3 * float(
             st.f.abs().max())
+
+
+@pytest.mark.parametrize("positions", [x_near, x_close],
+                         ids=["x_near", "x_close"])
+def test_tile_items_kernel_matches_plain_on_card(cuda, positions,
+                                                 monkeypatch):
+    """K4's item-list entry (the tile path: kd bricks, the fused
+    correction) against its plain version (2e-5), two launches
+    bit-identical, the side buffer sized by the cap; NaN at half the live
+    count."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    system, md, conp, eng, x, q, _ = _tiled_cell(cuda, positions,
+                                                 monkeypatch, "tile")
+    assert eng.pair_order == "kd" and eng.pair_cap is not None
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
+    perm, _ = k4.order_atoms(x, system.box, system.periodic, "kd")
+    items = k4.tile_items(x, perm, pair_cap=eng.pair_cap, conp_fuse=fuse,
+                          box=system.box, periodic=system.periodic,
+                          cutoff=md.cutoff)
+    args = (x, q, eng.type_idx, eng.tables, None)
+    k4.launches.reset()
+    got = k4.pair_forces(*args, order="kd", pair_cap=eng.pair_cap,
+                         conp_fuse=fuse, ele_idx=conp.ele_idx_t, **kw)
+    again = k4.pair_forces(*args, order="kd", pair_cap=eng.pair_cap,
+                           conp_fuse=fuse, ele_idx=conp.ele_idx_t, **kw)
+    ref = k4.pair_items_plain(*args, perm, items, conp_fuse=fuse,
+                              ele_idx=conp.ele_idx_t, **kw)
+    torch.cuda.synchronize()
+    assert k4.launches.count == 2
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, r) <= TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    cnt = int(items.count[0])
+    short = k4.pair_forces(*args, order="kd", pair_cap=cnt // 2,
+                           conp_fuse=fuse, ele_idx=conp.ele_idx_t, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isnan(t).all()) for t in short)
+
+
+def test_tile_items_kernel_with_exclusions_on_card(cuda, tmp_path):
+    """The item-list entry with the il cations' special bonds, per pair,
+    against its plain version (2e-5)."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    system, md, eng = _il_cell(cuda, tmp_path, pair_path="tile")
+    x = torch.as_tensor(system.x0, dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(charges_with_electrodes(system), dtype=torch.float32,
+                        device=cuda)
+    fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
+    kw = dict(box=system.box, periodic=system.periodic, cutoff=md.cutoff,
+              g_ewald=eng.ksp_force.g_ewald, qqr2e=system.units().qqr2e)
+    perm, _ = k4.order_atoms(x, system.box, system.periodic, "kd")
+    items = k4.tile_items(x, perm, pair_cap=eng.pair_cap, conp_fuse=fuse,
+                          box=system.box, periodic=system.periodic,
+                          cutoff=md.cutoff)
+    args = (x, q, eng.type_idx, eng.tables, eng.exclusions)
+    got = k4.pair_forces(*args, order="kd", pair_cap=eng.pair_cap,
+                         conp_fuse=fuse, ele_idx=eng.conp.ele_idx_t, **kw)
+    ref = k4.pair_items_plain(*args, perm, items, conp_fuse=fuse,
+                              ele_idx=eng.conp.ele_idx_t, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= TOL
+
+
+@pytest.mark.parametrize("path", ["cell", "tile"])
+def test_run_recovers_from_short_cap_on_card(cuda, monkeypatch, path):
+    """A cell cap or a pair cap at half its need: ``run`` grows it,
+    recaptures and ends finite, equal to the eager steps at the grown
+    cap."""
+    import dataclasses
+    system, md, conp, eng, x, q, _ = _tiled_cell(cuda, x_near, monkeypatch,
+                                                 path)
+    st0 = eng.init_state(x0=x.cpu().numpy())
+    if path == "cell":
+        eng.cell_grid = dataclasses.replace(eng.cell_grid,
+                                            cap=eng.cell_grid.cap // 4)
+    else:
+        eng.pair_cap = eng.pair_cap // 3
+    g, _ = eng.run(st0, 5, thermo_every=0)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(g.energy))
+    e1 = _steps(eng, eng._heal_state(st0), 5)
+    assert _same(g, e1), _diff(g, e1)

@@ -3,12 +3,16 @@ loaded by conftest), import the port, run S1 for 2 steps on the CPU, run
 the Verlet-list + PPPM path on S3 for 2 steps, write the test-size
 ionic-liquid data file and run il_onelayer (SHAKE/RATTLE) on it for 2
 steps, import the gather probes (``timing``, ``exp_vmem_gather``,
-``exp_gather_chunk``, K9's ``ops.kernels.vmem_gather``) and run K9's
+``exp_gather_chunk``, K9's ``ops.kernels.vmem_gather``) and K4's timing
+script (``k4_times``) and run K9's
 plain path, import the command line, the diagnostics, the pressure and
 the I/O modules, run ``cli.main(["run", "synthetic", "--cpu", ...])`` and
 a step of S1 with its electrodes scattered over the rows (and its
 pressure tensor), run the sharded step (``parallel/``) on S3 over a
-one-rank gloo group and import ``bench_sharded``, and check that neither jax nor the JAX package (nor
+one-rank gloo group and import ``bench_sharded``, run the cell-list path
+(``ops/cells.py``) on S3 for 2 steps, alone and sharded, and the tile
+path's plain item sweep (k-d bricks, ``pair_kernel.pair_forces(order=
+"kd")``) on S1, and check that neither jax nor the JAX package (nor
 ``tools/``) was imported and that no CUDA kernel was launched."""
 
 import json
@@ -31,6 +35,7 @@ from lammps_user_conp2_tpu_torch.ops.kernels import (
     shake_kernel, vmem_gather)
 from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
 import lammps_user_conp2_tpu_torch.interop
+import lammps_user_conp2_tpu_torch.k4_times
 import lammps_user_conp2_tpu_torch.shake_residual
 import lammps_user_conp2_tpu_torch.step_breakdown
 import lammps_user_conp2_tpu_torch.step_breakdown_large
@@ -72,7 +77,19 @@ group = pcomm.init_group("cpu", 0, 1, tempfile.mkdtemp() + "/store")
 sh = build_sharded_engine(big, group)
 st5, _ = sh.run(big.init_state(x0=workloads.near_wall_positions(big.system)),
                 2, thermo_every=0)
+md = dataclasses.replace(big.md, pair_path="cell")
+cel = build_engine(big.system, md, big.conp, **C64)
+x6 = workloads.near_wall_positions(big.system)
+st6, _ = cel.run(cel.init_state(x0=x6), 2, thermo_every=0)
+st7, _ = build_sharded_engine(cel, group).run(cel.init_state(x0=x6), 2,
+                                              thermo_every=0)
 pcomm.close_group()
+system, md, cfg = workloads.synthetic(64, 4)
+ft = pair_kernel.pair_forces(
+    torch.as_tensor(system.x0), torch.as_tensor(system.q0),
+    torch.as_tensor(system.type), eng.tables, None, box=system.box,
+    periodic=system.periodic, cutoff=md.cutoff, g_ewald=0.3, qqr2e=332.0,
+    order="kd", pair_cap=8)
 mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather,
         vmem_gather)
 print(json.dumps(dict(
@@ -88,7 +105,9 @@ print(json.dumps(dict(
     step3=st3.step, temp3=float(th3["tempsl"][-1]), shake3=il.cons is not None,
     cli_rc=rc, scrambled=not sc.conp.ele_contig, step4=st4.step,
     energy4=float(st4.energy), p6=[float(v) for v in p6], step5=st5.step,
-    energy5=float(st5.energy))))
+    energy5=float(st5.energy), step6=st6.step, cells6=cel.cell_grid.total,
+    energy6=float(st6.energy), energy7=float(st7.energy),
+    tile_ev=float(ft[1]))))
 """
 
 
@@ -108,3 +127,8 @@ def test_port_runs_without_jax():
     assert out["cli_rc"] == 0 and out["scrambled"] and out["step4"] == 1
     assert abs(out["energy4"]) < 1e12 and len(out["p6"]) == 6
     assert out["step5"] == 2 and abs(out["energy5"]) < 1e12
+    assert out["step6"] == 2 and out["cells6"] > 1
+    assert abs(out["energy6"]) < 1e12
+    assert abs(out["energy7"] - out["energy6"]) <= 1e-10 * abs(
+        out["energy6"])
+    assert abs(out["tile_ev"]) < 1e12

@@ -5,16 +5,20 @@ CG_MATFREE x EWALD and PPPM on the dense and per-atom list paths on S2;
 the odd cell, N = 607 and Ne = 97, where every pad row is used; the block
 list on a tiled mesh with the persistent per-rank tile assignment; cond 4
 and zmirror 3 on the test-size ionic-liquid file; nevery 2; mobile
-electrodes under CG_MATFREE; 20 steps across list rebuilds).
+electrodes under CG_MATFREE; 20 steps across list rebuilds; the cell list
+under INV EWALD, CG_MATFREE PPPM and on the odd cell; the tile path's
+engine, whose pairs the sharded step sweeps as dense rows).
 
 * The sharded state after the case's steps against the port's
   ``Engine.step`` from the same state: q to 1e-10 e, f to 1e-7 + 1e-9
   max|f| (JAX test_sharded.py's tolerances), x, v, pe and the fix scalar
   alike.
 * Every rank's replicated x, v and q equal rank 0's bit for bit.
-* At d = 2, three cases against the JAX package's sharded engine on a
+* At d = 2, four cases against the JAX package's sharded engine on a
   2-device CPU mesh (the conftest provides 8 devices): INV EWALD dense on
-  S2, the odd cell under CG_MATFREE PPPM nlist, and cond 4.
+  S2, the odd cell under CG_MATFREE PPPM nlist, cond 4, and the cell list
+  under INV EWALD on S2 (JAX test_sharded.py:98-115's pattern on a
+  synthetic cell).
 * A rank that raises fails ``spawn_ranks`` well within its timeout, and
   the ranks imported nothing of jax or the JAX package.
 """
@@ -28,7 +32,8 @@ from torch_cells import il_small_file
 
 # seconds a spawn may take before every rank is stopped
 SPAWN_TIMEOUT = 300.0
-JAX_CASES = ("INV-EWALD-dense", "odd-CG_MATFREE-PPPM-nlist", "cond4")
+JAX_CASES = ("INV-EWALD-dense", "odd-CG_MATFREE-PPPM-nlist", "cond4",
+             "cell-INV-EWALD")
 
 
 @pytest.fixture(scope="module")
@@ -74,6 +79,13 @@ def test_sharded_matches_engine(d, name, il_path):
     spec = next(c for c in tc.CASES if c["name"] == name)
     if spec.get("pair") in ("nlist", "block"):
         assert r["list"] and r["block"] == (spec["pair"] == "block")
+    if spec.get("pair") == "cell":
+        assert not r["list"] and r["cells"] > 1
+    if spec.get("pair") == "tile":
+        # the engine is the tile path's, with its persistent mesh; the
+        # sharded step bins every step, as the JAX step does
+        assert not r["list"] and r["pair_cap"] is not None
+        assert r["persist"] == (True, False)
     if spec["name"] == "block-tiled-persist":
         assert r["tasg"][0] == "RankTileAssign"
         assert r["rank_cap"] <= -(-r["natoms"] // d) + 1

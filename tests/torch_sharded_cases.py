@@ -9,7 +9,9 @@ Cells: S2 (640 atoms; N and Ne multiples of 4), ODD (S2's density with
 nele_side 7 and one electrode atom left out: N = 607 and Ne = 97, so N % d
 and Ne % d are not 0 at d = 2 or 4 and every pad row is used), S3 (the
 box four cutoffs wide, where the list has more than one cell per axis)
-and the test-size ionic-liquid file (IL_SMALL) for the decks.
+and the test-size ionic-liquid file (IL_SMALL) for the decks.  The cell
+list cases split 192 cells (S2, ODD) or 112 (S3) over the ranks; d = 3
+slices, with pad cells, are held in one process by test_torch_cells.py.
 """
 
 from __future__ import annotations
@@ -59,6 +61,20 @@ CASES = _matrix() + [
     # rebuilt inside the run
     dict(name="reneighbor-20", cell="ODD", solver="CG_MATFREE",
          kspace="EWALD", pair="nlist", skin=0.2, v_seed=0, steps=20),
+    # the cell list: each rank a slice of the cells (S2 and ODD: 4 x 4 x
+    # 12 cells, S3: 4 x 4 x 7)
+    dict(name="cell-INV-EWALD", cell="S2", solver="INV", kspace="EWALD",
+         pair="cell", steps=2),
+    dict(name="cell-CG_MATFREE-PPPM", cell="S3", solver="CG_MATFREE",
+         kspace="PPPM", pair="cell", steps=2),
+    dict(name="odd-INV-PPPM-cell", cell="ODD", solver="INV", kspace="PPPM",
+         pair="cell"),
+    # the tile path's engine (K4's plain item sweep over k-d bricks, the
+    # persistent mesh assignment with its drift test), built as on the card
+    # (``kernels_run`` patched): the sharded step sweeps dense rows for it
+    # and bins the ranks' rows every step, as the JAX step does
+    dict(name="tile-INV-PPPM-tiled", cell="S3", solver="INV", kspace="PPPM",
+         pair="tile", tiled=True, card_route=True, steps=2),
 ]
 CASE_NAMES = [c["name"] for c in CASES]
 
@@ -125,16 +141,19 @@ def run_cases(rank, comm, names, il_path):
     v, q})."""
     from lammps_user_conp2_tpu_torch import workloads as twl
     from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models import md as md_mod
     from lammps_user_conp2_tpu_torch.models.md import build_engine
     from lammps_user_conp2_tpu_torch.ops import pppm
     from lammps_user_conp2_tpu_torch.parallel.sharded import (
         build_sharded_engine)
 
     results, replicated = {}, {}
-    dense = pppm._use_dense
+    dense, route = pppm._use_dense, md_mod.kernels_run
     for spec in (c for c in CASES if c["name"] in names):
         if spec.get("tiled"):
             pppm._use_dense = lambda grid, n: False
+        if spec.get("card_route"):
+            md_mod.kernels_run = lambda device, dtype: True
         try:
             system, md, cfg, v0 = build_case(spec, twl, il_path)
             x0 = start_positions(spec, system)
@@ -158,11 +177,15 @@ def run_cases(rank, comm, names, il_path):
                 out.update(single=_arrays(s1), natoms=system.natoms,
                            ne=eng.conp.ne, rebuilds=eng.rebuilds,
                            block=bool(eng.ncfg is not None and eng.ncfg.block),
-                           list=eng.ncfg is not None)
+                           list=eng.ncfg is not None,
+                           cells=(None if eng.cell_grid is None
+                                  else eng.cell_grid.total),
+                           pair_cap=eng.pair_cap,
+                           persist=(eng.mesh_persist, sheng.mesh_persist))
             results[spec["name"]] = out
             replicated[spec["name"]] = [st.x, st.v, st.q]
         finally:
-            pppm._use_dense = dense
+            pppm._use_dense, md_mod.kernels_run = dense, route
     # what the rank imported of jax or the JAX package: nothing
     results["modules"] = sorted(
         m for m in sys.modules if m.split(".")[0] in (
