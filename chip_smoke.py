@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 44-46    # or 45: those phases alone
+    python3 chip_smoke.py --phases 47-50    # with 41-43: this slice's
 
 Drives the port's paths (nine main paths through
 ``lammps_user_conp2_tpu_torch``: setup_conp -> build_engine -> init_state ->
@@ -12,8 +13,9 @@ mixed-precision, mobile-electrode and chunked-Ewald paths of phases
 30-34; the user's surface of phases 35-40: electrodes in any row
 order, the command line, dump and rerun, checkpoints, the diagnostics and
 the pressure, the matrix files and the profile; the sharded step of
-phases 41-43; and the cell-list and tile pair paths of phases 44-46) and
-exits non-zero if any phase fails.
+phases 41-43; the cell-list and tile pair paths of phases 44-46; the
+dilute deck, the sharded run as CUDA graphs, the host library and the
+capacitance of phases 47-50) and exits non-zero if any phase fails.
 
 Mid-size path, the 7,296-atom synthetic capacitor
 ``workloads.synthetic(6144, 24, lz=60, lxy=50)`` (factored Ewald, dense
@@ -147,8 +149,10 @@ vs graphed on x, v, q and pe, bit for bit at every cell (no step path adds
 floats with atomics); the host
 syncs of a graphed run (none per step on the dense paths, one on the list
 paths); and a torch.profiler window of the same replayed steps from the same
-state (so with the timed runs' list rebuilds): the device-busy share of
-the graphed step and each hand kernel's device time per launch
+state (so with the timed runs' list rebuilds), timed itself with CUDA
+events: the device-busy share of that window (the union of the kernel
+intervals over its own time, at most BUSY_MAX; the unprofiled median
+ms/step is printed beside it) and each hand kernel's device time per launch
 (``device_ms_replay`` in the kernels line, per cell; the profile tables go
 to chiprun_out/graph_profile_<cell>.txt, the records to
 chiprun_out/graph_phases.json and to the {"graphs": [...]} line).
@@ -286,11 +290,13 @@ so d > 1 runs as each rank's kernel work in turn and the step runs at d =
      (counts set to 0 just before it), then ``Engine.step`` on the card
      from the same state with phase 5's bounds per step (cond 4 also the
      fix scalar);
- 43. ``bench_sharded.measure`` at the 100k and mid-size cells: alternating
-     eager runs of BENCH_SHARDED_STEPS steps of ``Engine.step`` and of the
-     d = 1 sharded step (ms/step, the overhead), their host syncs per step
-     and a profile of each (device busy, kernels and NCCL ms per step, the
-     top kernels and host ops).  The process group is closed before the
+ 43. ``bench_sharded.measure`` at the 100k and mid-size cells (and, for
+     phase 48, the full-mesh and cond 4 cells): alternating rounds of
+     BENCH_SHARDED_STEPS steps of ``Engine.step``, ``Engine.run``, the
+     d = 1 sharded step and ``ShardedEngine.run`` (ms/step, the overhead),
+     their host syncs per step and a profile of each (device busy and its
+     share of the profiled window, kernels and NCCL ms per step, the top
+     kernels and host ops).  The process group is closed before the
      last line.  The kernels line's ``launches_sharded`` and
      ``ms_rank_slices`` carry phases 42 and 41.
 
@@ -325,6 +331,46 @@ before; graph phases of PATH_GRAPH_STEPS steps):
  46. the d = 1 sharded step on the cell path at the 100k cell over a
      one-rank NCCL group (phase 42's checks), and SHARDED_STEPS steps
      against ``Engine.step`` bit for bit.
+
+The slice of the dilute deck, the graphed sharded run, the host library
+and the capacitance:
+
+ 47. the dilute deck on the 432-atom file of ``workloads.
+     write_dilute_data`` (in chiprun_out/), trials 0, 2, 3 and 4 (864
+     atoms doubled), the dense path with K4 and K5: DILUTE_STEPS steps on
+     the card (float32) against the CPU float64 run with phase 5's bounds
+     and the fix scalar to SCALAR_REL; the electrodes neutral, each half of
+     the doubled cells too; the cross-mode relations of JAX
+     tests/test_modes.py:27-49 on the card's charges at x0 (FFIELD's qleft
+     and each half's = the slab's, to DILUTE_MODE_TOL); trial 0's main run
+     (K4 and K5 every step, ``launches_dilute``), their bounds at its
+     shapes and its graph phase (47b); then ``python -m
+     lammps_user_conp2_tpu_torch run-suite dilute --f32`` in its own
+     process (trial 1 equal to trial 0 as printed);
+ 48. (run with phases 42-43) ``ShardedEngine.run`` as CUDA graphs, the
+     NCCL collectives captured, at the 100k, full-mesh and cond 4 cells
+     (``bench_sharded.measure``: the eager and graphed engine and sharded
+     runs in alternating rounds): its state equal bit for bit to the eager
+     sharded loop's, and at 100k and full mesh to ``Engine.step``'s (at
+     cond 4 the sharded dense path sweeps pairs with the plain row sweep
+     and the engine with K4: phase 42's bounds); graphed ms/step beside the
+     eager sharded step and ``Engine.run``, the busy share of the profiled
+     window, NCCL ms and host syncs per step; K1, K2a, K3 (K2b at full
+     mesh; K5-K8 at cond 4) launched every step inside the sharded graphs
+     (``launches_sharded_graphed``);
+ 49. the host library (``utils/native``, ``csrc/conp2_native.cpp``, g++):
+     the native parser equal to ``parse_data_file_py`` field for field,
+     bit for bit, on the 3,776-atom il, the 8,772-atom bonded and the
+     dilute files, each path's parse time on the host clock; a native
+     dump frame equal to the Python writer's text and read back;
+ 50. ``capacitance.static_capacitance`` of dilute 0 and il_onelayer 0 with
+     a float32 solve on the card against the CPU float64 set-up to
+     CAP_STATIC_REL; ``python -m lammps_user_conp2_tpu_torch.capacitance
+     dilute 0 --steps CAP_STEPS`` on the card (graphed): its static value
+     to CAP_STATIC_REL, its fluctuation estimate finite and positive.
+
+``python3 chip_smoke.py --phases 47-50`` runs phases 41-43 and 47-50 alone
+(no contract line).
 
 The kernels line's K4 entry carries the tile path's numbers per cell
 (``launches_tile``, ``ms_tile``, ``device_ms_tile``, ``plain_ms_tile``,
@@ -761,6 +807,9 @@ def main() -> int:
     for name in DECK_COUNTERS:
         results[name]["launches_decks"] = {
             cell: n[name] for cell, n in deck_launches.items()}
+    # phase 47: the dilute deck (K4 and K5 on its main run)
+    for name, n in dilute_phase(card, dev, results).items():
+        results[name]["launches_dilute"] = {"dilute0": n}
     for name, per_cell in DECK_BOUNDS.items():
         results[name]["bound_ms_decks"] = {
             cell: r["bound_ms"] for cell, r in per_cell.items()}
@@ -777,6 +826,12 @@ def main() -> int:
     sharded_paths(card, dev, results, il_file)
     # phases 44-46: the cell list and the tile path
     pair_path_phases(card, dev, results)
+    # phase 49: the host library; phase 50: the capacitance
+    files = {"il": il_file, "bonded": os.path.join(OUT_DIR, "il_8772.data"),
+             "dilute": os.path.join(OUT_DIR, "dilute_432.data")}
+    native_phase(card, results, files)
+    capacitance_phase(card, dev, results, {"dilute": files["dilute"],
+                                           "il_onelayer": il_file})
     # each kernel's launches on those main runs, by cell, and on phases
     # 35-40, by phase
     for name, (_, counter) in KERNEL_IDS.items():
@@ -867,7 +922,8 @@ def main() -> int:
             "launches_tile", "ms_tile", "plain_ms_tile", "device_ms_tile",
             "bound_ms_tile", "bound_by_tile", "max_rel_err_tile",
             "live_items_tile", "pair_cap_tile", "side_buffer_bytes_tile",
-            "tested_pairs_tile", "inrange_pairs_tile")
+            "tested_pairs_tile", "inrange_pairs_tile", "launches_dilute",
+            "launches_sharded_graphed")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -1376,6 +1432,10 @@ def main_run(tag, eng, st, warm, timed, counters, ne, card, never=()):
 GRAPH_PAIRS = 2
 GRAPH_STEPS = 50
 GRAPHS = []
+# a busy share is the union of kernel intervals over the window it was
+# profiled in (CUDA events around it); the events' 0.5 us resolution is
+# all that may carry it past 1
+BUSY_MAX = 1.001
 
 
 def _state_diff(a, b):
@@ -1405,8 +1465,8 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None, steps=None):
     import warnings
     from lammps_user_conp2_tpu_torch.ops.kernels import build
     from lammps_user_conp2_tpu_torch.step_breakdown import (device_busy,
-                                                            kernel_of)
-    from torch.profiler import ProfilerActivity, profile
+                                                            kernel_of,
+                                                            profiled)
 
     npairs = GRAPH_PAIRS if pairs is None else pairs
     nsteps = GRAPH_STEPS if steps is None else steps
@@ -1497,14 +1557,12 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None, steps=None):
         raise AssertionError(f"{tag}: {syncs} host syncs in the graphed run")
     if syncs < reads:
         raise AssertionError(f"{tag}: the sync count missed the flag reads")
-    # the profiled window, the timed runs' trajectory: busy share and
-    # device time per launch
+    # the profiled window, the timed runs' trajectory, timed itself with
+    # CUDA events: busy share of that window and device time per launch
     before = {c.name: c.count for c in build.COUNTERS}
     r0 = eng.rebuilds
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.run(st0, nsteps, thermo_every=0)
-        torch.cuda.synchronize()
+    prof, window = profiled(lambda: eng.run(st0, nsteps, thermo_every=0),
+                            nsteps)
     rebuilds = eng.rebuilds - r0
     launched = {c.name: c.count - before[c.name] for c in build.COUNTERS
                 if c.count != before[c.name]}
@@ -1521,19 +1579,22 @@ def graph_phase(tag, cell, eng, st_kw, card, pairs=None, steps=None):
             per_kernel[key] = (ms0 + ms, c0 + cnt)
     nk = sum(c for _, c in by_name.values())
     g_med = float(np.median(graph_ms))
-    share = busy / g_med
-    print(f"{tag}: graphed step {g_med:.4f} ms (median), device busy "
-          f"{busy:.4f} ms/step (union of kernel intervals over "
-          f"{nsteps} replayed steps, {rebuilds} list "
-          f"rebuilds), busy share {share:.3f}, "
-          f"{nk:.0f} device kernels per step; eager step "
+    share = busy / window
+    print(f"{tag}: graphed step {g_med:.4f} ms (median, unprofiled), device "
+          f"busy {busy:.4f} ms/step (union of kernel intervals over "
+          f"{nsteps} replayed steps, {rebuilds} list rebuilds) of the "
+          f"profiled window's {window:.4f} ms/step (CUDA events), busy "
+          f"share {share:.3f}, {nk:.0f} device kernels per step; eager step "
           f"{float(np.median(eager_ms)):.4f} ms  [{card}]")
+    if not share <= BUSY_MAX:
+        raise AssertionError(f"{tag}: {cell}, busy share {share:.4f} of its "
+                             "own window")
     for key, (ms, cnt) in sorted(per_kernel.items()):
         print(f"    {key}: device {ms:.4f} ms/step in {cnt:.1f} CUDA kernels "
               f"per step under replay")
     GRAPHS.append(dict(
         cell=cell, natoms=eng.system.natoms, eager_ms=eager_ms,
-        graph_ms=graph_ms, busy_ms=busy, busy_share=share,
+        graph_ms=graph_ms, busy_ms=busy, window_ms=window, busy_share=share,
         kernels_per_step=nk, host_syncs=syncs, profile_steps=nsteps,
         host_syncs_per_step=syncs / nsteps, cg_blocks=blocks,
         rebuilds_profiled=rebuilds,
@@ -2094,7 +2155,7 @@ def deck_bounds(tag, cell, system, md, conp, eng, card):
                g_ewald=conp.ksp.g_ewald, qqr2e=system.units().qqr2e)
     fuse = (eng.ele_flag, eng.elyte_flag, eng.eta_tab, eng.fo_tab)
     pairs = k4_pairs(tag, k4, x0, zsort, system, md.cutoff, card,
-                     m=eng.excl_idx.shape[1])
+                     m=eng.excl_idx.shape[1] if eng.has_excl else 0)
     got = k4.pair_forces(x0, q, eng.type_idx, eng.tables, eng.exclusions,
                          zsort=zsort, conp_fuse=fuse,
                          ele_idx=conp.ele_idx_t, **pkw)
@@ -2851,10 +2912,7 @@ def noncontig_path(card, dev, results, il_file):
 def _deck_dir(il_file) -> str:
     """A ``$CONP_REF_TESTS`` directory holding the il file as the decks'
     ``il_onelayer/data``; set in the environment."""
-    import shutil
-    ref = os.path.abspath(os.path.join(OUT_DIR, "ref_tests"))
-    os.makedirs(os.path.join(ref, "il_onelayer"), exist_ok=True)
-    shutil.copyfile(il_file, os.path.join(ref, "il_onelayer", "data"))
+    ref = _ref_dir({"il_onelayer": il_file})
     os.environ["CONP_REF_TESTS"] = ref
     return ref
 
@@ -3247,6 +3305,11 @@ BENCH_SHARDED_PAIRS = 2
 # device-clock times, by d
 SHARDED_LAUNCHES = {}
 RANK_MS = {}
+# phase 48: graphed sharded steps whose launches are counted (and the
+# steps of each run of its measurements at the full-mesh and cond 4
+# cells), and the counts by kernel and cell
+SHARDED_GRAPH_STEPS = 10
+SHARDED_GRAPHED_LAUNCHES = {}
 
 
 def _host64(st):
@@ -3392,8 +3455,57 @@ def sharded_cell(tag, cell, eng, x0, comm, counters, card, scalar=False):
     return sheng, st0
 
 
+def sharded_graphed(tag, cell, sheng, st0, r, counters, card,
+                    single_bits=True):
+    """Phase 48 at one cell: ``ShardedEngine.run`` replays CUDA graphs
+    (``bench_sharded.measure``'s ``r``: its state equal bit for bit to the
+    eager sharded loop's and, with ``single_bits``, to ``Engine.step``'s);
+    then SHARDED_GRAPH_STEPS graphed steps with the counters set to 0 just
+    before: each kernel of ``counters`` launched inside the sharded graphs
+    every step.  Prints the graphed ms/step beside the eager sharded step
+    and ``Engine.run``, the busy share of the profiled window, NCCL ms and
+    host syncs per step."""
+    if not r["graphed_equals_eager"]:
+        raise AssertionError(f"{tag}: {cell}: the graphed sharded run "
+                             "differs from the eager sharded loop")
+    if single_bits and not r["graphed_equals_single"]:
+        raise AssertionError(f"{tag}: {cell}: the graphed sharded run "
+                             "differs from Engine.step")
+    if not sheng._step_graphs:
+        raise AssertionError(f"{tag}: {cell}: ShardedEngine.run captured no "
+                             "graphs")
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    st, _ = sheng.run(st0, SHARDED_GRAPH_STEPS, thermo_every=0)
+    torch.cuda.synchronize()
+    launches = {name: c.count for name, c in counters.items()}
+    for name, cnt in launches.items():
+        if cnt < SHARDED_GRAPH_STEPS:
+            raise AssertionError(f"{tag}: {cell}: {name} launched {cnt} "
+                                 f"times in {SHARDED_GRAPH_STEPS} graphed "
+                                 "sharded steps")
+        SHARDED_GRAPHED_LAUNCHES.setdefault(name, {})[cell] = cnt
+    p = r["profile"]["sharded_graphed"]
+    print(f"{tag}: {cell}: graphed sharded run {r['sharded_graphed_ms']:.4f} "
+          f"ms/step against eager sharded {r['sharded_d1_ms']:.4f} and "
+          f"Engine.run {r['single_graphed_ms']:.4f} (Engine.step "
+          f"{r['single_ms']:.4f}); busy share {p['busy_share']:.3f} of the "
+          f"profiled window ({p['busy_ms']:.4f} of {p['window_ms']:.4f} "
+          f"ms/step), NCCL {p['nccl_ms']:.4f} ms/step (eager sharded "
+          f"{r['profile']['sharded']['nccl_ms']:.4f}; in a graph a one-rank "
+          f"all_gather is a copy: device-to-device copies "
+          f"{p['dtod_ms']:.4f} ms/step), "
+          f"{p['kernels_per_step']:.0f} kernels/step, host syncs per step "
+          f"{r['host_syncs_per_step']['sharded_graphed']:.2f}; bit for bit "
+          f"with the eager sharded loop {r['graphed_equals_eager']}, with "
+          f"Engine.step {r['graphed_equals_single']}; launches in "
+          f"{SHARDED_GRAPH_STEPS} graphed steps {launches}  [{card}]")
+
+
 def sharded_paths(card, dev, results, il_file):
-    """Phases 41-43: the sharded step on one card."""
+    """Phases 41-43 and 48: the sharded step on one card, eager and as
+    CUDA graphs."""
     import dataclasses
     import tempfile
     from lammps_user_conp2_tpu_torch import bench_sharded, workloads
@@ -3427,6 +3539,9 @@ def sharded_paths(card, dev, results, il_file):
         # ---- phase 43: bench_sharded at the 100k and mid-size cells
         bench = {"100k": bench_sharded.measure(
             eng, sheng, st0, BENCH_SHARDED_STEPS, BENCH_SHARDED_PAIRS)}
+        # ---- phase 48: the sharded run as CUDA graphs, 100k
+        sharded_graphed("phase 48", "100k", sheng, st0, bench["100k"], big,
+                        card)
         del sheng, st0, eng, conp
         torch.cuda.empty_cache()
         fsys, fmd, fcfg = workloads.synthetic(98304, 40, lz=240.0, lxy=120.0)
@@ -3436,18 +3551,33 @@ def sharded_paths(card, dev, results, il_file):
         feng = build_engine(fsys, fmd, setup_conp(
             fsys, fmd, fcfg, solve_dtype=torch.float32, device=dev),
             dtype=torch.float32, device=dev)
-        sharded_cell("phase 42", "full_mesh", feng,
-                     workloads.near_wall_positions(fsys), comm,
-                     dict(big, spread_tiles=k2.tiles_launches), card)
-        del feng
+        fbig = dict(big, spread_tiles=k2.tiles_launches)
+        fsheng, fst0 = sharded_cell("phase 42", "full_mesh", feng,
+                                    workloads.near_wall_positions(fsys),
+                                    comm, fbig, card)
+        # ---- phase 48: the sharded run as CUDA graphs, full mesh
+        bench["full_mesh"] = bench_sharded.measure(
+            feng, fsheng, fst0, SHARDED_GRAPH_STEPS, BENCH_SHARDED_PAIRS)
+        sharded_graphed("phase 48", "full_mesh", fsheng, fst0,
+                        bench["full_mesh"], fbig, card)
+        del feng, fsheng, fst0
         torch.cuda.empty_cache()
         *_, ceng = _deck_engine("phase 42", "cond", 4, il_file, dev)
-        sharded_cell("phase 42", "cond4", ceng, None, comm,
-                     dict(shake_positions=k78.shake_launches,
-                          rattle_velocities=k78.rattle_launches,
-                          b_realspace=k56.launches,
-                          conp_correction=k56.corr_launches), card,
-                     scalar=True)
+        cnt = dict(shake_positions=k78.shake_launches,
+                   rattle_velocities=k78.rattle_launches,
+                   b_realspace=k56.launches,
+                   conp_correction=k56.corr_launches)
+        csheng, cst0 = sharded_cell("phase 42", "cond4", ceng, None, comm,
+                                    cnt, card, scalar=True)
+        # ---- phase 48, cond 4: the sharded dense path sweeps its pairs
+        # with the plain row sweep and the engine with K4, so the graphed
+        # sharded run equals the eager sharded loop bit for bit and the
+        # engine within phase 5's bounds (phase 42)
+        bench["cond4"] = bench_sharded.measure(
+            ceng, csheng, cst0, SHARDED_GRAPH_STEPS, BENCH_SHARDED_PAIRS)
+        sharded_graphed("phase 48", "cond4", csheng, cst0, bench["cond4"],
+                        cnt, card, single_bits=False)
+        del ceng, csheng, cst0
         meng, mx = bench_sharded.cell_engine("mid", dev)
         msh = build_sharded_engine(meng, comm, x0=mx)
         bench["mid"] = bench_sharded.measure(
@@ -3456,22 +3586,14 @@ def sharded_paths(card, dev, results, il_file):
     finally:
         C.close_group()
     for cell, r in bench.items():
-        print(f"phase 43: cell={cell} single_ms={r['single_ms']:.4f} "
-              f"sharded_d1_ms={r['sharded_d1_ms']:.4f} "
-              f"overhead_pct={r['overhead_pct']:.1f} (eager, {r['steps']} "
-              f"steps x {r['pairs']} alternating pairs: single "
-              f"{r['single_runs_ms']}, sharded {r['sharded_runs_ms']}), host "
-              f"syncs per step {r['host_syncs_per_step']}  [{card}]")
+        bench_sharded.report(cell, r, card, tag="phase 43: ")
         for name, pr in r["profile"].items():
-            step_ms = r["single_ms" if name == "single" else "sharded_d1_ms"]
-            print(f"phase 43: cell={cell} {name}: device busy "
-                  f"{pr['busy_ms']:.4f} ms/step ({pr['busy_ms'] / step_ms:.3f} "
-                  f"of the step), {pr['kernels_per_step']:.0f} kernels/step, "
-                  f"NCCL {pr['nccl_ms']:.4f} ms/step; top device kernels "
-                  f"(ms/step, per step) {pr['top_device']}; top host ops "
-                  f"(self ms/step, per step) {pr['top_host']}")
+            if not pr["busy_share"] <= BUSY_MAX:
+                raise AssertionError(f"phase 43: {cell} {name}: busy share "
+                                     f"{pr['busy_share']:.4f}")
     results["sharded"] = dict(bench=bench, rank_ms=RANK_MS,
                               launches=SHARDED_LAUNCHES,
+                              graphed_launches=SHARDED_GRAPHED_LAUNCHES,
                               seconds=time.perf_counter() - t0)
     for name, per_d in RANK_MS.items():
         results[name]["ms_rank_slices"] = per_d
@@ -3483,6 +3605,8 @@ def sharded_paths(card, dev, results, il_file):
              "conp_correction": "conp_correction"}
     for counter, per_cell in SHARDED_LAUNCHES.items():
         results[names[counter]]["launches_sharded"] = per_cell
+    for counter, per_cell in SHARDED_GRAPHED_LAUNCHES.items():
+        results[names[counter]]["launches_sharded_graphed"] = per_cell
     print(f"phases 41-43: {time.perf_counter() - t0:.1f} s  [{card}]")
 
 
@@ -3823,6 +3947,318 @@ def pair_path_phases(card, dev, results):
     print(f"phases 44-46: {time.perf_counter() - t0:.1f} s  [{card}]")
 
 
+# phase 47: the dilute deck's trials on the card, their steps against the
+# CPU float64 run, and the cross-mode relations of JAX
+# tests/test_modes.py:27-49 (e, on the card's float32 charges)
+DILUTE_TRIALS = (0, 2, 3, 4)
+DILUTE_STEPS = 3
+DILUTE_MODE_TOL = 1e-4
+# run-suite's steps and thermo interval
+DILUTE_SUITE_STEPS = 100
+
+
+def _ele_halves(system, q):
+    """(left, right) electrode charge sums of each half of a doubled cell
+    (z > 0, z < 0 at x0), or of the whole cell (one entry)."""
+    q = q.double().cpu().numpy()
+    z = np.asarray(system.x0)[:, 2]
+    halves = (z > 0, z < 0) if system.x0[:, 2].min() < 0 else (z == z,)
+    return [(float(q[system.ele_left_mask & h].sum()),
+             float(q[system.ele_right_mask & h].sum())) for h in halves]
+
+
+def _ref_dir(files) -> str:
+    """A ``$CONP_REF_TESTS`` directory with each {deck: data file}."""
+    import shutil
+    ref = os.path.abspath(os.path.join(OUT_DIR, "ref_tests"))
+    for deck, path in files.items():
+        os.makedirs(os.path.join(ref, deck), exist_ok=True)
+        shutil.copyfile(path, os.path.join(ref, deck, "data"))
+    return ref
+
+
+def _module(args, ref, timeout=600):
+    """stdout of ``python -m <args>`` run from a temporary directory with
+    this checkout on the path and ``$CONP_REF_TESTS`` at ``ref``."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CONP_REF_TESTS=ref, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args],
+                          cwd=tempfile.mkdtemp(), env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(args)}: exit code "
+                             f"{proc.returncode}\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def dilute_phase(card, dev, results):
+    """Phase 47: the dilute deck on the file of ``write_dilute_data``
+    (432 atoms; 864 doubled), float64 set-up, float32 on the card, the
+    dense path (K4, K5).  Trials 0, 2, 3 and 4: DILUTE_STEPS steps against
+    the CPU float64 run with phase 5's bounds and the fix scalar to
+    SCALAR_REL; the electrode charges neutral (and each half of the
+    doubled cells); the cross-mode relations on the card's charges at x0
+    (FFIELD's qleft = the slab's, each half of trial 3 and the unmodified
+    half of trial 4 = the slab's, to DILUTE_MODE_TOL).  Trial 0: the main
+    run (K4 and K5 every step), K4's and K5's bounds at its shapes and the
+    graph phase 47b.  Then ``run-suite dilute --f32`` end to end in its own
+    process.  Returns the launches of the main run."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
+    tag = "phase 47"
+    t0 = time.perf_counter()
+    path = workloads.write_dilute_data(os.path.join(OUT_DIR,
+                                                    "dilute_432.data"))
+    halves, halves64, launches = {}, {}, {}
+    for n in DILUTE_TRIALS:
+        system, md, cfg = workloads.dilute(n, data_path=path)
+        conp = setup_conp(system, md, cfg, solve_dtype=torch.float32,
+                          device=dev)
+        eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+        print(f"{tag}: dilute trial {n}: {system.natoms} atoms, Ne={conp.ne}, "
+              f"{cfg.ff.name}, zneutr {cfg.zneutr}, periodic "
+              f"{system.periodic}, g_ewald {conp.ksp.g_ewald:.6f}, "
+              f"K={conp.ksp.kcount}, static C {conp.totsetq64:.10g} e/V")
+        if not (eng.ncfg is None and eng.cell_grid is None
+                and eng.pair_cap is None and eng.pppm_grid is None):
+            raise AssertionError(f"{tag}: trial {n}: not the dense Ewald "
+                                 "path")
+        conp64 = setup_conp(system, md, cfg, solve_dtype=torch.float64,
+                            device="cpu")
+        eng64 = build_engine(system, md, conp64, dtype=torch.float64,
+                             device="cpu")
+        s32, s64 = eng.init_state(), eng64.init_state()
+        halves[n] = _ele_halves(system, s32.q)
+        halves64[n] = _ele_halves(system, s64.q)
+        agree(f"{tag}: trial {n} step 0", s32, s64, conp.ne, True)
+        for i in range(DILUTE_STEPS):
+            s32, s64 = eng.step(s32), eng64.step(s64)
+            agree(f"{tag}: trial {n} step {i + 1}", s32, s64, conp.ne, True)
+        for ql, qr in _ele_halves(system, s32.q):
+            if not abs(ql + qr) <= 1e-4:
+                raise AssertionError(f"{tag}: trial {n}: electrode charge "
+                                     f"sum {ql + qr:.3e} (of a half)")
+        if n == 0:
+            deck_bounds(tag, "dilute0", system, md, conp, eng, card)
+            counters = {"pair_forces_conp": k4.launches,
+                        "b_realspace": k5.launches}
+            *_, launches = main_run(tag, eng, {}, 10, 100, counters, conp.ne,
+                                    card)
+            graph_phase(tag + "b", "dilute0", eng, {}, card)
+        del eng, conp
+    slab = halves[0][0][0]
+    rel = {"ffield": [halves[2][0][0]], "doubled sym": [h[0] for h in
+                                                        halves[3]],
+           "doubled anti, lower half": [halves[4][1][0]]}
+    slab64 = halves64[0][0][0]
+    rel64 = {"ffield": [halves64[2][0][0]], "doubled sym": [
+        h[0] for h in halves64[3]], "doubled anti, lower half": [
+        halves64[4][1][0]]}
+    gaps = {k: max(abs(v - slab) for v in vs) for k, vs in rel.items()}
+    gaps64 = {k: max(abs(v - slab64) for v in vs) for k, vs in rel64.items()}
+    print(f"{tag}: cross-mode relations at x0, qleft of the slab "
+          f"{slab:.8f} e (CPU float64 {slab64:.8f}); max|qleft - slab| card "
+          f"{gaps}, CPU float64 {gaps64}  [{card}]")
+    if not all(g <= DILUTE_MODE_TOL for g in gaps.values()):
+        raise AssertionError(f"{tag}: a mode's qleft differs from the slab's "
+                             f"by more than {DILUTE_MODE_TOL} e")
+    ref = _ref_dir({"dilute": path})
+    out, secs = _module(["lammps_user_conp2_tpu_torch", "run-suite",
+                         "dilute", "--f32", "--steps",
+                         str(DILUTE_SUITE_STEPS), "--thermo", "10"], ref)
+    lines = [ln for ln in out.splitlines() if ln.startswith(("column",
+                                                             "log."))]
+    print(f"{tag}: run-suite dilute --f32 --steps {DILUTE_SUITE_STEPS} in "
+          f"{secs:.1f} s: " + "; ".join(lines) + f"  [{card}]")
+    diffs = [float(ln.split("max|diff|=")[1].split()[0]) for ln in lines
+             if "max|diff|=" in ln]
+    if len(diffs) != 2 or diffs[0] != 0.0 or not math.isfinite(diffs[1]):
+        raise AssertionError(f"{tag}: run-suite's trials 1 and 2 against "
+                             f"trial 0: {diffs}")
+    results["dilute"] = dict(cross_mode_gaps=gaps, cross_mode_gaps_f64=gaps64,
+                             suite=lines, seconds=time.perf_counter() - t0)
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s  [{card}]")
+    return launches
+
+
+def _fields_equal(a, b) -> list:
+    """The fields of two LammpsData that differ (dtype or bits)."""
+    import dataclasses
+    bad = []
+    for f in dataclasses.fields(a):
+        u, w = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(u, np.ndarray) or isinstance(w, np.ndarray):
+            if (u is None or w is None or u.dtype != w.dtype
+                    or u.shape != w.shape or not np.array_equal(u, w)):
+                bad.append(f.name)
+        elif u != w:
+            bad.append(f.name)
+    return bad
+
+
+def native_phase(card, results, files):
+    """Phase 49: the host library on this machine: built with g++ into
+    ``_build/``; ``parse_data_file`` through it equal field for field, bit
+    for bit, to ``parse_data_file_py`` on each of ``files`` (name: path),
+    each path's parse time on the host clock (median of 5); a dump frame
+    written by it equal to the Python writer's text and read back through
+    ``utils/dump.read_dump``."""
+    import tempfile
+    from lammps_user_conp2_tpu_torch.utils import data_io, dump, native
+    tag = "phase 49"
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError(f"{tag}: the host library did not build: "
+                             f"{native.build_error}")
+    print(f"{tag}: host library {native.lib_path()}")
+
+    def host_median(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    times = {}
+    for name, path in files.items():
+        nat, py = data_io.parse_data_file(path), data_io.parse_data_file_py(
+            path)
+        bad = _fields_equal(nat, py)
+        if bad:
+            raise AssertionError(f"{tag}: {name}: the native parser differs "
+                                 f"in {bad}")
+        times[name] = dict(
+            natoms=nat.natoms,
+            native_ms=host_median(lambda: data_io.parse_data_file(path)),
+            python_ms=host_median(lambda: data_io.parse_data_file_py(path)))
+        t = times[name]
+        print(f"{tag}: {name}, {nat.natoms} atoms: every field bit for bit; "
+              f"parse {t['native_ms']:.2f} ms native, {t['python_ms']:.2f} "
+              f"ms Python (host clock, median of 5)  [{card}]")
+    d = data_io.parse_data_file(files["dilute"])
+    rng = np.random.default_rng(49)
+    q = rng.normal(scale=0.05, size=d.natoms)
+    tmp = tempfile.mkdtemp()
+    nat_path, py_path = os.path.join(tmp, "n.traj"), os.path.join(tmp, "p.traj")
+    for step, mode in ((0, "w"), (10, "a")):
+        if not native.write_dump_frame_native(nat_path, mode, step, d.box_lo,
+                                              d.box_hi, d.tag, d.x, q):
+            raise AssertionError(f"{tag}: the native dump writer failed")
+    with open(py_path, "w") as fh:
+        for step in (0, 10):
+            dump.write_dump_frame(fh, step, d.natoms, d.box_lo, d.box_hi,
+                                  d.tag, d.x, q)
+    frames = dump.read_dump(nat_path)
+    xr = np.stack([frames[1][2][c] for c in ("xu", "yu", "zu")], axis=1)
+    same_text = open(nat_path).read() == open(py_path).read()
+    dx = float(np.abs(xr - d.x).max() / np.abs(d.x).max())
+    dq = float(np.abs(frames[1][2]["q"] - q).max() / np.abs(q).max())
+    print(f"{tag}: native dump of 2 frames: the Python writer's text "
+          f"{same_text}; read back steps {[f[0] for f in frames]}, rel "
+          f"|dx| {dx:.2e}, |dq| {dq:.2e}")
+    if not (same_text and [f[0] for f in frames] == [0, 10]
+            and dx <= 1e-7 and dq <= 1e-7):
+        raise AssertionError(f"{tag}: the dump round trip failed")
+    results["native"] = dict(parse_ms=times, lib=native.lib_path().name)
+
+
+# phase 50: the static capacitance on the card (float32 engine, float64
+# set-up) against the CPU float64 set-up, relative; the sampled steps of
+# the fluctuation estimate
+CAP_STATIC_REL = 1e-12
+CAP_STEPS = 200
+
+
+def capacitance_phase(card, dev, results, files):
+    """Phase 50: ``capacitance.static_capacitance`` of dilute trial 0 and
+    il_onelayer trial 0 with a float32 solve on the card against the CPU
+    float64 set-up (CAP_STATIC_REL); then ``python -m
+    lammps_user_conp2_tpu_torch.capacitance dilute 0 --steps CAP_STEPS`` on
+    the card (``Engine.run``, graphed): its static value against the CPU's,
+    its fluctuation estimate finite and positive, printed with <T>."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.capacitance import static_capacitance
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    tag = "phase 50"
+    t0 = time.perf_counter()
+    static = {}
+    for deck in ("dilute", "il_onelayer"):
+        system, md, cfg = getattr(workloads, deck)(0, data_path=files[deck])
+        c32 = static_capacitance(setup_conp(system, md, cfg,
+                                            solve_dtype=torch.float32,
+                                            device=dev))
+        c64 = static_capacitance(setup_conp(system, md, cfg,
+                                            solve_dtype=torch.float64,
+                                            device="cpu"))
+        rel = abs(c32 - c64) / abs(c64)
+        static[deck] = dict(card=c32, cpu=c64, rel=rel)
+        print(f"{tag}: {deck} 0: static C {c32:.15g} e/V (float32 solve on "
+              f"the card) against {c64:.15g} (CPU float64): rel {rel:.2e}")
+        if not rel <= CAP_STATIC_REL:
+            raise AssertionError(f"{tag}: {deck}: static C rel {rel:.3e}")
+    ref = _ref_dir({"dilute": files["dilute"]})
+    out, secs = _module(["lammps_user_conp2_tpu_torch.capacitance", "dilute",
+                         "0", "--steps", str(CAP_STEPS), "--thermo", "5"], ref)
+    lines = out.strip().splitlines()
+    print(f"{tag}: python -m lammps_user_conp2_tpu_torch.capacitance dilute "
+          f"0 --steps {CAP_STEPS} in {secs:.1f} s: " + " | ".join(lines)
+          + f"  [{card}]")
+    c_mod = float(lines[0].split("= ")[1].split()[0])
+    fluc = float(lines[1].split("= ")[1].split()[0])
+    temp = float(lines[1].split("<T> = ")[1].split()[0])
+    rel = abs(c_mod - static["dilute"]["cpu"]) / abs(static["dilute"]["cpu"])
+    if not (rel <= CAP_STATIC_REL and math.isfinite(fluc) and fluc > 0.0
+            and temp > 0.0):
+        raise AssertionError(f"{tag}: the module's static C rel {rel:.3e}, "
+                             f"fluctuation C {fluc}, <T> {temp}")
+    results["capacitance"] = dict(static=static, module_static_rel=rel,
+                                  fluctuation=fluc, temp_mean=temp,
+                                  seconds=time.perf_counter() - t0)
+
+
+def new_phases_only() -> int:
+    """Phases 41-43 and 47-50 (this slice's paths: the sharded step eager
+    and graphed, the dilute deck, the host library, the capacitance), with
+    the files they read.  Prints their numbers as one JSON line and no
+    contract line: the whole run is ``main``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    t0 = time.perf_counter()
+    build.load_library()
+    card = gpu_line()
+    print(f"phases 41-43, 47-50 alone: card {card}")
+    dev = torch.device("cuda:0")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    il_file = workloads.write_il_data(os.path.join(OUT_DIR, "il_3776.data"))
+    bonded = workloads.write_il_data(os.path.join(OUT_DIR, "il_8772.data"),
+                                     n_pairs=1329, sheets=1, nx=27, ny=16)
+    results = {k: {} for k in KERNEL_IDS}
+    launches = dilute_phase(card, dev, results)
+    sharded_paths(card, dev, results, il_file)
+    files = {"il": il_file, "bonded": bonded,
+             "dilute": os.path.join(OUT_DIR, "dilute_432.data")}
+    native_phase(card, results, files)
+    capacitance_phase(card, dev, results, {"dilute": files["dilute"],
+                                           "il_onelayer": il_file})
+    results["launches_dilute"] = launches
+    print(json.dumps(results, default=str))
+    print(json.dumps({"graphs": GRAPHS}))
+    print(f"phases 41-43, 47-50 alone: {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]")
+    return 0
+
+
 def pair_paths_only(which: str) -> int:
     """Phases 44-46 (``which`` "44-46") or phase 45 alone ("45"), with what
     they compare with: the CPU float64 runs of phases 5 and 9 and the graph
@@ -3867,7 +4303,9 @@ def pair_paths_only(which: str) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phases"]:
+        if sys.argv[2:] == ["47-50"]:
+            sys.exit(new_phases_only())
         if sys.argv[2:] not in (["44-46"], ["45"]):
-            sys.exit("chip_smoke: --phases takes 44-46 or 45")
+            sys.exit("chip_smoke: --phases takes 44-46, 45 or 47-50")
         sys.exit(pair_paths_only(sys.argv[2]))
     sys.exit(main())

@@ -9,10 +9,13 @@ The JAX package's CLI on the port, with its flags and their meanings:
   compare    overlay a column of two or more logs (numerically)
   profile    per-phase timing of the step on the engine's path
 
-The decks read their data under ``$CONP_REF_TESTS`` (``workloads.
-ref_tests``).  Everything runs on the card unless ``--cpu`` is given,
-and raises without one; ``--f32`` is the float32 step path that launches
-the hand kernels, the default float64 (the plain versions on the card).
+The decks (``dilute``, ``il_onelayer``, ``il_twolayer``, ``cond``,
+``zmirror``, every trial, and ``synthetic``) read their data under
+``$CONP_REF_TESTS`` (``workloads.ref_tests``; ``workloads.
+write_dilute_data`` and ``write_il_data`` write files they read).
+Everything runs on the card unless ``--cpu`` is given, and raises without
+one; ``--f32`` is the float32 step path that launches the hand kernels,
+the default float64 (the plain versions on the card).
 """
 
 from __future__ import annotations
@@ -37,11 +40,6 @@ def load_deck(workload: str, trial: int):
     """(system, md, cfg) of a deck's trial; ``synthetic`` takes the trial as
     its electrolyte count (0: its default)."""
     from . import workloads
-    if workload == "dilute":
-        raise NotImplementedError(
-            "not ported yet: the dilute deck, whose data file "
-            "(dilute/data under CONP_REF_TESTS) and pair coefficients the "
-            "repository does not hold")
     if workload == "synthetic":
         return workloads.synthetic(**({"n_elyte": trial} if trial else {}))
     return getattr(workloads, workload)(trial)
@@ -182,6 +180,7 @@ def cmd_compare(args):
 # each deck's trials that run the same physics in other modes, and the
 # charge column the reference's compare.gnu overlays
 SUITE_TRIALS = {
+    "dilute": ([0, 1, 2], "c_qleft"),
     "il_onelayer": ([0, 1, 3], "c_qleft"),
     "il_twolayer": ([0, 1, 2], "c_qleft"),
 }
@@ -192,7 +191,6 @@ def cmd_run_suite(args):
     agree: the reference's validation (runs per trial and compare.gnu) in
     one command."""
     if args.workload not in SUITE_TRIALS:
-        load_deck(args.workload, 0)     # dilute: its NotImplementedError
         raise ValueError(f"run-suite has no trial set for {args.workload}")
     trials, col = SUITE_TRIALS[args.workload]
     logs = []
@@ -224,8 +222,8 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def add_common(p):
-        p.add_argument("workload", help="il_onelayer | il_twolayer | cond | "
-                       "zmirror | synthetic (dilute waits for its data)")
+        p.add_argument("workload", help="dilute | il_onelayer | il_twolayer | "
+                       "cond | zmirror | synthetic")
         p.add_argument("trial", type=int, nargs="?", default=0)
         p.add_argument("--f32", action="store_true",
                        help="float32 step path (the hand kernels on the card)")

@@ -245,7 +245,7 @@ class ConpSolver(nn.Module):
                  type_idx: np.ndarray, box, periodic, cut_coulsq: float,
                  ee_diag: float, solve_dtype, pppm_grid=None,
                  ele_zplanes=None, ele_zpinv=None,
-                 one_electrode: bool = False):
+                 one_electrode: bool = False, totsetq64: float = None):
         super().__init__()
         self.cfg = cfg
         self.ksp = ksp
@@ -266,6 +266,9 @@ class ConpSolver(nn.Module):
         self.ee_diag = ee_diag                 # <e,e> diagnostic
         self.solve_dtype = solve_dtype
         self.one_electrode = one_electrode     # group1 == group2
+        # the set-up's float64 totsetq on the host, whatever the solve
+        # dtype: dQ_left/dV in e/V, the static capacitance
+        self.totsetq64 = totsetq64
         dev = ctx.ainv.device
         te = type_idx[ele_idx]
         f = lambda a: torch.as_tensor(a, dtype=solve_dtype, device=dev)
@@ -760,4 +763,5 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
         ele_idx=ele_idx, elyte_mask=~system.ele_mask, type_idx=system.type,
         box=box, periodic=system.periodic, cut_coulsq=cut_coulsq,
         ee_diag=ee, solve_dtype=solve_dtype, pppm_grid=pppm_grid,
-        ele_zplanes=zp, ele_zpinv=zpinv, one_electrode=one_electrode)
+        ele_zplanes=zp, ele_zpinv=zpinv, one_electrode=one_electrode,
+        totsetq64=float(totsetq))

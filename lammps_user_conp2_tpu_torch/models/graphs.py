@@ -336,24 +336,24 @@ def replayed(state) -> bool:
 
 
 def graph_key(eng, state) -> tuple:
-    """The capacities and the state layout a set of graphs is valid for."""
-    ncfg, grid, cells = eng.ncfg, eng.pppm_grid, eng.cell_grid
-    caps = (None if ncfg is None else (ncfg.k_max, ncfg.u_max, ncfg.grid.cap),
-            None if grid is None else grid.tile_cap,
-            None if cells is None else cells.cap, eng.pair_cap)
+    """The capacities (``eng.graph_caps()``) and the state layout a set of
+    graphs is valid for: each tensor's shape, dtype and device, and each
+    dataclass's type (a sharded rank's mesh-tile assignment is not the
+    engine's, whatever its shapes)."""
     tensors = []
 
     def walk(o):
         if isinstance(o, torch.Tensor):
             tensors.append((tuple(o.shape), o.dtype, str(o.device)))
         elif dataclasses.is_dataclass(o):
+            tensors.append(type(o).__name__)
             for f in dataclasses.fields(o):
                 walk(getattr(o, f.name))
         elif o is None:
             tensors.append(None)
 
     walk(state)
-    return caps + (tuple(tensors),)
+    return eng.graph_caps() + (tuple(tensors),)
 
 
 def step_graphs(eng, state, backend=None) -> StepGraphs:

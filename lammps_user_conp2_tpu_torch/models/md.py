@@ -629,6 +629,16 @@ class Engine(nn.Module):
         tile pair."""
         self.pair_cap = 2 * int(self.pair_cap)
 
+    def graph_caps(self) -> tuple:
+        """The capacities a set of step graphs is captured at
+        (``graphs.graph_key``): the list's K, U and cell cap, the mesh tile
+        cap, the cell list's cap and the tile path's pair cap."""
+        ncfg, grid, cells = self.ncfg, self.pppm_grid, self.cell_grid
+        return (None if ncfg is None
+                else (ncfg.k_max, ncfg.u_max, ncfg.grid.cap),
+                None if grid is None else grid.tile_cap,
+                None if cells is None else cells.cap, self.pair_cap)
+
     def _mesh_tiled(self) -> bool:
         return (self.pppm_grid is not None
                 and not pppm_ops._use_dense(self.pppm_grid,

@@ -37,8 +37,13 @@ and COND.  ``ShardedEngine`` is an ``Engine`` (it shares the engine's
 buffers) whose pair, k-space, correction, rebuild and solve are these
 shares, so the step order, ``nevery`` and the CG blocks are the engine's.
 The CG convergence flag and the list's skin flag are read from replicated
-values, so every rank takes the same branch.  ``run`` is eager: a loop of
-``step`` with one host read of the skin flag per step.
+values, so every rank takes the same branch.  ``run`` is ``Engine.run``:
+on the card the step's segments replay as CUDA graphs
+(``models/graphs.py``, the JAX sharded run's jitted ``lax.scan``), the
+NCCL collectives captured inside them, with one host read of the skin flag
+per step on the list paths and of the CG flag per block, as ``step`` reads
+them; on the CPU (gloo) a loop of ``step``.  A capture or replay error
+raises.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from ..models.conp import SolvePending, cg_start, realspace_block
-from ..models.md import Engine, _check_supported, stack_thermo
+from ..models.md import Engine, _check_supported
 from ..models.system import MDState
 from ..ops import ewald_factored as ewf
 from ..ops import pppm as pppm_ops
@@ -181,8 +186,10 @@ class ShardedEngine(Engine):
 
     def __init__(self, engine: Engine, comm: Comm, layout: ShardLayout):
         state = dict(engine.__dict__)
-        for k in ("_buffers", "_modules", "_parameters", "_step_graphs"):
+        for k in ("_buffers", "_modules", "_parameters"):
             state[k] = type(state[k])(state[k])
+        # this engine's own step graphs (those of its segments)
+        state["_step_graphs"] = {}
         self.__dict__.update(state)
         self.comm = comm
         self.layout = layout
@@ -258,14 +265,27 @@ class ShardedEngine(Engine):
         return super().step(self.prep_state(state))
 
     def run(self, state: MDState, nsteps: int, *, thermo_every: int = 1):
-        """``nsteps`` eager steps; returns (final_state, thermo) as
-        ``Engine.run`` does (thermo None when thermo_every is 0)."""
-        rows = []
-        for i in range(nsteps):
-            state = self.step(state)
-            if thermo_every and (i + 1) % thermo_every == 0:
-                rows.append(self.thermo(state))
-        return state, (stack_thermo(rows) if thermo_every else None)
+        """``Engine.run`` from this rank's state (``prep_state``): CUDA
+        graphs of the sharded segments on the card, a loop of ``step`` on
+        the CPU, the capacities regrown after an overflow as the engine
+        does (the decisions read replicated values, so every rank takes
+        them alike)."""
+        return super().run(self.prep_state(state), nsteps,
+                           thermo_every=thermo_every)
+
+    def graph_caps(self) -> tuple:
+        """The engine's capacities and this rank's mesh tile cap."""
+        return super().graph_caps() + (
+            None if self.rank_grid is None else self.rank_grid.tile_cap,)
+
+    def _grow_tile_capacity(self) -> None:
+        """The engine's mesh tile cap doubled, and this rank's."""
+        super()._grow_tile_capacity()
+        if self.rank_grid is not None:
+            cap = min(2 * self.rank_grid.tile_cap, self.layout.nrow + 1)
+            self.rank_grid = pppm_ops.with_shared_cache(self.rank_grid,
+                                                        tile_cap=cap)
+            self.layout.rank_grid = self.rank_grid
 
     def _solve_full(self, x, q, nbr, tasg, step):
         pend = self._solve_head(x, q, nbr, tasg, step=step, scalar_prev=None)

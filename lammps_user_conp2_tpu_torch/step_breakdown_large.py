@@ -20,8 +20,8 @@ z-IDFT (``pppm_energy_u_zbin``); the force gather (K3,
 cell sweep, or K4 with the correction fused; on the tile path also the
 k-d order and the live tile pairs alone); the correction on its own (K6,
 cell path); the b vector; the INV solve.  Then a
-``torch.profiler`` trace of a short window gives the device-busy share,
-the device time by kernel name and each hand kernel's device time per
+``torch.profiler`` trace of a short window, timed itself with CUDA
+events, gives the device-busy share (over that window), the device time by kernel name and each hand kernel's device time per
 step (K1, K2a, ...); the table and the Chrome trace go to
 ``chiprun_out/``.  Fails when no CUDA device is visible.
 """
@@ -37,7 +37,7 @@ import time
 
 import torch
 
-from .step_breakdown import _median_ms, device_busy, kernel_ms
+from .step_breakdown import _median_ms, device_busy, kernel_ms, profiled
 
 CELL = dict(n_elyte=98304, nele_side=23, lz=240.0, lxy=120.0)
 
@@ -165,9 +165,8 @@ def main() -> int:
           f"steps  [{card}]")
 
     nprof = 20
-    with profile(activities=acts) as prof:
-        eng.run(s2, nprof, thermo_every=0)
-        torch.cuda.synchronize()
+    prof, window = profiled(lambda: eng.run(s2, nprof, thermo_every=0),
+                            nprof)
     os.makedirs(args.out, exist_ok=True)
     sfx = "" if args.pair == "auto" else "_" + args.pair
     prof.export_chrome_trace(os.path.join(args.out,
@@ -180,15 +179,17 @@ def main() -> int:
                                            row_limit=50))
     nk = sum(c for _, c in by_name.values())
     print(f"profiled {nprof} steps: {nk:.0f} device kernels per step, busy "
-          f"{busy:.4f} ms/step (union of kernel intervals; the host clock "
-          f"runs slower under the profiler)")
+          f"{busy:.4f} ms/step (union of kernel intervals) of the profiled "
+          f"window's {window:.4f} ms/step (CUDA events): busy share "
+          f"{busy / window:.3f}; unprofiled {wall:.4f} ms/step")
     for key, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {ms:9.4f} ms/step  {cnt:6.1f}x  {key[:70]}")
     for key, ms in kernel_ms(by_name).items():
         res[f"{key}_device_ms_per_step"] = ms
         print(f"  {key} device time {ms:.4f} ms/step  [{card}]")
     res["device_busy_ms_per_step"] = busy
-    res["device_busy_share_of_chained_step"] = busy / wall
+    res["profiled_window_ms_per_step"] = window
+    res["device_busy_share"] = busy / window
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     summary = json.dumps(dict(card=card, pair_path=args.pair, layers_ms=res,
                               layers_device_ms=dev_ms, run_ms_per_step=wall,

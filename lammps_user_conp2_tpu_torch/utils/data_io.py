@@ -8,8 +8,11 @@ Pair Coeffs, PairIJ Coeffs, Bond Coeffs, Angle Coeffs, Atoms, Velocities,
 Bonds, Angles; Dihedral/Improper Coeffs are skipped, and Dihedrals or
 Impropers with entries raise, as in the JAX package's parser.
 
-This is the JAX package's Python parser (``utils/data_io.py``); its C++
-fast path (``native/``, host code) is not used by the port.  The deck
+``parse_data_file`` takes the port's host library first
+(``utils/native.parse_data_native``, ``csrc/conp2_native.cpp``), as the
+JAX package's does, and ``parse_data_file_py`` (the JAX package's Python
+parser) without it or with ``use_native=False``: the plain version the
+library is held to, field for field.  The deck
 transforms of the doubled-cell trials follow it: ``replicate_z2``
 (``replicate 1 1 2``), ``change_box_z_centered`` (``change_box``),
 ``mirror_group_z`` (the z-mirror ``set``) and ``set_mol`` (the molecule
@@ -149,7 +152,19 @@ def _sections(lines, start):
         yield name, rows
 
 
-def parse_data_file(path: str) -> LammpsData:
+def parse_data_file(path: str, *, use_native: bool = True) -> LammpsData:
+    """Read a LAMMPS data file of atom_style full: through the host library
+    when ``use_native`` and it is built (``CONP2_NO_NATIVE=1`` turns it
+    off), else with ``parse_data_file_py``."""
+    if use_native:
+        from . import native
+        fields = native.parse_data_native(path)
+        if fields is not None and fields["natoms"] > 0:
+            return _finalize_raw(fields)
+    return parse_data_file_py(path)
+
+
+def parse_data_file_py(path: str) -> LammpsData:
     """Read a LAMMPS data file of atom_style full (the Python parser)."""
     with open(path) as fh:
         lines = fh.readlines()

@@ -9,9 +9,12 @@
   cover CONP, CONQ and COND, the NORMAL slab, FFIELD with the external or
   the feedback efield, the NOSLAB doubled cell, EHGO with a callable
   target and the zmirror fix.
-* ``write_il_data``: a synthetic data file with the il decks' counts and
-  ids, which every one of these decks reads, for the tests and the card
-  runs while the decks' own data files are not in the repository.
+* ``dilute``: the 432-atom smoke deck (a dilute electrolyte between two
+  metal walls), every trial: the CONP slab, FFIELD and the NOSLAB doubled
+  cell, with the deck's explicit pair coefficients.
+* ``write_il_data`` and ``write_dilute_data``: synthetic data files with
+  the decks' counts and ids, which these decks read, for the tests and the
+  card runs while the decks' own data files are not in the repository.
 """
 
 from __future__ import annotations
@@ -372,6 +375,172 @@ def zmirror(n: int = 0, *, data_path: Optional[str] = None):
                      ff=FFMode.NOSLAB, zneutr=True,
                      kspace=KSpaceStyle.PPPM if n >= 1 else KSpaceStyle.EWALD)
     return system, md, cfg
+
+
+# --------------------------------------------------------------------------
+# the dilute deck
+# --------------------------------------------------------------------------
+
+# the deck's explicit pair_coeff lines, (type i, type j, eps kcal/mol,
+# sigma A) (tests/dilute/input:29-38)
+DILUTE_PAIR_COEFFS = (
+    (1, 1, 0.09935850, 3.40000000),
+    (1, 2, 0.19419428, 3.50000000),
+    (1, 3, 0.07390356, 3.38500000),
+    (1, 4, 0.09935850, 3.35000000),
+    (2, 2, 0.37954900, 3.60000000),
+    (2, 3, 0.14444310, 3.48500000),
+    (2, 4, 0.19419428, 3.45000000),
+    (3, 3, 0.05497000, 3.37000000),
+    (3, 4, 0.07390356, 3.33500000),
+    (4, 4, 0.09935850, 3.30000000),
+)
+# the deck's electrode molecules and metal type
+DILUTE_MOLLEFT, DILUTE_MOLRIGHT, DILUTE_ETYPE = 81, 82, 3
+
+
+def dilute(n: int = 0, *, data_path: Optional[str] = None):
+    """tests/dilute/input: the 432-atom smoke deck, a dilute electrolyte
+    (types 1, 2 and 4) between two electrodes of type 3 (mol 81 left, 82
+    right), no bonds, 298 K NHC on ``sol``, read from ``data_path`` or the
+    deck's ``data`` under ``ref_tests()``.  The deck's pair coefficients
+    (``DILUTE_PAIR_COEFFS``) replace the file's, geometric mixing; cutoff
+    4 A, Ewald accuracy 1e-6, dt 1 fs, CONP at 1 V, ETA 1.979.  Every
+    trial runs (tests/dilute/input:4-10):
+
+    0 CONP slab (slab 3.0); 1 the same (+etypes, a no-op on the dense pair
+    path); 2 and 5 FFIELD (z periodic) with the external efield -1/Lz; 3
+    and 4 the NOSLAB doubled cell (symmetric, antisymmetric), zneutr, a
+    thermostat on each half."""
+    if n not in range(6):
+        raise ValueError(f"dilute has trials 0-5, not {n}")
+    data = data_io.parse_data_file(data_path or f"{ref_tests()}/dilute/data")
+    doubled = n in (3, 4)
+    if doubled:
+        data = _doubled_cell(data, DILUTE_MOLLEFT, DILUTE_MOLRIGHT,
+                             sym=(n == 3))
+    periodic = (True, True, n > 1)
+    groups = {"sol": np.isin(data.type, [1, 2, 4]),
+              "ele": data.type == DILUTE_ETYPE}
+    thermos = _sol_thermostats(data, groups, doubled, 298.0)
+    system = build_system(
+        data, units="real", periodic=periodic, mix="geometric",
+        pair_coeff_overrides=list(DILUTE_PAIR_COEFFS),
+        ele_left=[DILUTE_MOLLEFT], ele_right=[DILUTE_MOLRIGHT], groups=groups)
+    system = electrodes_first(system)
+
+    ff = {0: FFMode.NORMAL, 1: FFMode.NORMAL, 2: FFMode.FFIELD,
+          3: FFMode.NOSLAB, 4: FFMode.NOSLAB, 5: FFMode.FFIELD}[n]
+    v = 1.0
+    md = MDConfig(
+        units="real", dt=1.0, cutoff=4.0, kspace_accuracy=1e-6,
+        slab=3.0 if n <= 1 else None,
+        efield=(0.0, 0.0, -v / system.box[2]) if ff is FFMode.FFIELD else None,
+        thermostats=thermos)
+    cfg = ConpConfig(mode=Mode.CONP, nevery=1, eta=1.979, target=v, ff=ff,
+                     zneutr=doubled)
+    return system, md, cfg
+
+
+# the synthetic dilute cell: per type (mass g/mol, charge e); 1 and 4 the
+# ions, 2 a neutral solvent bead, 3 the metal (gold's mass)
+DILUTE_SITES = {1: (22.99, 1.0), 2: (39.948, 0.0), 3: (196.97, 0.0),
+                4: (35.45, -1.0)}
+DILUTE_NN = 2.88                  # fcc(100) nearest-neighbour spacing (A)
+DILUTE_LAYERS = 5                 # (100) layers per wall, 6 x 6 atoms each
+DILUTE_SIDE = 6
+DILUTE_IONS = 6                   # cations, and as many anions
+DILUTE_GRID = (3, 3, 8)           # electrolyte sites: x, y, z layers
+DILUTE_DZ = 2.5                   # between the electrolyte's z layers (A)
+DILUTE_MARGIN = 3.5               # electrolyte to the inner layers (A)
+DILUTE_JITTER = 0.05              # Gaussian jitter of the electrolyte (A)
+
+
+def write_dilute_data(path, *, seed: int = 0) -> str:
+    """Write a LAMMPS data file (atom style full) that ``dilute`` reads, of
+    the deck's size and ids: 432 atoms; returns ``path``.
+
+    Two planar electrodes of type 3, mol 81 (left) and 82 (right), each
+    five fcc(100) layers of 6 x 6 atoms (2.88 A apart in a layer, 2.04 A
+    between layers, ABABA), 180 atoms per wall; the box is 17.28 A square,
+    the outer layers 1 A from the z faces.  Between the walls, 3.5 A off
+    their inner layers, 72 electrolyte atoms on 8 z layers 2.5 A apart, 3
+    x 3 sites each, alternate layers shifted by half a site in x and y (so
+    that no two sites are closer than 4.7 A): 6 cations (type 1, +1 e), 6
+    anions (type 4, -1 e) and 60 neutral solvent beads (type 2), their
+    sites a random permutation, each coordinate jittered by N(0, 0.05 A).
+    Every electrolyte atom is its own molecule, 1 to 72, below the
+    electrodes' 81 and 82 (the deck has no bonds and no SHAKE).  The file
+    is net neutral and lists Masses and Pair Coeffs (the diagonal of
+    ``DILUTE_PAIR_COEFFS``; the deck replaces every pair) and no
+    Velocities section: the deck starts at rest, as the reference log does
+    (``validation/log.tpu_dilute_0``: T = 0 at step 0).  Everything random
+    comes from numpy ``default_rng(seed)``.
+
+    The reference's own file is not in the repository, so its anchors in
+    ``CLAUDE.md`` (step-0 qleft 0.0440535, g_ewald 0.7723634128, T(20)
+    1009.32) belong to that file and cannot be checked on this one."""
+    rng = np.random.default_rng(seed)
+    a = DILUTE_NN
+    lxy = DILUTE_SIDE * a
+    dz_wall = a / math.sqrt(2.0)
+    ij = np.array([(i, j) for i in range(DILUTE_SIDE)
+                   for j in range(DILUTE_SIDE)], np.float64)
+    nx, ny, nz = DILUTE_GRID
+    z_left = WALL_OFFSET + (DILUTE_LAYERS - 1) * dz_wall     # inner layer
+    z0 = z_left + DILUTE_MARGIN
+    z_right = z0 + (nz - 1) * DILUTE_DZ + DILUTE_MARGIN
+    lz = z_right + (DILUTE_LAYERS - 1) * dz_wall + WALL_OFFSET
+
+    walls = []
+    for zs in ([WALL_OFFSET + s * dz_wall for s in range(DILUTE_LAYERS)],
+               [z_right + s * dz_wall for s in range(DILUTE_LAYERS)]):
+        for s, z in enumerate(zs):
+            xy = (ij + 0.5 * (s % 2)) * a
+            walls.append(np.column_stack([xy, np.full(len(xy), z)]))
+    ele_x = np.concatenate(walls)
+    nwall = len(ele_x) // 2
+
+    sites = []
+    for k in range(nz):
+        h = 0.5 * (k % 2)
+        for i in range(nx):
+            for j in range(ny):
+                sites.append([(i + 0.25 + h) * lxy / nx,
+                              (j + 0.25 + h) * lxy / ny, z0 + k * DILUTE_DZ])
+    sites = np.asarray(sites)
+    nel = len(sites)
+    ely_typ = np.full(nel, 2)
+    order = rng.permutation(nel)
+    ely_typ[order[:DILUTE_IONS]] = 1
+    ely_typ[order[DILUTE_IONS:2 * DILUTE_IONS]] = 4
+    ely_x = sites + DILUTE_JITTER * rng.standard_normal(sites.shape)
+
+    # atoms in file order: electrolyte, left wall, right wall
+    x = np.concatenate([ely_x, ele_x])
+    typ = np.concatenate([ely_typ, np.full(2 * nwall, DILUTE_ETYPE)])
+    mol = np.concatenate([np.arange(1, nel + 1),
+                          np.full(nwall, DILUTE_MOLLEFT),
+                          np.full(nwall, DILUTE_MOLRIGHT)])
+    q = np.array([DILUTE_SITES[t][1] for t in typ])
+    natoms = len(x)
+    f = lambda val: f"{float(val):.17g}"
+    lines = [
+        f"dilute electrolyte between two metal walls, {natoms} atoms "
+        f"(lammps_user_conp2_tpu_torch.workloads.write_dilute_data, seed "
+        f"{seed})", "", f"{natoms} atoms", "4 atom types", "",
+        f"0.0 {f(lxy)} xlo xhi", f"0.0 {f(lxy)} ylo yhi",
+        f"0.0 {f(lz)} zlo zhi", "", "Masses", ""]
+    lines += [f"{t} {f(DILUTE_SITES[t][0])}" for t in range(1, 5)]
+    lines += ["", "Pair Coeffs # lj/cut/coul/long", ""]
+    lines += [f"{i} {f(e)} {f(s)}" for i, j, e, s in DILUTE_PAIR_COEFFS
+              if i == j]
+    lines += ["", "Atoms # full", ""]
+    lines += [f"{i + 1} {mol[i]} {typ[i]} {f(q[i])} {f(x[i, 0])} "
+              f"{f(x[i, 1])} {f(x[i, 2])}" for i in range(natoms)]
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text("\n".join(lines) + "\n")
+    return str(path)
 
 
 # --------------------------------------------------------------------------

@@ -10,8 +10,11 @@ against the JAX package's, on the 352-atom ionic-liquid fixture placed as
 * ``run --dump`` then ``rerun``: the re-solved charges of each frame equal
   the logged ones to the dump's 8 significant digits (2e-7 e);
 * ``profile --cpu`` prints every phase of the engine's path;
-* without ``--cpu`` and with no card the command raises; ``dilute`` is
-  refused, naming its missing data file.
+* ``run dilute 0 --cpu --steps 2`` and ``run-suite dilute --cpu --steps
+  2`` run on the file of ``workloads.write_dilute_data`` placed as
+  ``dilute/data``; the suite compares trials 0, 1 and 2;
+* without ``--cpu`` and with no card the command raises; a deck with no
+  trial set is refused by ``run-suite``.
 """
 
 import argparse
@@ -34,10 +37,12 @@ ARGS = ["run", "il_onelayer", "0", "--cpu", "--steps", "4", "--thermo", "2"]
 
 @pytest.fixture(scope="module")
 def ref_dir(tmp_path_factory):
-    from lammps_user_conp2_tpu_torch.workloads import write_il_data
+    from lammps_user_conp2_tpu_torch.workloads import (write_dilute_data,
+                                                       write_il_data)
     d = tmp_path_factory.mktemp("ref")
     os.makedirs(d / "il_onelayer")
     write_il_data(str(d / "il_onelayer" / "data"), **IL_SMALL)
+    write_dilute_data(str(d / "dilute" / "data"))
     return d
 
 
@@ -132,10 +137,34 @@ def test_profile_prints_every_phase(ref_dir, monkeypatch, capsys):
     assert all(v == {} for v in launches.values())
 
 
+def test_dilute_deck_runs(ref_dir, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("CONP_REF_TESTS", str(ref_dir))
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["run", "dilute", "0", "--cpu", "--steps", "2",
+                     "--thermo", "1", "--log", "log", "--no-timing"]) == 0
+    rows = parse_thermo_blocks("log")[0]
+    np.testing.assert_array_equal(rows["Step"], [0, 1, 2])
+    assert np.all(np.isfinite(rows["c_qleft"]))
+    np.testing.assert_allclose(rows["c_qleft"], -rows["c_qright"], rtol=0,
+                               atol=1e-10)
+    capsys.readouterr()
+    assert cli.main(["run-suite", "dilute", "--cpu", "--steps", "2",
+                     "--thermo", "1"]) == 0
+    out = capsys.readouterr().out
+    assert sorted(os.listdir(tmp_path)) == ["log", "log.dilute_0",
+                                            "log.dilute_1", "log.dilute_2"]
+    # trial 1 is trial 0 (+etypes); trial 2, FFIELD, within the solve's
+    # agreement
+    assert "column c_qleft, 3 rows; reference = log.dilute_0" in out
+    diffs = [float(ln.split("max|diff|=")[1].split()[0])
+             for ln in out.splitlines() if "max|diff|=" in ln]
+    assert diffs[0] == 0.0 and diffs[1] < 1e-4
+
+
 def test_refusals(ref_dir, monkeypatch):
     monkeypatch.setenv("CONP_REF_TESTS", str(ref_dir))
-    with pytest.raises(NotImplementedError, match="dilute/data"):
-        cli.main(["run", "dilute", "0", "--cpu"])
+    with pytest.raises(ValueError, match="no trial set for cond"):
+        cli.main(["run-suite", "cond", "--cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["run", "il_onelayer", "0", "--steps", "1"])

@@ -39,6 +39,8 @@ none on the cell path; K4's item-list entry against its plain version
 (kd bricks, fused, with exclusions), bit-identical across launches, NaN
 at half the live count; ``run`` recovering from a short cell cap and a
 short pair cap.
+The sharded run at d = 1 over NCCL replays CUDA graphs equal to the eager
+sharded steps bit for bit.
 Needs a CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
@@ -1282,6 +1284,53 @@ def test_sharded_d1_nccl_matches_engine_on_card(cuda, cell, tmp_path):
             float(st.energy))
         assert float((s_sh.f - st.f).abs().max()) <= 1e-3 * float(
             st.f.abs().max())
+
+
+@pytest.mark.parametrize("cell", ["tiled", "il", "dilute"])
+def test_sharded_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
+                                                  monkeypatch):
+    """``ShardedEngine.run`` at d = 1 over a one-rank NCCL group replays
+    CUDA graphs (the collectives captured): 10 replayed steps equal 10
+    eager sharded steps bit for bit, the thermo rows included, and a second
+    replayed run the first (S3 on the block list and the tiled mesh with
+    the rank's tile assignment, the test-size il cell, the dilute deck)."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.parallel import comm as C
+    from lammps_user_conp2_tpu_torch.parallel.sharded import (
+        build_sharded_engine)
+    x0 = None
+    if cell == "tiled":
+        system, md, conp, eng, x, q, _ = _tiled_cell(cuda, x_near,
+                                                     monkeypatch)
+        x0 = x.cpu().numpy()
+    elif cell == "il":
+        system, md, eng = _il_cell(cuda, tmp_path)
+    else:
+        path = workloads.write_dilute_data(tmp_path / "dilute.data")
+        system, md, cfg = workloads.dilute(0, data_path=path)
+        eng = build_engine(system, md, setup_conp(
+            system, md, cfg, solve_dtype=torch.float32, device=cuda),
+            dtype=torch.float32, device=cuda)
+    comm = C.init_group(cuda, 0, 1, str(tmp_path / "store"))
+    try:
+        sheng = build_sharded_engine(eng, comm, x0=x0)
+        st0 = eng.init_state(x0=x0)
+        e1 = _steps(sheng, st0, 10)
+        g1, th = sheng.run(st0, 10, thermo_every=5)
+        g2, _ = sheng.run(st0, 10, thermo_every=0)
+        torch.cuda.synchronize()
+        captured = len(sheng._step_graphs)
+    finally:
+        C.close_group()
+    assert captured == 1
+    assert _same(g1, e1), _diff(g1, e1)
+    assert _same(g2, g1), _diff(g2, g1)
+    assert float(th["pe"][-1]) == float(e1.energy)
+    assert th["step"].tolist() == [5, 10]
+    if cell == "tiled":
+        assert type(g1.tasg).__name__ == "RankTileAssign"
 
 
 @pytest.mark.parametrize("positions", [x_near, x_close],

@@ -12,8 +12,11 @@ pressure tensor), run the sharded step (``parallel/``) on S3 over a
 one-rank gloo group and import ``bench_sharded``, run the cell-list path
 (``ops/cells.py``) on S3 for 2 steps, alone and sharded, and the tile
 path's plain item sweep (k-d bricks, ``pair_kernel.pair_forces(order=
-"kd")``) on S1, and check that neither jax nor the JAX package (nor
-``tools/``) was imported and that no CUDA kernel was launched."""
+"kd")``) on S1, write the dilute deck's file and run its trial 0 for 2
+steps, read it through the port's host library (``utils/native``) and take
+its static capacitance (``capacitance``), and check that neither jax nor
+the JAX package (nor ``tools/``, nor the JAX package's ``native/``
+library) was loaded and that no CUDA kernel was launched."""
 
 import json
 import os
@@ -90,6 +93,14 @@ ft = pair_kernel.pair_forces(
     torch.as_tensor(system.type), eng.tables, None, box=system.box,
     periodic=system.periodic, cutoff=md.cutoff, g_ewald=0.3, qqr2e=332.0,
     order="kd", pair_cap=8)
+from lammps_user_conp2_tpu_torch import capacitance
+from lammps_user_conp2_tpu_torch.utils import native
+dpath = workloads.write_dilute_data(tempfile.mkdtemp() + "/dilute.data")
+system, md, cfg = workloads.dilute(0, data_path=dpath)
+dconp = setup_conp(system, md, cfg, **S64)
+dil = build_engine(system, md, dconp, **C64)
+st8, th8 = dil.run(dil.init_state(), 2)
+maps = open("/proc/self/maps").read()
 mods = (pair_kernel, ele_rows_kernel, block_pair, pppm_spread, pppm_gather,
         vmem_gather)
 print(json.dumps(dict(
@@ -107,7 +118,12 @@ print(json.dumps(dict(
     energy4=float(st4.energy), p6=[float(v) for v in p6], step5=st5.step,
     energy5=float(st5.energy), step6=st6.step, cells6=cel.cell_grid.total,
     energy6=float(st6.energy), energy7=float(st7.energy),
-    tile_ev=float(ft[1]))))
+    tile_ev=float(ft[1]), step8=st8.step, energy8=float(st8.energy),
+    native=native.get_lib() is not None,
+    native_build=str(native.lib_path()) in maps,
+    jax_native="native/libconp2_native" in maps,
+    static8=capacitance.static_capacitance(dconp),
+    totsetq8=float(dconp.totsetq))))
 """
 
 
@@ -132,3 +148,6 @@ def test_port_runs_without_jax():
     assert abs(out["energy7"] - out["energy6"]) <= 1e-10 * abs(
         out["energy6"])
     assert abs(out["tile_ev"]) < 1e12
+    assert out["step8"] == 2 and abs(out["energy8"]) < 1e12
+    assert out["native"] and out["native_build"] and not out["jax_native"]
+    assert out["static8"] == out["totsetq8"] != 0.0

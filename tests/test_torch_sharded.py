@@ -7,7 +7,9 @@ list on a tiled mesh with the persistent per-rank tile assignment; cond 4
 and zmirror 3 on the test-size ionic-liquid file; nevery 2; mobile
 electrodes under CG_MATFREE; 20 steps across list rebuilds; the cell list
 under INV EWALD, CG_MATFREE PPPM and on the odd cell; the tile path's
-engine, whose pairs the sharded step sweeps as dense rows).
+engine, whose pairs the sharded step sweeps as dense rows; ``run``
+through the graph runner on the block list with CG and the ranks' tile
+assignment).
 
 * The sharded state after the case's steps against the port's
   ``Engine.step`` from the same state: q to 1e-10 e, f to 1e-7 + 1e-9
@@ -19,6 +21,10 @@ engine, whose pairs the sharded step sweeps as dense rows).
   S2, the odd cell under CG_MATFREE PPPM nlist, cond 4, and the cell list
   under INV EWALD on S2 (JAX test_sharded.py:98-115's pattern on a
   synthetic cell).
+* ``ShardedEngine.run`` through Engine.run's graph runner (each segment
+  run eagerly where the card captures and replays it) equals a loop of
+  ``ShardedEngine.step`` bit for bit, with thermo rows every step and
+  none, through the list rebuilds and CG blocks the eager loop takes.
 * A rank that raises fails ``spawn_ranks`` well within its timeout, and
   the ranks imported nothing of jax or the JAX package.
 """
@@ -93,6 +99,19 @@ def test_sharded_matches_engine(d, name, il_path):
         assert r["rebuilds"] > 0 and r["x_ref_moved"]
     if spec.get("cell") == "ODD":
         assert r["natoms"] % d and r["ne"] % d
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_sharded_run_replays_the_step(d, il_path):
+    results, _ = _run(d, il_path)
+    g = results["run-graphed"]["graphed"]
+    assert g["run_same"], f"d={d}: run differs from a loop of step"
+    assert g["thermo_same"], f"d={d}: run's thermo rows differ"
+    assert g["segments"] == ["cg", "head", "pre", "rebuild", "tail",
+                             "thermo"]
+    # list rebuilds and CG blocks: as many replayed as the eager loop took
+    assert g["eager"][0] >= 1 and g["eager"][1] >= 1
+    assert g["replayed"] == g["eager"] and g["steps"] == 6
 
 
 @pytest.mark.parametrize("name", JAX_CASES)

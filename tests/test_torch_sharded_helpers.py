@@ -387,3 +387,44 @@ def test_gather3_ad_tiled_matches_jax(grids, monkeypatch):
     # tile overflow poisons the readout
     small = dataclasses.replace(tg, tile_cap=2)
     assert torch.isnan(TP.gather3_ad_tiled(small, u, _t(x))).all()
+
+
+def test_sharded_run_regrows_a_short_rank_tile_cap(tmp_path, monkeypatch):
+    """``ShardedEngine.run`` (``Engine.run``'s regrowth) on a one-rank gloo
+    group: with the rank's mesh tile cap at a quarter of its need the run
+    NaN-poisons, doubles the engine's and the rank's caps, rebuilds the
+    rank's tile assignment and ends equal bit for bit to eager steps from
+    the healed state at the grown cap."""
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.parallel import comm as C
+    from lammps_user_conp2_tpu_torch.parallel.sharded import (
+        build_sharded_engine)
+    from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle
+    monkeypatch.setattr(TP, "_use_dense", lambda grid, n: False)
+    system, md, cfg = twl.synthetic(**S3)
+    md = dataclasses.replace(md, pair_path="block",
+                             kspace_style=KSpaceStyle.PPPM)
+    cfg = dataclasses.replace(cfg, kspace=KSpaceStyle.PPPM)
+    eng = build_engine(system, md, tsetup(system, md, cfg, **SOLVE64),
+                       dtype=torch.float64, device="cpu")
+    x0 = twl.near_wall_positions(system)
+    group = C.init_group("cpu", 0, 1, str(tmp_path / "store"))
+    try:
+        sheng = build_sharded_engine(eng, group, x0=x0)
+        need = sheng.rank_grid.tile_cap
+        sheng.rank_grid = TP.with_shared_cache(sheng.rank_grid,
+                                               tile_cap=need // 4)
+        sheng.layout.rank_grid = sheng.rank_grid
+        st0 = eng.init_state(x0=x0)
+        got, _ = sheng.run(st0, 3, thermo_every=0)
+        grown = sheng.rank_grid.tile_cap
+        ref = sheng._heal_state(sheng.prep_state(st0))
+        for _ in range(3):
+            ref = sheng.step(ref)
+    finally:
+        C.close_group()
+    assert need // 4 < grown <= need and sheng.layout.rank_grid is \
+        sheng.rank_grid
+    assert np.isfinite(float(got.energy))
+    for k in ("x", "v", "q", "f", "energy"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k

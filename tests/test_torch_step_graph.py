@@ -43,8 +43,8 @@ from lammps_user_conp2_tpu_torch.ops.kernels import build
 from lammps_user_conp2_tpu_torch.ops.neighbors import needs_rebuild
 from lammps_user_conp2_tpu_torch.utils.config import KSpaceStyle as TK
 from lammps_user_conp2_tpu_torch.utils.config import Solver as TS
-from torch_cells import (CPU64, S1, S2, S3, S4, SOLVE64, il_small,
-                         il_small_file, pppm_cell, x_near)
+from torch_cells import (CPU64, S1, S2, S3, S4, SOLVE64, EagerBackend,
+                         il_small, il_small_file, pppm_cell, x_near)
 
 torch.set_num_threads(2)
 NSTEPS = 6
@@ -175,31 +175,6 @@ def test_segments_equal_step_as_one(cell, il_path):
     if eng.ncfg is not None:
         assert rebuilds >= 1
     assert np.isfinite(float(st.energy))
-
-
-class EagerBackend:
-    """Runs each segment where a CUDA graph would be captured and replayed:
-    the warm-up and the capture run it once; a replay runs it and puts the
-    launch counters back, as a replayed graph leaves them (the runner adds
-    the captured counts itself)."""
-
-    def __init__(self, device=None):
-        self.captures = 0
-
-    def warm(self, fn):
-        fn()
-
-    def capture(self, fn):
-        fn()
-        self.captures += 1
-
-        def replay():
-            counts = [c.count for c in build.COUNTERS]
-            fn()
-            for c, n in zip(build.COUNTERS, counts):
-                c.count = n
-
-        return replay
 
 
 @pytest.mark.parametrize("cell", ["S2", "S3-nlist", "S3-block", "il",

@@ -199,3 +199,29 @@ def shake_case(shape, kind="interior", seed=0, nclusters=24, nfree=37):
     return dict(tables=(atoms, amask, ci, cj, dist2, cmask, invm, pairs),
                 natoms=natoms, x_old=x, x_new=x_new, v=v,
                 box=tuple(box), periodic=SHAKE_PERIODIC)
+
+
+class EagerBackend:
+    """Runs each segment where a CUDA graph would be captured and replayed:
+    the warm-up and the capture run it once; a replay runs it and puts the
+    launch counters back, as a replayed graph leaves them (the runner adds
+    the captured counts itself)."""
+
+    def __init__(self, device=None):
+        self.captures = 0
+
+    def warm(self, fn):
+        fn()
+
+    def capture(self, fn):
+        fn()
+        self.captures += 1
+
+        def replay():
+            from lammps_user_conp2_tpu_torch.ops.kernels import build
+            counts = [c.count for c in build.COUNTERS]
+            fn()
+            for c, n in zip(build.COUNTERS, counts):
+                c.count = n
+
+        return replay

@@ -12,6 +12,8 @@ box four cutoffs wide, where the list has more than one cell per axis)
 and the test-size ionic-liquid file (IL_SMALL) for the decks.  The cell
 list cases split 192 cells (S2, ODD) or 112 (S3) over the ranks; d = 3
 slices, with pad cells, are held in one process by test_torch_cells.py.
+The ``graphed`` case drives ``ShardedEngine.run`` through the graph runner
+with ``torch_cells.EagerBackend`` (``graphed_run``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from torch_cells import CPU64, S2, S3, SOLVE64, il_small
+from torch_cells import CPU64, S2, S3, SOLVE64, EagerBackend, il_small
 
 ODD = dict(n_elyte=510, nele_side=7, lz=60.0, lxy=24.0)
 
@@ -75,6 +77,13 @@ CASES = _matrix() + [
     # and bins the ranks' rows every step, as the JAX step does
     dict(name="tile-INV-PPPM-tiled", cell="S3", solver="INV", kspace="PPPM",
          pair="tile", tiled=True, card_route=True, steps=2),
+    # ``run`` through Engine.run's graph runner (``graphs.replayed``
+    # patched, each segment run where the card captures and replays it):
+    # the block list rebuilt inside the run, the CG blocks and the ranks'
+    # persistent mesh-tile assignment, against a loop of ``step``
+    dict(name="run-graphed", cell="S3", solver="CG", kspace="PPPM",
+         pair="block", tiled=True, skin=0.1, v_seed=0, steps=6,
+         graphed=True),
 ]
 CASE_NAMES = [c["name"] for c in CASES]
 
@@ -133,6 +142,36 @@ def _arrays(st):
                 scalar=float(st.scalar_out), step=st.step)
 
 
+def _same_state(a, b):
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in
+               ("x", "v", "q", "f", "energy", "scalar_out", "step_t"))
+
+
+def graphed_run(sheng, st0, nsteps):
+    """``sheng.run`` through the graph runner, with a thermo row every step
+    and with none, against a loop of ``sheng.step`` and its rows: whether
+    each is equal bit for bit, the runner's segments, and the rebuilds and
+    CG blocks of the eager loop and of a replayed run."""
+    from lammps_user_conp2_tpu_torch.models.md import stack_thermo
+    r0, b0 = sheng.rebuilds, sheng.cg_blocks
+    st, rows = st0, []
+    for _ in range(nsteps):
+        st = sheng.step(st)
+        rows.append(sheng.thermo(st))
+    eager = (sheng.rebuilds - r0, sheng.cg_blocks - b0)
+    ref = stack_thermo(rows)
+    g1, th1 = sheng.run(st0, nsteps, thermo_every=1)
+    r0, b0 = sheng.rebuilds, sheng.cg_blocks
+    g0, th0 = sheng.run(st0, nsteps, thermo_every=0)
+    replayed = (sheng.rebuilds - r0, sheng.cg_blocks - b0)
+    (runner,) = sheng._step_graphs.values()
+    return dict(run_same=_same_state(g1, st) and _same_state(g0, st),
+                thermo_same=th0 is None and list(th1) == list(ref) and all(
+                    torch.equal(th1[k], ref[k]) for k in ref),
+                segments=sorted(runner.replays), eager=eager,
+                replayed=replayed, steps=g1.step)
+
+
 def run_cases(rank, comm, names, il_path):
     """Every named case in turn, in each rank: the port's sharded engine
     ``steps`` steps (``run``) from ``init_state``; rank 0 also runs the
@@ -141,6 +180,7 @@ def run_cases(rank, comm, names, il_path):
     v, q})."""
     from lammps_user_conp2_tpu_torch import workloads as twl
     from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models import graphs
     from lammps_user_conp2_tpu_torch.models import md as md_mod
     from lammps_user_conp2_tpu_torch.models.md import build_engine
     from lammps_user_conp2_tpu_torch.ops import pppm
@@ -149,11 +189,15 @@ def run_cases(rank, comm, names, il_path):
 
     results, replicated = {}, {}
     dense, route = pppm._use_dense, md_mod.kernels_run
+    replayed, backend = graphs.replayed, graphs.CudaGraphBackend
     for spec in (c for c in CASES if c["name"] in names):
         if spec.get("tiled"):
             pppm._use_dense = lambda grid, n: False
         if spec.get("card_route"):
             md_mod.kernels_run = lambda device, dtype: True
+        if spec.get("graphed"):
+            graphs.replayed = lambda state: True
+            graphs.CudaGraphBackend = EagerBackend
         try:
             system, md, cfg, v0 = build_case(spec, twl, il_path)
             x0 = start_positions(spec, system)
@@ -170,6 +214,8 @@ def run_cases(rank, comm, names, il_path):
                                  else sheng.rank_grid.tile_cap),
                        x_ref_moved=bool(st.nbr is not None and not torch.equal(
                            st.nbr.x_ref, st0.nbr.x_ref)))
+            if spec.get("graphed"):
+                out["graphed"] = graphed_run(sheng, st0, nsteps)
             if rank == 0:
                 s1 = st0
                 for _ in range(nsteps):
@@ -186,6 +232,7 @@ def run_cases(rank, comm, names, il_path):
             replicated[spec["name"]] = [st.x, st.v, st.q]
         finally:
             pppm._use_dense, md_mod.kernels_run = dense, route
+            graphs.replayed, graphs.CudaGraphBackend = replayed, backend
     # what the rank imported of jax or the JAX package: nothing
     results["modules"] = sorted(
         m for m in sys.modules if m.split(".")[0] in (
