@@ -7,7 +7,9 @@ The JAX package's CLI on the port, with its flags and their meanings:
   run-suite  run a deck's equivalent trials and compare their charges
   rerun      re-solve the electrode charges of a dumped trajectory
   compare    overlay a column of two or more logs (numerically)
-  profile    per-phase timing of the step on the engine's path
+  profile    per-phase timing of the step on the engine's path, and on
+             the card the graphed step's layers and step loop under the
+             tracer (``utils/timers.step_loop``)
 
 The decks (``dilute``, ``il_onelayer``, ``il_twolayer``, ``cond``,
 ``zmirror``, every trial, and ``synthetic``) read their data under
@@ -29,6 +31,8 @@ import time
 import numpy as np
 import torch
 
+from .utils import timers
+
 # the log's columns, as the reference's thermo_style custom
 # (tests/cond/input:74) plus PotEng
 THERMO_HEADER = "Step Temp c_tempsl c_qleft c_qright c_dipole f_e PotEng"
@@ -36,6 +40,7 @@ THERMO_COLS = ("step", "temp", "tempsl", "qleft", "qright", "dipole", "f_e",
                "pe")
 
 
+@timers.span("setup.deck")
 def load_deck(workload: str, trial: int):
     """(system, md, cfg) of a deck's trial; ``synthetic`` takes the trial as
     its electrolyte count (0: its default)."""
@@ -71,7 +76,10 @@ def thermo_line(row: dict) -> str:
 
 
 def thermo_rows(th: dict) -> list:
-    """The rows of ``Engine.run``'s thermo dict, one dict per row."""
+    """The rows of ``Engine.run``'s thermo dict, one dict per row; each
+    column but the host's ``step`` is a host read (``timers.host_read``)."""
+    timers.host_read("thermo_rows", sum(torch.is_tensor(v) for k, v in
+                                        th.items() if k != "step"))
     th = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)
           for k, v in th.items()}
     return [{k: v[i] for k, v in th.items()} for i in range(len(th["step"]))]
@@ -123,10 +131,12 @@ def cmd_run(args):
         print(f"# Loop time {wall:.3f} s for {args.steps} steps "
               f"({args.steps / wall:.3f} steps/s)", file=out)
         if args.log and not args.no_timing:
-            # the run-end timing flush: the reference's Btime/Ctime/Ktime
+            # the run-end timing flush, after the set-up's spans as LAMMPS
+            # prints its own breakdown: the reference's Btime/Ctime/Ktime
             # and CG-iteration lines (fix_conp.cpp:553-567, 926-928)
-            from .utils.timers import profile_step
-            for k, v in profile_step(eng, st, iters=3).items():
+            for line in timers.span_lines("setup."):
+                print(f"# {line}", file=out)
+            for k, v in timers.profile_step(eng, st, iters=3).items():
                 print(f"# {k}: {v * 1e3:.3f} ms", file=out)
             if eng.conp is not None:
                 it = eng.conp.cg_iterations(st.x, st.q, st.nbr, eng.ncfg,
@@ -206,14 +216,18 @@ def cmd_run_suite(args):
 
 
 def cmd_profile(args):
-    from .utils.timers import profile_step
     _, eng = build(args)
     launches = {}
-    res = profile_step(eng, eng.init_state(), iters=args.iters,
-                       launches=launches)
+    st = eng.init_state()
+    res = timers.profile_step(eng, st, iters=args.iters, launches=launches)
     print(json.dumps({k: f"{v * 1e3:.3f} ms" for k, v in res.items()},
                      indent=1))
     print("launches " + json.dumps(launches))
+    if st.x.is_cuda:
+        # the graphed step under the tracer: each layer's device ms, the
+        # host's launch and loop time and reads per step, the idle share
+        # inside the launches
+        print("step_loop " + json.dumps(timers.step_loop(eng, st)))
     return 0
 
 

@@ -59,7 +59,7 @@ from ..ops.neighbors import b_realspace_from_list
 from ..ops.pairs import gauss_table_kernels, min_image
 from ..utils.config import (ConpConfig, FFMode, KSpaceStyle, MDConfig, Mode,
                             PairMode, Solver)
-from ..utils import matio
+from ..utils import matio, timers
 from ..utils.device import DEFAULT_DTYPE, resolve_device
 from .electrodes import (ConpContext, ElectrodeKernels, assemble_amatrix,
                          build_d_vector, make_kernels, project_inverse)
@@ -516,7 +516,10 @@ class ConpSolver(nn.Module):
 
     def cg_active(self, pend: SolvePending) -> bool:
         """Whether the solve needs another CG block (a host read)."""
-        return pend.cg is not None and bool(pend.cg.active)
+        if pend.cg is None:
+            return False
+        timers.host_read("cg_flag")
+        return bool(pend.cg.active)
 
     def cg_block(self, pend: SolvePending) -> CGState:
         """The next ``CG_BLOCK`` iterations of the solve's carry."""
@@ -581,13 +584,17 @@ class ConpSolver(nn.Module):
         return int(it)
 
 
+@timers.span("setup.conp")
 def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
                x0: Optional[np.ndarray] = None,
                q0: Optional[np.ndarray] = None,
                g_ewald: Optional[float] = None,
                solve_dtype=DEFAULT_DTYPE, device=None) -> ConpSolver:
     """One-time setup: k-space tables, A assembly, inverse + projection,
-    d vector, elesetq (linalg_init/linalg_setup, fix_conp.cpp:393-464).
+    d vector, elesetq (linalg_init/linalg_setup, fix_conp.cpp:393-464);
+    the span ``setup.conp``, with A's assembly (or read) in
+    ``setup.conp.matrix`` and the inverse, its projection, d and elesetq
+    in ``setup.conp.inverse`` (``utils/timers``).
     CG keeps A and forms no inverse; CG_MATFREE keeps only A's real-space
     block and diagonal; both solve elesetq = A^-1 d by CG.  ``cfg.a_file``
     / ``cfg.ainv_file`` read A / its projected inverse from a file
@@ -686,12 +693,15 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
         ainv = torch.from_numpy(matio.read_matrix(cfg.ainv_file, tags_e)[1])
         ee = float("nan")
     else:
-        if cfg.a_file is not None:
-            a = torch.from_numpy(matio.read_matrix(cfg.a_file, tags_e)[1])
-        else:
-            a = assemble_amatrix(xe, type_e, kernels.self_diag[ele_idx], ksp,
-                                 kernels, box=box, periodic=system.periodic,
-                                 cut_coulsq=cut_coulsq)
+        with timers.span("setup.conp.matrix"):
+            if cfg.a_file is not None:
+                a = torch.from_numpy(matio.read_matrix(cfg.a_file,
+                                                       tags_e)[1])
+            else:
+                a = assemble_amatrix(xe, type_e, kernels.self_diag[ele_idx],
+                                     ksp, kernels, box=box,
+                                     periodic=system.periodic,
+                                     cut_coulsq=cut_coulsq)
         if cfg.matout:
             # written into the working directory, as the reference does
             matio.write_matrix("amatrix", tags_e, a.numpy())
@@ -702,36 +712,42 @@ def setup_conp(system: System, md: MDConfig, cfg: ConpConfig, *,
             ainv = z64(1, 1)
             ee = float("nan")
         else:
-            ainv = torch.linalg.inv(a)
-            if not one_electrode:
-                ainv, ee = project_inverse(ainv, **proj)
-                ee = float(ee)
-            else:
-                ee = float(torch.sum(ainv))
+            with timers.span("setup.conp.inverse"):
+                ainv = torch.linalg.inv(a)
+                if not one_electrode:
+                    ainv, ee = project_inverse(ainv, **proj)
+                    ee = float(ee)
+                else:
+                    ee = float(torch.sum(ainv))
 
-    # --- d vector and elesetq (b_setq_cal + get_setq)
-    d = torch.from_numpy(build_d_vector(system, cfg, xe))
-    if matfree:
-        fk64 = (fksp if solve_dtype == torch.float64
-                else ewf.factorize(ksp, device=device, dtype=torch.float64))
-        op = make_matfree_operator(
-            fk64, torch.from_numpy(xe).to(device), real_block.to(device),
-            diag_extra.to(device), slabflag=ksp.slabflag, volume=ksp.volume)
-        elesetq, _ = cg_solve(op, d.to(device), cfg.cg_tolerance,
-                              cfg.cg_maxiter)
-        elesetq = elesetq.cpu()
-    elif use_cg:
-        elesetq, _ = cg_solve(amat, d, cfg.cg_tolerance, cfg.cg_maxiter)
-    else:
-        elesetq = ainv @ d
-    elecheck_ele = torch.from_numpy(system.elecheck[ele_idx])
-    totsetq = torch.sum(torch.where(elecheck_ele == 1, elesetq,
-                                    torch.zeros_like(elesetq)))
-    if one_electrode and not use_cg:
-        # projection deferred until after setq (fix_conp.cpp:958, 1115);
-        # as in the JAX package, CG_MATFREE's placeholder goes through it
-        ainv, ee = project_inverse(ainv, **proj)
-        ee = float(ee)
+    # --- d vector and elesetq (b_setq_cal + get_setq): the inverse's span
+    # again (a second record of the name)
+    with timers.span("setup.conp.inverse"):
+        d = torch.from_numpy(build_d_vector(system, cfg, xe))
+        if matfree:
+            fk64 = (fksp if solve_dtype == torch.float64
+                    else ewf.factorize(ksp, device=device,
+                                       dtype=torch.float64))
+            op = make_matfree_operator(
+                fk64, torch.from_numpy(xe).to(device), real_block.to(device),
+                diag_extra.to(device), slabflag=ksp.slabflag,
+                volume=ksp.volume)
+            elesetq, _ = cg_solve(op, d.to(device), cfg.cg_tolerance,
+                                  cfg.cg_maxiter)
+            elesetq = elesetq.cpu()
+        elif use_cg:
+            elesetq, _ = cg_solve(amat, d, cfg.cg_tolerance, cfg.cg_maxiter)
+        else:
+            elesetq = ainv @ d
+        elecheck_ele = torch.from_numpy(system.elecheck[ele_idx])
+        totsetq = torch.sum(torch.where(elecheck_ele == 1, elesetq,
+                                        torch.zeros_like(elesetq)))
+        if one_electrode and not use_cg:
+            # projection deferred until after setq (fix_conp.cpp:958,
+            # 1115); as in the JAX package, CG_MATFREE's placeholder goes
+            # through it
+            ainv, ee = project_inverse(ainv, **proj)
+            ee = float(ee)
     if cfg.matout and cfg.ainv_file is None and not use_cg:
         matio.write_matrix("inv_a_matrix", tags_e, ainv.numpy())
     eleinitq = (torch.from_numpy(np.asarray(q0[ele_idx], np.float64))

@@ -45,6 +45,13 @@ which a replay does not run: each capture records the counts its segment
 added, the counts are put back, and every replay adds them again, so the
 counters read as they would after the eager steps.
 
+Under ``utils/timers.tracing`` each replay is a ``steploop.launch`` span
+and ``run`` a ``steploop.run`` span, the flag reads count as
+``host_read`` (``rebuild_flag``, ``cg_flag``), and, unless its
+``marks=False``, the graphs, keyed by the marks flag, are captured with a
+timing event at each layer boundary of the step (``mark_ms`` reads them
+after a replay); with tracing off a replay pays one flag test.
+
 Nothing falls back: a capture or a replay that fails raises, naming the
 segment.
 """
@@ -56,6 +63,7 @@ import dataclasses
 import torch
 
 from ..ops.kernels import build
+from ..utils import timers
 from ..utils.config import Solver
 
 # thermo rows the first capture of the thermo graph makes room for
@@ -166,6 +174,10 @@ class StepGraphs:
         self.rows = None
         self.ctr = torch.zeros(1, dtype=torch.int64, device=state.x.device)
         self.replays = {}
+        # each segment's device marks (captured under tracing), and the
+        # segments replayed since ``run`` began (under tracing)
+        self.marks = {}
+        self.replayed = []
         conp = eng.conp
         # the solve's CG carry between graphs H, C and T (made in the
         # warm-up, outside the captures)
@@ -214,16 +226,18 @@ class StepGraphs:
         return name if solve else name + ":skip"
 
     def _post(self, solve):
-        x, v, xi, vxi, _ = self.p
-        new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr, self.s.tasg,
-                             solve=solve)
-        copy_state(self.s, new, self._variant("post", solve))
+        with timers.layer("step"):
+            x, v, xi, vxi, _ = self.p
+            new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr,
+                                 self.s.tasg, solve=solve)
+            copy_state(self.s, new, self._variant("post", solve))
 
     def _step(self, solve):
-        x, v, xi, vxi, _ = self.eng._pre(self.s)
-        new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr, self.s.tasg,
-                             solve=solve)
-        copy_state(self.s, new, self._variant("step", solve))
+        with timers.layer("step"):
+            x, v, xi, vxi, _ = self.eng._pre(self.s)
+            new = self.eng._post(self.s, x, v, xi, vxi, self.s.nbr,
+                                 self.s.tasg, solve=solve)
+            copy_state(self.s, new, self._variant("step", solve))
 
     def _head(self):
         if not self.listed:
@@ -254,8 +268,10 @@ class StepGraphs:
     # ----------------------------------------------------------- capture
     def _capture(self, name, fn):
         counts = _counts()
+        marks = [] if timers.MARKS and self.s.x.is_cuda else None
         try:
-            replay = self.backend.capture(fn)
+            with timers.marking(marks):
+                replay = self.backend.capture(fn)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the step segment "
                                f"{name!r} failed: {e}") from e
@@ -263,6 +279,8 @@ class StepGraphs:
                  if c.count != n]
         _restore(counts)
         self.replays[name] = (replay, added)
+        if marks:
+            self.marks[name] = marks
 
     def _grow_rows(self, nrows: int) -> None:
         """Rows for ``nrows`` thermo rows, and the thermo graph on them."""
@@ -284,7 +302,12 @@ class StepGraphs:
     def _replay(self, name: str) -> None:
         replay, added = self.replays[name]
         try:
-            replay()
+            if timers.TRACING:
+                self.replayed.append(name)
+                with timers.span("steploop.launch"):
+                    replay()
+            else:
+                replay()
         except Exception as e:
             raise RuntimeError(f"CUDA graph replay of the step segment "
                                f"{name!r} failed: {e}") from e
@@ -292,9 +315,34 @@ class StepGraphs:
             c.count += n
 
     # --------------------------------------------------------------- run
+    def mark_ms(self) -> dict:
+        """{layer: device ms} summed over the marks of the segments the last
+        ``run`` under tracing replayed, each as its last replay recorded
+        them (after a synchronise; a segment replayed more than once in
+        that run counts its last replay once)."""
+        out = {}
+        for name in dict.fromkeys(self.replayed):
+            for layer, a, b in self.marks.get(name, ()):
+                out[layer] = out.get(layer, 0.0) + a.elapsed_time(b)
+        return out
+
     def run(self, state, nsteps: int, thermo_every: int):
         """``nsteps`` replayed steps from ``state`` (left as it is):
         (final state, thermo dict as ``Engine.run`` returns it)."""
+        if timers.TRACING:
+            self.replayed = []
+            with timers.span("steploop.run"):
+                return self._run(state, nsteps, thermo_every, True)
+        return self._run(state, nsteps, thermo_every, False)
+
+    @staticmethod
+    def _read(flag, site: str, traced: bool) -> bool:
+        """A device flag read on the host, counted under tracing."""
+        if traced:
+            timers.count("host_read." + site)
+        return bool(flag)
+
+    def _run(self, state, nsteps, thermo_every, traced):
         nrows = nsteps // thermo_every if thermo_every else 0
         self._grow_rows(nrows)
         copy_state(self.s, state, "load")
@@ -304,12 +352,12 @@ class StepGraphs:
             solve = eng.solves(state.step + i)
             if self.listed:
                 self._replay("pre")
-                if bool(self.p[4]):
+                if self._read(self.p[4], "rebuild_flag", traced):
                     self._replay("rebuild")
                     eng.rebuilds += 1
             if solve and self.cg:
                 self._replay("head")
-                while bool(self.pend.cg.active):
+                while self._read(self.pend.cg.active, "cg_flag", traced):
                     self._replay("cg")
                     eng.cg_blocks += 1
                 self._replay("tail")
@@ -339,7 +387,8 @@ def graph_key(eng, state) -> tuple:
     """The capacities (``eng.graph_caps()``) and the state layout a set of
     graphs is valid for: each tensor's shape, dtype and device, and each
     dataclass's type (a sharded rank's mesh-tile assignment is not the
-    engine's, whatever its shapes)."""
+    engine's, whatever its shapes); and ``timers.MARKS``, under which the
+    graphs hold the layers' device marks."""
     tensors = []
 
     def walk(o):
@@ -353,7 +402,7 @@ def graph_key(eng, state) -> tuple:
             tensors.append(None)
 
     walk(state)
-    return eng.graph_caps() + (tuple(tensors),)
+    return eng.graph_caps() + (tuple(tensors), timers.MARKS)
 
 
 def step_graphs(eng, state, backend=None) -> StepGraphs:

@@ -75,6 +75,7 @@ from ..ops.neighbors import (block_pair_forces, build_neighbor_list,
                              nlist_pair_forces)
 from ..ops.pairs import (PairTables, dense_pair_forces, exclusions_tensors,
                          make_pair_tables)
+from ..utils import timers
 from ..utils.config import KSpaceStyle, MDConfig, PairMode
 from ..utils.device import DEFAULT_DTYPE, resolve_device
 from . import graphs
@@ -356,11 +357,17 @@ class Engine(nn.Module):
         ``tasg`` the persistent mesh-tile assignment, when the engine keeps
         them; ``scalar`` the fix scalar of this step's solve, which the
         feedback field reads."""
+        with timers.layer("forces"):
+            return self._forces(x, q, self._own_cache(kcache, x), nbr, tasg,
+                                scalar)
+
+    def _forces(self, x, q, kcache, nbr, tasg, scalar):
+        """``compute_forces`` with the solve's cache in x's dtype, or None."""
         sys = self.system
         u = self.units
         box = self.ksp_force.box
-        kcache = self._own_cache(kcache, x)
-        f, evdwl, ecoul, fused_ecorr = self._pair(x, q, kcache, nbr)
+        with timers.layer("forces.pair"):
+            f, evdwl, ecoul, fused_ecorr = self._pair(x, q, kcache, nbr)
         pe = evdwl + ecoul
         if self.has_bonded:
             fba, eba = bonded_forces(
@@ -369,7 +376,8 @@ class Engine(nn.Module):
                 table=self.bonded_tab)
             f = f + fba
             pe = pe + eba
-        ek, fk = self._kspace(x, q, kcache, tasg)
+        with timers.layer("forces.kspace"):
+            ek, fk = self._kspace(x, q, kcache, tasg)
         g = self.ksp_force.g_ewald
         eself = -u.qqr2e * g / MY_PIS * torch.sum(q * q)
         qsum = torch.sum(q)
@@ -436,23 +444,26 @@ class Engine(nn.Module):
         (LAMMPS Neighbor::check_distance), or on the tile path of the mesh
         tiles' drift test (JAX md.py:367-375); None when the step has
         neither."""
-        itg = self.integrator
-        v, xi, vxi = itg.thermostat_half(state.v, state.nhc_xi, state.nhc_vxi)
-        v = itg.kick(v, state.f)
-        x = itg.drift(state.x, v)
-        if self.cons is not None:
-            x, dv = shake_positions(self.cons, x, state.x, itg.dt,
-                                    box=self.ksp_force.box,
-                                    periodic=self.system.periodic)
-            v = v + dv
-        if self.zmirror is not None:
-            x = self.zmirror.apply(x, state.step_t + 1)
-        flag = None
-        if self.ncfg is not None:
-            flag = needs_rebuild(self.ncfg, state.nbr, x)
-        elif self.mesh_persist:
-            flag = pppm_ops.tile_drift_exceeded(self.pppm_grid, state.tasg, x)
-        return x, v, xi, vxi, flag
+        with timers.layer("integrate.pre"):
+            itg = self.integrator
+            v, xi, vxi = itg.thermostat_half(state.v, state.nhc_xi,
+                                             state.nhc_vxi)
+            v = itg.kick(v, state.f)
+            x = itg.drift(state.x, v)
+            if self.cons is not None:
+                x, dv = shake_positions(self.cons, x, state.x, itg.dt,
+                                        box=self.ksp_force.box,
+                                        periodic=self.system.periodic)
+                v = v + dv
+            if self.zmirror is not None:
+                x = self.zmirror.apply(x, state.step_t + 1)
+            flag = None
+            if self.ncfg is not None:
+                flag = needs_rebuild(self.ncfg, state.nbr, x)
+            elif self.mesh_persist:
+                flag = pppm_ops.tile_drift_exceeded(self.pppm_grid,
+                                                    state.tasg, x)
+            return x, v, xi, vxi, flag
 
     def _rebuild(self, x, nbr_old):
         """``derived_state`` at x, with the list's overflow flag kept sticky:
@@ -477,14 +488,15 @@ class Engine(nn.Module):
         path's reuse holds on every step); None without a solver."""
         if self.conp is None:
             return None
-        if not solve:
-            kcache = None
-            if self.conp.solve_dtype == self.dtype:
-                kcache = self.conp.elyte_kcache(x, state.q, tasg)
-            return SolvePending(b=None, kcache=kcache)
-        return self.conp.solve_begin(x, state.q, nbr, self.ncfg, tasg,
-                                     step=state.step_t + 1,
-                                     scalar_prev=state.scalar_out)
+        with timers.layer("solve"):
+            if not solve:
+                kcache = None
+                if self.conp.solve_dtype == self.dtype:
+                    kcache = self.conp.elyte_kcache(x, state.q, tasg)
+                return SolvePending(b=None, kcache=kcache)
+            return self.conp.solve_begin(x, state.q, nbr, self.ncfg, tasg,
+                                         step=state.step_t + 1,
+                                         scalar_prev=state.scalar_out)
 
     def _post_tail(self, state: MDState, x, v, xi, vxi, nbr, tasg,
                    pend) -> MDState:
@@ -496,13 +508,16 @@ class Engine(nn.Module):
         if pend is not None and pend.b is None:
             kcache = pend.kcache
         elif pend is not None:
-            q, scalar, kcache = self.conp.solve_end(pend, x, q, step=step_t)
+            with timers.layer("solve"):
+                q, scalar, kcache = self.conp.solve_end(pend, x, q,
+                                                        step=step_t)
         f, pe = self.compute_forces(x, q, kcache, nbr, tasg, scalar)
-        v = itg.kick(v, f)
-        if self.cons is not None:
-            v = rattle_velocities(self.cons, x, v, box=self.ksp_force.box,
-                                  periodic=self.system.periodic)
-        v, xi, vxi = itg.thermostat_half(v, xi, vxi)
+        with timers.layer("integrate.post"):
+            v = itg.kick(v, f)
+            if self.cons is not None:
+                v = rattle_velocities(self.cons, x, v, box=self.ksp_force.box,
+                                      periodic=self.system.periodic)
+            v, xi, vxi = itg.thermostat_half(v, xi, vxi)
         return MDState(x=x, v=v, q=q, f=f, step=state.step + 1, nhc_xi=xi,
                        nhc_vxi=vxi, scalar_out=scalar, energy=pe, nbr=nbr,
                        tasg=tasg, step_t=step_t)
@@ -528,12 +543,15 @@ class Engine(nn.Module):
         ``run`` replays the same segments as CUDA graphs on the card."""
         x, v, xi, vxi, flag = self._pre(state)
         nbr, tasg = state.nbr, state.tasg
+        if flag is not None:
+            timers.host_read("rebuild_flag")
         if flag is not None and bool(flag):
             nbr, tasg = self._rebuild(x, state.nbr)
             self.rebuilds += 1
         return self._post(state, x, v, xi, vxi, nbr, tasg)
 
     # -------------------------------------------------------------- setup
+    @timers.span("setup.init_state")
     def init_state(self, x0=None, v0=None, q0=None) -> MDState:
         """Zero the velocities of atoms no integrator moves, build the list
         and mesh tiles, solve the initial charges, compute the first
@@ -682,8 +700,11 @@ class Engine(nn.Module):
 
         final, th = execute(state)
         for _ in range(3):
+            timers.host_read("energy")
             if math.isfinite(float(final.energy)):
                 break
+            if self.ncfg is not None and state.nbr is not None:
+                timers.host_read("overflow_flag")
             if (self.ncfg is not None and state.nbr is not None
                     and bool(final.nbr.overflow)):
                 self._grow_neighbor_capacity()
@@ -736,6 +757,7 @@ def _check_supported(system: System, md: MDConfig) -> None:
         raise NotImplementedError(f"not ported: pair_path={md.pair_path!r}")
 
 
+@timers.span("setup.engine")
 def build_engine(system: System, md: MDConfig,
                  conp: Optional[ConpSolver] = None, *,
                  dtype=DEFAULT_DTYPE, device=None) -> Engine:

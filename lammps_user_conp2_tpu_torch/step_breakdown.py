@@ -38,6 +38,8 @@ import time
 import numpy as np
 import torch
 
+from .utils import timers
+
 CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
 BONDED = dict(n_pairs=1329, sheets=1, nx=27, ny=16)
 # the CUDA kernels of each hand kernel, by name: K1, K2a, K7 and K8 both
@@ -123,17 +125,8 @@ def device_busy(prof, nsteps):
     from a profile: busy time is the union of the device kernel
     intervals."""
     kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    ivs = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur = 0.0, None
-    for s, e in ivs:
-        if cur is None or s > cur[1]:
-            if cur is not None:
-                busy += cur[1] - cur[0]
-            cur = [s, e]
-        else:
-            cur[1] = max(cur[1], e)
-    if cur is not None:
-        busy += cur[1] - cur[0]
+    busy = sum(e - s for s, e in timers.union(
+        (e.time_range.start, e.time_range.end) for e in kern))
     by_name = {}
     for e in kern:
         t, c = by_name.get(e.name, (0.0, 0))

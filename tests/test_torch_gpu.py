@@ -40,7 +40,10 @@ none on the cell path; K4's item-list entry against its plain version
 at half the live count; ``run`` recovering from a short cell cap and a
 short pair cap.
 The sharded run at d = 1 over NCCL replays CUDA graphs equal to the eager
-sharded steps bit for bit.
+sharded steps bit for bit.  The graphs captured under ``timers.tracing``
+(timing events at the layer boundaries) step the same bits as the
+unmarked ones (il, tiled list, CG), their marks adding up to the step's
+device time at il; the list path counts one flag read per step.
 Needs a CUDA device: skipped on the CPU.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -q``."""
 
@@ -1417,3 +1420,60 @@ def test_run_recovers_from_short_cap_on_card(cuda, monkeypatch, path):
     assert np.isfinite(float(g.energy))
     e1 = _steps(eng, eng._heal_state(st0), 5)
     assert _same(g, e1), _diff(g, e1)
+
+
+def test_marked_graph_equals_unmarked_on_card(cuda, tmp_path, monkeypatch):
+    """The il graphs captured under ``timers.tracing`` (timing events at
+    the layer boundaries) are another set of graphs, keyed by the flag,
+    and step the same bits as the unmarked graphs; the marks of a step
+    give each layer a device time, none negative, the five layers and the
+    step's self time adding up to the step's device time."""
+    from lammps_user_conp2_tpu_torch.models import graphs
+    from lammps_user_conp2_tpu_torch.utils import timers
+    eng, kw = _graph_cell(cuda, "il", tmp_path, monkeypatch)
+    st0 = eng.init_state(**kw)
+    off, th_off = eng.run(st0, 20, thermo_every=10)
+    with timers.tracing():
+        on, th_on = eng.run(st0, 20, thermo_every=10)
+    torch.cuda.synchronize()
+    assert len(eng._step_graphs) == 2
+    assert _same(on, off), _diff(on, off)
+    assert torch.equal(th_on["pe"], th_off["pe"])
+    unmarked = [sg for k, sg in eng._step_graphs.items() if not k[-1]]
+    assert unmarked[0].marks == {}
+    with timers.tracing():
+        st, _ = eng.run(st0, 1, thermo_every=0)
+    torch.cuda.synchronize()
+    sg = eng._step_graphs[graphs.graph_key(eng, st0)[:-1] + (True,)]
+    m = sg.mark_ms()
+    assert {"step", "integrate.pre", "solve", "forces", "forces.pair",
+            "forces.kspace", "integrate.post"} <= set(m)
+    lay = timers._layers(m)
+    five = ("integrate", "solve", "pair", "kspace", "forces_other")
+    assert all(lay[k] > 0.0 for k in five), lay
+    assert lay["step_self"] >= 0.0, lay
+    assert sum(lay[k] for k in five) + lay["step_self"] == pytest.approx(
+        lay["step"], rel=0.01)
+    timers.reset()
+
+
+@pytest.mark.parametrize("cell", ["tiled", "mid_cg_nevery2"])
+def test_traced_split_graphs_on_card(cuda, cell, tmp_path, monkeypatch):
+    """A list-path cell and a CG cell capture and replay under
+    ``timers.tracing``, equal to the unmarked graphs bit for bit; the list
+    path counts one flag read per step."""
+    from lammps_user_conp2_tpu_torch.utils import timers
+    eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
+    st0 = eng.init_state(**kw)
+    off, _ = eng.run(st0, 6, thermo_every=0)
+    timers.reset()
+    with timers.tracing():
+        on, _ = eng.run(st0, 6, thermo_every=0)
+    torch.cuda.synchronize()
+    assert _same(on, off), _diff(on, off)
+    c = timers.counters()
+    if eng.split_step:
+        assert c["host_read.rebuild_flag"] == 6
+    else:
+        assert c["host_read.cg_flag"] >= 3
+    timers.reset()
