@@ -46,6 +46,8 @@ z-binned mesh):
      K1 and K2a bit-identical across two launches, K1's packed rows equal
      to their plain version, K1's work items and K2a's kept atoms per tile
      and staging passes printed; K1's and K2a's host and device times;
+     K10's split form (two launches per call) on the cell's integrator as
+     in phase 11 (``ms_100k``, ``bound_ms_100k`` in the kernels line);
   8. the main path: 10 warm-up and 100 timed steps from positions near the
      walls; K1, K2a and K3 must have launched every step and the Verlet
      list must have been rebuilt in the timed window; finite energy,
@@ -73,10 +75,16 @@ mid-size path with SHAKE/RATTLE, K7 and K8):
      cations' special-bond exclusions, fused correction) and K5 against
      their plain versions at this cell's shapes (2e-5), two launches
      bit-identical, timed with their bounds (``ms_il``, ``bound_ms_il`` in
-     the kernels line), K4's tested and in-range pairs;
- 12. the main path: 11 warm-up and 100 timed steps; K4, K5, K7 and K8 must
-     have launched every step (111 times; K4 and K5 once more in
-     init_state); finite energy, neutral electrodes; the angles' 1-3
+     the kernels line), K4's tested and in-range pairs.  K10 (one half step
+     of the integrator) on the engine's integrator two steps in, each
+     stage sequence the engine runs (with SHAKE: ("nhc", "kick",
+     "drift"), ("kick",) and ("nhc",)): v and x against the plain version
+     (2e-5), xi and vxi within a float32 ulp of the plain version in
+     float64, two launches bit-identical, one CUDA kernel per call, times
+     and the bound by bytes;
+ 12. the main path: 11 warm-up and 100 timed steps; K4, K5, K7, K8 and
+     K10 must have launched every step (111 times, K10 333; K4 and K5 once
+     more in init_state); finite energy, neutral electrodes; the angles' 1-3
      distances within ShakeConfig.tol (1e-4) and the bonds within twice
      the residual of the float64 reference at the same step (IL_F64_BONDS);
  13. 11 steps on the card (float32) against 11 steps on the CPU (float64,
@@ -221,8 +229,8 @@ host syncs per step):
      steps, K4 once per step, K5 once per solve step and never on a skip
      step;
  32. the 100k cell with a float64 solve under a float32 engine, INV and
-     CG_MATFREE: K1, K2a and K3 once per step each and no hand kernel in
-     the float64 solve; INV against phase 26's float64 run within
+     CG_MATFREE: K1, K2a and K3 once per step each, K10 four times (its
+     split form), and no hand kernel in the float64 solve; INV against phase 26's float64 run within
      MIXED_F64_GAP, CG_MATFREE against the mixed INV run within
      CG_TOL_GAP (and CG_INV_GAP at CG_TIGHT_TOL);
  33. the mid-size cell under CG_MATFREE with mobile electrodes (every
@@ -393,10 +401,10 @@ this script.  K1, K2a, K4 and K5 also carry ``host_ms`` (the wrapper's
 host time per call, on the host clock) and ``device_ms`` (their CUDA
 kernels' device time per call, torch.profiler: K1's packing, sweep and
 reductions, K2a's one, K4's three, K5's two, the compaction of the z
-order to the electrolyte included); K2b, K3, K7 and K8 ``device_ms`` (one
-kernel each), K7 and K8 ``kernels_per_call`` and ``floor_ms``; K4, K5, K7
-and K8 ``launches_decks`` (their launches on the main paths of phases
-27-29), K4, K5 and K6 ``max_rel_err_ehgo_fo`` and ``device_ms_ehgo_fo``
+order to the electrolyte included); K2b, K3, K7, K8 and K10 ``device_ms``
+(one kernel each), K7, K8 and K10 ``kernels_per_call``, K7 and K8
+``floor_ms``; K4, K5, K7 and K8 ``launches_decks`` (their launches on the
+main paths of phases 27-29), K4, K5 and K6 ``max_rel_err_ehgo_fo`` and ``device_ms_ehgo_fo``
 (phase 28), ``bound_ms_decks`` (K4's and K5's bounds at the deck cells'
 shapes, phases 27-29) and ``launches_surface`` (launches on phases 35-40,
 by phase).  The il cell's figures carry
@@ -555,6 +563,7 @@ KERNEL_IDS = {
     "shake_positions": ("K7", "shake_positions"),
     "rattle_velocities": ("K8", "rattle_velocities"),
     "window_gather": ("K9", "window_gather"),
+    "integrate_half": ("K10", "integrate_half"),
 }
 # the CUDA kernels of each redesigned wrapper, for ``device_ms``
 K4_PARTS = ("pair_schedule", "pair_sweep", "pair_reduce")
@@ -569,6 +578,8 @@ K6_PARTS = ("corr_order_kernel", "corr_ele_kernel", "corr_ely_kernel",
 # K7 and K8 as redesigned (one launch per call) and in their first design
 K7_PARTS = ("shake_rows_kernel", "shake_kernel")
 K8_PARTS = ("rattle_rows_kernel", "rattle_kernel")
+K10_PARTS = ("integrate_half_kernel", "integrate_sums_kernel",
+             "integrate_apply_kernel")
 
 
 def compare(name, got, ref, tol=KERNEL_TOL):
@@ -855,7 +866,9 @@ def main() -> int:
         "conp_correction": pallas + "ele_rows_kernel.py:280",
         "shake_positions": pallas + "shake_kernel.py:163",
         "rattle_velocities": pallas + "shake_kernel.py:207",
-        "window_gather": "tools/exp_vmem_gather.py:46"}
+        "window_gather": "tools/exp_vmem_gather.py:46",
+        "integrate_half": "none: the JAX package's integrator is XLA ops "
+                          "(models/integrate.py)"}
     csrc = "lammps_user_conp2_tpu_torch/csrc/"
     source = {
         "pair_forces_conp": csrc + "pair_kernel.cu",
@@ -867,11 +880,14 @@ def main() -> int:
         "conp_correction": csrc + "ele_rows_kernel.cu",
         "shake_positions": csrc + "shake_kernel.cu",
         "rattle_velocities": csrc + "shake_kernel.cu",
-        "window_gather": csrc + "vmem_gather.cu"}
-    r100k = results["block_pair_conp_100k"]
-    results["block_pair_conp"].update(
-        ms_100k=r100k["ms"], host_ms_100k=r100k["host_ms"],
-        device_ms_100k=r100k["device_ms"], bound_ms_100k=r100k["bound_ms"])
+        "window_gather": csrc + "vmem_gather.cu",
+        "integrate_half": csrc + "integrate.cu"}
+    for name in ("block_pair_conp", "integrate_half"):
+        r100k = results[name + "_100k"]
+        results[name].update(
+            ms_100k=r100k["ms"], host_ms_100k=r100k["host_ms"],
+            device_ms_100k=r100k["device_ms"],
+            bound_ms_100k=r100k["bound_ms"])
     # each kernel's device time per launch under graph replay, per cell
     # where the main path launches it (the graph phases' profiles)
     for name, (kid, counter) in KERNEL_IDS.items():
@@ -1081,6 +1097,7 @@ def production_path(card, dev, results):
             (up, slots.rows, cfd), got, GATHER_FLOPS * system.natoms))
     report("phase 7", results, ("block_pair_100k", "block_pair_conp_100k",
                                 "spread_mesh", "gather3"), card)
+    k10_phase("phase 7", eng, results, card, key="integrate_half_100k")
 
     # ---- phase 8: the main path on the card
     counters = {"block_pair_100k": k1.launches, "spread_mesh": k2.launches,
@@ -1110,6 +1127,7 @@ def il_path(card, dev, results):
     from lammps_user_conp2_tpu_torch.models.shake import (build_constraints,
                                                           constraint_residuals)
     from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
     from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
     from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
     from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
@@ -1261,11 +1279,13 @@ def il_path(card, dev, results):
               f"({r['bound_by']})  [{card}]")
     report("phase 11", results, ("shake_positions", "rattle_velocities"),
            card, SHAKE_TOL)
+    k10_phase("phase 11", eng, results, card)
 
     # ---- phase 12: the main path on the card
     counters = {"pair_forces_conp": k4.launches, "b_realspace": k5.launches,
                 "shake_positions": k78.shake_launches,
-                "rattle_velocities": k78.rattle_launches}
+                "rattle_velocities": k78.rattle_launches,
+                "integrate_half": ik.launches}
     st, _, _, launches = main_run("phase 12", eng, {}, 11, 100, counters,
                                   conp.ne, card)
     graph_phase("phase 12b", "il", eng, {}, card)
@@ -1302,31 +1322,100 @@ def il_path(card, dev, results):
         raise AssertionError("phase 13: the card's residual is larger")
     print(f"phase 13: 11 steps matched the float64 CPU run "
           f"({time.perf_counter() - t0:.1f} s)")
-    return {k: launches[k] for k in ("shake_positions", "rattle_velocities")}
+    return {k: launches[k] for k in ("shake_positions", "rattle_velocities",
+                                     "integrate_half")}
 
 
-def kernels_per_call(name, fn, reps=1) -> int:
+def k10_phase(tag, eng, results, card, key="integrate_half"):
+    """K10 on the engine's integrator at its state after two eager steps
+    (the chain away from its start), each stage sequence the engine runs:
+    ("nhc", "kick", "drift"), then ("kick", "nhc") without SHAKE or
+    ("kick",) and ("nhc",) around RATTLE.  v and x against the plain
+    version (2e-5); xi and vxi within a float32 ulp of the plain version in
+    float64 (a thermostat half after a kick fed the kernel's own float32
+    kick); two launches alike; the CUDA kernels per call (one, two in the
+    split form above ``ONE_CTA_MAX_ROWS`` rows); times of the first half
+    and its bound (v, f, x, the masses, dtfm and the row bits read once, v
+    and x written once), under ``results[key]``."""
+    from lammps_user_conp2_tpu_torch.models.integrate import Integrator
+    from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
+    itg = eng.integrator
+    st = eng.step(eng.step(eng.init_state()))
+    args = (st.v, st.f, st.x, st.nhc_xi, st.nhc_vxi)
+    itg64 = Integrator(dt=itg.dt, units=itg.units, mass=itg.mass.double(),
+                       mobile_mask=itg.mobile_mask,
+                       thermostats=list(itg.thermostats))
+    first = ("nhc", "kick", "drift")
+    runs = ((first, ("kick", "nhc")) if eng.cons is None
+            else (first, ("kick",), ("nhc",)))
+    n = st.x.shape[0]
+    split = n > ik.ONE_CTA_MAX_ROWS and len(itg.thermostats) > 0
+    print(f"    {key}: {n} rows, {len(itg.thermostats)} thermostats, "
+          f"{'split' if split else 'one-CTA'} form, stages {runs}")
+    worst = [0.0, 0.0]
+    for stages in runs:
+        name = f"{key} " + "-".join(stages)
+        got = ik.integrate_half(itg, *args, stages)
+        torch.cuda.synchronize()
+        plain = ik.integrate_half_plain(itg, *args, stages)
+        rel, dabs = compare(name + " v, x", got[:2], plain[:2])
+        worst = [max(worst[0], rel), max(worst[1], dabs)]
+        same_bits(name, got, ik.integrate_half(itg, *args, stages))
+        if "nhc" not in stages:
+            continue
+        a64 = [a.double() for a in args]
+        if stages == ("kick", "nhc"):
+            a64[0] = itg.kick(args[0], args[1]).double()
+            p64 = ik.integrate_half_plain(itg64, *a64, ("nhc",))
+        else:
+            p64 = ik.integrate_half_plain(itg64, *a64, stages)
+        ulps = max(float(((k.double() - p).abs() / (p.abs() * 2.0 ** -23))
+                         .max()) for k, p in zip(got[2:], p64[2:]))
+        print(f"    {name}: xi, vxi within {ulps:.3f} float32 ulp of the "
+              "plain version in float64")
+        if not ulps <= 1.0:
+            raise AssertionError(f"{tag}: {name} chain state off by "
+                                 f"{ulps:.3f} ulp")
+    kern = lambda: ik.integrate_half(itg, *args, first)
+    plain = lambda: ik.integrate_half_plain(itg, *args, first)
+    per_call = kernels_per_call(key, kern, per=1 + split)
+    results[key] = dict(
+        rel=worst[0], abs=worst[1], ms=median_ms(kern),
+        plain_ms=median_ms(plain), host_ms=host_ms(kern),
+        device_ms=device_ms(kern, K10_PARTS, tag=key),
+        kernels_per_call=per_call)
+    # per row: m v^2 (6), the scale (3), kick (6), drift (6)
+    results[key].update(bound(
+        (st.v, st.f, st.x, itg.mass, itg.dtfm, ik.tables(itg)[0]),
+        (st.v, st.x), 21 * n))
+    report(tag, results, (key,), card)
+
+
+def kernels_per_call(name, fn, reps=10, per=1) -> int:
     """CUDA kernels per call in a torch.profiler trace of ``reps`` calls;
-    raises unless there is exactly one per call.  A trace with no kernel
-    records (the profiler can lose them) is taken again, up to five
-    times."""
+    raises unless there are exactly ``per`` per call.  The profiler can
+    lose kernel records, never add them: a trace with fewer than ``reps``
+    x ``per`` is taken again, up to five times (single-call traces came
+    back empty five times running once the script had taken many traces,
+    K9 in phase 24 and K8 in phase 11; a ten-call trace of K10's split
+    form held 17 of its 20)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for attempt in range(1, 6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type.name == "CUDA"]
-        if names:
+        if len(names) >= reps * per:
             break
-    print(f"    {name}: {len(names)} CUDA kernel(s) in {reps} call(s): "
-          + ", ".join(sorted({n[:60] for n in names})))
-    if len(names) != reps:
+    print(f"    {name}: {len(names)} CUDA kernel(s) in {reps} call(s), "
+          f"trace {attempt}: " + ", ".join(sorted({n[:60] for n in names})))
+    if len(names) != reps * per:
         raise AssertionError(f"{name}: {len(names)} kernels in {reps} "
-                             "calls")
+                             f"calls, not {per} per call")
     return len(names) // reps
 
 
@@ -1977,10 +2066,7 @@ def gather_probe_path(card, dev, results):
     win, idx = exp_vmem_gather.probe_inputs(nb, W, dev)
     got = k9.window_gather(win, idx, 8)
     same_bits("window_gather", (got,), (k9.window_gather(win, idx, 8),))
-    # ten calls a trace: single-call traces of K9 came back empty five
-    # times running after phase 24's timing traces
-    kernels_per_call("window_gather", lambda: k9.window_gather(win, idx, 8),
-                     reps=10)
+    kernels_per_call("window_gather", lambda: k9.window_gather(win, idx, 8))
     compare("window_gather R=1 vs torch.gather",
             (k9.window_gather(win, idx, 1),), (torch.gather(win, 1, idx),),
             0.0)
@@ -2617,6 +2703,8 @@ def mixed_path(card, dev, results):
         SOLVE_LAUNCHES[cell] = moved
         want = {n: F64_STEPS for n in ("block_pair", "spread_mesh",
                                        "gather3")}
+        # K10's split form at this cell's rows: two launches per half step
+        want["integrate_half"] = 4 * F64_STEPS
         if moved != want:
             raise AssertionError(f"{tag}: {solver}: launches {moved}, not "
                                  f"{want}")
@@ -3247,7 +3335,8 @@ def matio_profile_path(card, dev, results, engines):
                       "10"])
     cut = out.index("launches ")
     prof = {k: float(v.split()[0]) for k, v in json.loads(out[:cut]).items()}
-    launched = json.loads(out[cut + len("launches "):])
+    # the launches line (on the card a step_loop line follows it)
+    launched = json.loads(out[cut + len("launches "):].splitlines()[0])
     il_need = {"b_vector": ("b_realspace",), "charge_solve": ("b_realspace",),
                "pair_forces": ("pair_forces",),
                "full_step": ("pair_forces", "b_realspace", "shake_positions",

@@ -90,7 +90,9 @@ def nhc_half_step(v, xi, vxi, params: NHCParams, mass, dt, boltz, mvv2e,
 
 class Integrator(nn.Module):
     """Velocity Verlet with per-group NHC thermostats and frozen non-mobile
-    atoms."""
+    atoms.  ``dtfm`` is kick's factor, formed as ``kick`` forms it, for
+    K10 (``ops/kernels/integrate_kernel``: a half step in one launch on
+    the card)."""
 
     def __init__(self, *, dt: float, units: Units, mass: torch.Tensor,
                  mobile_mask: torch.Tensor, thermostats):
@@ -100,6 +102,7 @@ class Integrator(nn.Module):
         self.register_buffer("mass", mass)                # (N,)
         self.register_buffer("mobile_mask", mobile_mask)  # (N,) bool
         self.thermostats = nn.ModuleList(thermostats)
+        self.register_buffer("dtfm", (dt / 2.0) * units.ftm2v / mass)
 
     def thermostat_half(self, v, xi, vxi):
         """One NHC half step for every thermostat (constant target

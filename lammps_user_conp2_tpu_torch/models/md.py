@@ -32,7 +32,10 @@ as the JAX engine falls back off its accelerator.
 Both paths run SHAKE (K7) and RATTLE (K8) when the configuration
 constrains bonds and angles (the ionic-liquid decks), then zmirror when
 the deck asks for it; the forces take the external or the feedback
-electric field (FFIELD decks) after the CONP post-force terms.
+electric field (FFIELD decks) after the CONP post-force terms.  The
+integrator's thermostat half, kick and drift are one K10 launch per half
+step on the card (``ops/kernels/integrate_kernel``; around RATTLE, a kick
+launch and a thermostat launch).
 
 The charge solve runs every ``nevery``-th step (``Engine.solves``, decided
 from the host step number); a step that skips it keeps the charges and the
@@ -67,6 +70,7 @@ from ..ops.bonded import bonded_forces, term_table
 from ..ops.cells import build_cell_grid, cell_pair_forces
 from ..ops.kernels import build
 from ..ops.kernels.ele_rows_kernel import conp_correction, correction_range
+from ..ops.kernels.integrate_kernel import integrate_half
 from ..ops.kernels.pair_kernel import pair_forces, pair_tile_count
 from ..ops.kernels.shake_kernel import rattle_velocities, shake_positions
 from ..ops.neighbors import (block_pair_forces, build_neighbor_list,
@@ -445,18 +449,7 @@ class Engine(nn.Module):
         tiles' drift test (JAX md.py:367-375); None when the step has
         neither."""
         with timers.layer("integrate.pre"):
-            itg = self.integrator
-            v, xi, vxi = itg.thermostat_half(state.v, state.nhc_xi,
-                                             state.nhc_vxi)
-            v = itg.kick(v, state.f)
-            x = itg.drift(state.x, v)
-            if self.cons is not None:
-                x, dv = shake_positions(self.cons, x, state.x, itg.dt,
-                                        box=self.ksp_force.box,
-                                        periodic=self.system.periodic)
-                v = v + dv
-            if self.zmirror is not None:
-                x = self.zmirror.apply(x, state.step_t + 1)
+            x, v, xi, vxi = self._half_pre(state)
             flag = None
             if self.ncfg is not None:
                 flag = needs_rebuild(self.ncfg, state.nbr, x)
@@ -464,6 +457,38 @@ class Engine(nn.Module):
                 flag = pppm_ops.tile_drift_exceeded(self.pppm_grid,
                                                     state.tasg, x)
             return x, v, xi, vxi, flag
+
+    def _half_pre(self, state: MDState):
+        """The integrator's part of the step's first half: thermostat half,
+        kick and drift (one K10 launch on the card), SHAKE, zmirror.
+        Returns (x, v, xi, vxi)."""
+        itg = self.integrator
+        v, x, xi, vxi = integrate_half(itg, state.v, state.f, state.x,
+                                       state.nhc_xi, state.nhc_vxi,
+                                       ("nhc", "kick", "drift"))
+        if self.cons is not None:
+            x, dv = shake_positions(self.cons, x, state.x, itg.dt,
+                                    box=self.ksp_force.box,
+                                    periodic=self.system.periodic)
+            v = v + dv
+        if self.zmirror is not None:
+            x = self.zmirror.apply(x, state.step_t + 1)
+        return x, v, xi, vxi
+
+    def _half_post(self, x, v, f, xi, vxi):
+        """The integrator's part of the step's second half: kick, RATTLE,
+        thermostat half (one K10 launch on the card without SHAKE; with it,
+        K10's kick, K8, K10's thermostat half).  Returns (v, xi, vxi)."""
+        itg = self.integrator
+        if self.cons is None:
+            v, _, xi, vxi = integrate_half(itg, v, f, x, xi, vxi,
+                                           ("kick", "nhc"))
+            return v, xi, vxi
+        v = integrate_half(itg, v, f, x, xi, vxi, ("kick",))[0]
+        v = rattle_velocities(self.cons, x, v, box=self.ksp_force.box,
+                              periodic=self.system.periodic)
+        v, _, xi, vxi = integrate_half(itg, v, f, x, xi, vxi, ("nhc",))
+        return v, xi, vxi
 
     def _rebuild(self, x, nbr_old):
         """``derived_state`` at x, with the list's overflow flag kept sticky:
@@ -502,7 +527,6 @@ class Engine(nn.Module):
                    pend) -> MDState:
         """The step from the end of the charge solve on: the charges and
         the fix scalar, forces, kick, RATTLE, thermostat half."""
-        itg = self.integrator
         step_t = state.step_t + 1
         q, scalar, kcache = state.q, state.scalar_out, None
         if pend is not None and pend.b is None:
@@ -513,11 +537,7 @@ class Engine(nn.Module):
                                                         step=step_t)
         f, pe = self.compute_forces(x, q, kcache, nbr, tasg, scalar)
         with timers.layer("integrate.post"):
-            v = itg.kick(v, f)
-            if self.cons is not None:
-                v = rattle_velocities(self.cons, x, v, box=self.ksp_force.box,
-                                      periodic=self.system.periodic)
-            v, xi, vxi = itg.thermostat_half(v, xi, vxi)
+            v, xi, vxi = self._half_post(x, v, f, xi, vxi)
         return MDState(x=x, v=v, q=q, f=f, step=state.step + 1, nhc_xi=xi,
                        nhc_vxi=vxi, scalar_out=scalar, energy=pe, nbr=nbr,
                        tasg=tasg, step_t=step_t)

@@ -111,7 +111,8 @@ def load_library() -> ctypes.CDLL:
             BuildInfo.seconds = time.perf_counter() - t0
             shutil.rmtree(tmpdir, ignore_errors=True)
     lib = ctypes.CDLL(str(lib_path))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I = ctypes.c_void_p, ctypes.c_int
+    F, D = ctypes.c_float, ctypes.c_double
     lib.conp2_pair_forces_f32.argtypes = (
         [P] * 15 + [I] * 3 + [F] * 3 + [I] * 3 + [F] * 5 + [I] + [P] * 6)
     lib.conp2_pair_forces_f32.restype = I
@@ -155,6 +156,9 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_rattle_velocities_f32.restype = I
     lib.conp2_window_gather_f32.argtypes = [P, P] + [I] * 7 + [P, P]
     lib.conp2_window_gather_f32.restype = I
+    lib.conp2_integrate_half_f32.argtypes = (
+        [P] * 9 + [I] * 6 + [F] + [D] * 4 + [I] * 2 + [P] * 6)
+    lib.conp2_integrate_half_f32.restype = I
     return lib
 
 

@@ -58,11 +58,13 @@ KERNEL_PARTS = {
     "K7": ("shake_rows_kernel", "shake_kernel"),
     "K8": ("rattle_rows_kernel", "rattle_kernel"),
     "K9": ("window_gather_kernel",),
+    "K10": ("integrate_half_kernel", "integrate_sums_kernel",
+            "integrate_apply_kernel"),
 }
 
 
 def kernel_of(name):
-    """The hand kernel (K1 ... K9) a device kernel of that name belongs to,
+    """The hand kernel (K1 ... K10) a device kernel of that name belongs to,
     by the longest part it contains (K1's block_pair_reduce holds K4's
     pair_reduce), or None."""
     best = (0, None)

@@ -205,14 +205,20 @@ def span_lines(prefix: str) -> list:
 
 def phases(engine, state) -> dict:
     """{phase: callable} of the step's phases at ``state`` on the engine's
-    path, in step order: b_vector (K5, or K2a and the z-plane readout),
-    charge_solve, pair_forces (K4 or K1), nbr_rebuild, pppm_spread (K2a),
-    pppm_fft, pppm_gather (K3), kspace_forces, full_step.  The inputs each
-    phase reads are computed here, once."""
+    path, in step order: integrate (the integrator's parts of both halves:
+    K10, with SHAKE K7 and K8, zmirror), b_vector (K5, or K2a and the
+    z-plane readout), charge_solve, pair_forces (K4 or K1), nbr_rebuild,
+    pppm_spread (K2a), pppm_fft, pppm_gather (K3), kspace_forces,
+    full_step.  The inputs each phase reads are computed here, once."""
     eng = engine
     conp = eng.conp
     x, q, nbr, tasg = state.x, state.q, state.nbr, state.tasg
-    out = {}
+
+    def integrate():
+        x1, v, xi, vxi = eng._half_pre(state)
+        return eng._half_post(x1, v, state.f, xi, vxi)
+
+    out = {"integrate": integrate}
     kcache = None
     if conp is not None:
         xs, qs = x.to(conp.solve_dtype), q.to(conp.solve_dtype)

@@ -78,8 +78,8 @@ def test_run_thermo_rows_match_jax_cli(logs):
     assert rows(port) == rows(jax)
     text = "\n".join(port)
     assert "# Loop time" in text
-    for phase in ("b_vector", "charge_solve", "pair_forces", "kspace_forces",
-                  "full_step"):
+    for phase in ("integrate", "b_vector", "charge_solve", "pair_forces",
+                  "kspace_forces", "full_step"):
         assert f"# {phase}: " in text
 
 
@@ -129,8 +129,8 @@ def test_profile_prints_every_phase(ref_dir, monkeypatch, capsys):
                      "1"]) == 0
     out = capsys.readouterr().out
     times = json.loads(out[:out.index("launches")])
-    assert list(times) == ["b_vector", "charge_solve", "pair_forces",
-                           "kspace_forces", "full_step"]
+    assert list(times) == ["integrate", "b_vector", "charge_solve",
+                           "pair_forces", "kspace_forces", "full_step"]
     assert all(v.endswith(" ms") for v in times.values())
     launches = json.loads(out[out.index("launches") + 8:])
     # no CUDA kernel launches on the CPU

@@ -8,7 +8,8 @@
   ``elyte_order``; K6 ``conp_correction``, ``corr_orders``; K1
   ``block_pair``, ``pack_rows``; K2a ``spread_mesh``; K2b
   ``spread_tiles``; K3 ``gather3``; K7 ``shake_positions``; K8
-  ``rattle_velocities``; K9 ``window_gather``), float64 inputs on the CPU:
+  ``rattle_velocities``; K9 ``window_gather``; K10 ``integrate_half``),
+  float64 inputs on the CPU:
   the wrapper consults the rule with the tensor it dispatches on; where
   the rule says CUDA float64, it returns its plain version's result bit
   for bit with no launch counted; where the rule says CUDA float16, it
@@ -28,6 +29,7 @@ from lammps_user_conp2_tpu_torch.ops import pppm as P
 from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
 from lammps_user_conp2_tpu_torch.ops.kernels import build
 from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
+from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
 from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
 from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
 from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
@@ -132,6 +134,10 @@ def _calls(cells):
                      generator=torch.Generator().manual_seed(0))
     idx = torch.randint(0, 64, (2, 64, 128), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(1))
+    itg = eil.integrator
+    chain = torch.full((len(itg.thermostats), itg.thermostats[0].tchain),
+                       0.01, dtype=torch.float64)
+    iargs = (itg, v, 3.0 * v, xo, chain, 2.0 * chain, ("nhc", "kick", "drift"))
     return {
         "pair_forces": (k4.launches, lambda: k4.pair_forces(
             x, q, eng.type_idx, eng.tables, None, conp_fuse=fuse,
@@ -176,13 +182,15 @@ def _calls(cells):
                                   eil.cons, xo, v, **hkw)),
         "window_gather": (k9.launches, lambda: k9.window_gather(win, idx, 3),
                           lambda: k9.window_gather_plain(win, idx, 3)),
+        "integrate_half": (ik.launches, lambda: ik.integrate_half(*iargs),
+                           lambda: ik.integrate_half_plain(*iargs)),
     }
 
 
 WRAPPERS = ["pair_forces", "tile_schedule", "b_realspace", "elyte_order",
             "conp_correction", "corr_orders", "block_pair", "pack_rows",
             "spread_mesh", "spread_tiles", "gather3", "shake_positions",
-            "rattle_velocities", "window_gather"]
+            "rattle_velocities", "window_gather", "integrate_half"]
 
 
 def _flat(out):

@@ -39,6 +39,13 @@ none on the cell path; K4's item-list entry against its plain version
 (kd bricks, fused, with exclusions), bit-identical across launches, NaN
 at half the live count; ``run`` recovering from a short cell cap and a
 short pair cap.
+K10 (one half step of the integrator) at 432, 3,776 and 100,000 rows (the
+one-CTA and the two-launch forms), 1 and 2 thermostats: the chain state
+within a float32 ulp of the plain version in float64, the rows within
+float32 rounding of it, the kick alone equal to the plain version bit for
+bit, two launches alike; the integrator's part of a step is 2 CUDA
+kernels at the dilute deck and 6 at the il cell (K10 3 times, K7, K8 and
+the SHAKE velocity add), K10 launching 2 and 3 times per graphed step.
 The sharded run at d = 1 over NCCL replays CUDA graphs equal to the eager
 sharded steps bit for bit.  The graphs captured under ``timers.tracing``
 (timing events at the layer boundaries) step the same bits as the
@@ -52,8 +59,8 @@ import pytest
 import torch
 
 from torch_cells import (S2, S3, SHAKE_SHAPES, charges_with_electrodes,
-                         il_small, il_small_file, shake_case, tile_rows,
-                         x_close, x_near)
+                         il_small, il_small_file, integrator_case, shake_case,
+                         tile_rows, x_close, x_near)
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-5
@@ -844,6 +851,15 @@ def _graph_cell(cuda, cell, tmp_path, monkeypatch):
         system, md, conp, eng, x, q, _ = _tiled_cell(cuda, x_near)
         return eng, dict(x0=x.cpu().numpy())
     from lammps_user_conp2_tpu_torch import workloads
+    if cell == "dilute":
+        from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+        from lammps_user_conp2_tpu_torch.models.md import build_engine
+        path = workloads.write_dilute_data(tmp_path / "dilute.data")
+        system, md, cfg = workloads.dilute(0, data_path=path)
+        eng = build_engine(system, md, setup_conp(
+            system, md, cfg, solve_dtype=torch.float32, device=cuda),
+            dtype=torch.float32, device=cuda)
+        return eng, {}
     if cell == "fullmesh":
         import dataclasses
         from lammps_user_conp2_tpu_torch.models.conp import setup_conp
@@ -890,7 +906,7 @@ def _same(a, b):
 
 @pytest.mark.parametrize("cell", ["mid", "tiled", "il", "bonded", "unfused",
                                   "fullmesh", "mid_cg_nevery2", "mid_mixed",
-                                  "cell", "tile", "il_tile"])
+                                  "cell", "tile", "il_tile", "dilute"])
 def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
                                           monkeypatch):
     """``Engine.run`` replays CUDA graphs: 20 replayed steps equal 20 eager
@@ -898,8 +914,8 @@ def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
     (no step path adds floats with atomics: the bonded forces and the
     list's correction sum in a fixed order), the thermo rows included; the
     cells include S2 under CG solving every second step (the CG blocks and
-    the skip variant replayed) and S2 with a float64 solve under a float32
-    engine."""
+    the skip variant replayed), S2 with a float64 solve under a float32
+    engine, and the dilute deck (K10's second half in one launch)."""
     eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
     st0 = eng.init_state(**kw)
     e1 = _steps(eng, st0, 20)
@@ -1477,3 +1493,100 @@ def test_traced_split_graphs_on_card(cuda, cell, tmp_path, monkeypatch):
     else:
         assert c["host_read.cg_flag"] >= 3
     timers.reset()
+
+
+K10_STAGES = [("nhc", "kick", "drift"), ("kick", "nhc"), ("kick",), ("nhc",)]
+
+
+def _k10_check(itg, args, stages):
+    """K10 on ``args`` against the plain version on the card in float32
+    and in float64 (the float64 integrator on the same float32 masses; the
+    thermostats of ("kick", "nhc") read the float32 kick, which K10 forms
+    as the plain version does).  Returns K10's launches in the call."""
+    from lammps_user_conp2_tpu_torch.models.integrate import Integrator
+    from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
+    n0 = ik.launches.count
+    got = ik.integrate_half(itg, *args, stages)
+    torch.cuda.synchronize()
+    n_launch = ik.launches.count - n0
+    again = ik.integrate_half(itg, *args, stages)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    p32 = ik.integrate_half_plain(itg, *args, stages)
+    itg64 = Integrator(dt=itg.dt, units=itg.units, mass=itg.mass.double(),
+                       mobile_mask=itg.mobile_mask,
+                       thermostats=list(itg.thermostats))
+    a64 = [a.double() for a in args]
+    if stages == ("kick", "nhc"):
+        a64[0] = itg.kick(args[0], args[1]).double()
+        p64 = ik.integrate_half_plain(itg64, *a64, ("nhc",))
+    else:
+        p64 = ik.integrate_half_plain(itg64, *a64, stages)
+    if stages == ("kick",):
+        assert torch.equal(got[0], p32[0])
+    if "nhc" in stages:
+        for k, p in zip(got[2:], p64[2:]):
+            assert bool(((k.double() - p).abs() <= p.abs() * 2.0 ** -23).all())
+        assert not torch.equal(got[3], args[4])
+    for k, p, p3 in zip(got[:2], p64[:2], p32[:2]):
+        assert _rel(k.double(), p) <= 1e-6
+        assert _rel(k, p3) <= max(TOL, 2.0 * _rel(p3.double(), p))
+    return n_launch
+
+
+@pytest.mark.parametrize("stages", K10_STAGES, ids="-".join)
+@pytest.mark.parametrize("nthermo", [1, 2])
+@pytest.mark.parametrize("n", [432, 3776, 100000])
+def test_integrate_half_matches_plain_on_card(cuda, n, nthermo, stages):
+    """K10 against its plain version: one launch (two in the split form
+    above ``ONE_CTA_MAX_ROWS`` rows with a thermostat half), the groups
+    overlapping at 3,776 rows with 2 thermostats."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
+    itg, *args = integrator_case(n, torch.float32, cuda, nthermo,
+                                 overlap=(n == 3776 and nthermo == 2))
+    split = "nhc" in stages and n > ik.ONE_CTA_MAX_ROWS
+    assert _k10_check(itg, args, stages) == 1 + split
+
+
+@pytest.mark.parametrize("stages", K10_STAGES, ids="-".join)
+def test_integrate_half_split_form_on_card(cuda, stages, monkeypatch):
+    """K10's two-launch form at the decks' size, 2 overlapping thermostats
+    (ONE_CTA_MAX_ROWS patched to 0): the same bounds."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
+    monkeypatch.setattr(ik, "ONE_CTA_MAX_ROWS", 0)
+    itg, *args = integrator_case(3776, torch.float32, cuda, 2, overlap=True)
+    assert _k10_check(itg, args, stages) == 1 + ("nhc" in stages)
+
+
+@pytest.mark.parametrize("cell,per_step,kernels", [("dilute", 2, 2),
+                                                   ("il", 3, 6)])
+def test_integrate_layer_launches_on_card(cuda, cell, per_step, kernels,
+                                          tmp_path, monkeypatch):
+    """The integrator's part of a step: K10 launches ``per_step`` times per
+    graphed step (both halves at the dilute deck; at the il cell the first
+    half, and the second half's kick and thermostat half around K8), and
+    the eager layer (``_half_pre`` and ``_half_post``) is ``kernels`` CUDA
+    kernels (the il cell's: K10 3 times, K7, K8 and the v + dv add)."""
+    from torch.profiler import ProfilerActivity, profile
+    from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
+    eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
+    st0 = eng.init_state(**kw)
+    ik.launches.reset()
+    st, _ = eng.run(st0, 5, thermo_every=0)
+    torch.cuda.synchronize()
+    assert ik.launches.count == 5 * per_step
+
+    def layer():
+        x, v, xi, vxi = eng._half_pre(st)
+        return eng._half_post(x, v, st.f, xi, vxi)
+
+    layer()
+    torch.cuda.synchronize()
+    for _ in range(5):         # the profiler can lose a trace's records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            layer()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        if names:
+            break
+    assert len(names) == kernels, names

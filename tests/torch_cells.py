@@ -225,3 +225,33 @@ class EagerBackend:
                 c.count = n
 
         return replay
+
+
+def integrator_case(n, dtype, device="cpu", nthermo=1, tchain=3,
+                    overlap=False, seed=0):
+    """(integrator, v, f, x, xi, vxi) of ``n`` rows for K10: a fifth of the
+    rows frozen, one thermostat on the even mobile rows (and a second on
+    the odd ones, or, with ``overlap``, on every third mobile row), the
+    chain state away from 0."""
+    from lammps_user_conp2_tpu_torch.models.integrate import (
+        Integrator, make_nhc_params)
+    from lammps_user_conp2_tpu_torch.utils.units import REAL
+    rng = np.random.default_rng(seed)
+    mobile = rng.random(n) > 0.2
+    idx = np.arange(n)
+    groups = [mobile & (idx % 2 == 0),
+              mobile & ((idx % 3 == 0) if overlap else (idx % 2 == 1))]
+    thermos = [make_nhc_params(g, 300.0 + 50 * k, 300.0 + 50 * k,
+                               100.0 + 20 * k, tchain=tchain, device=device)
+               for k, g in enumerate(groups[:nthermo])]
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    itg = Integrator(dt=2.0, units=REAL, mass=t(rng.uniform(1.0, 40.0, n)),
+                     mobile_mask=torch.as_tensor(mobile, device=device),
+                     thermostats=thermos)
+    v = t(rng.normal(0.0, 0.01, (n, 3)) * mobile[:, None])
+    f = t(rng.normal(0.0, 5.0, (n, 3)))
+    x = t(rng.uniform(0.0, 30.0, (n, 3)))
+    nt = max(nthermo, 1)
+    xi = t(rng.normal(0.0, 0.05, (nt, tchain)))
+    vxi = t(rng.normal(0.0, 0.01, (nt, tchain)))
+    return itg, v, f, x, xi, vxi
