@@ -20,12 +20,16 @@ chunk and thermo intervals of the run loop, the steps the trace replays);
 4. the check: samples of the window's states (the start, the last chunk
    end and two more drawn from the seed as the chunks come), two more
    steps of each through the same graphs, and the plain reference at each
-   (``judge``), once the program's state is on the host and freed.
+   (``judge``), once the program's state is on the host and freed.  A
+   sample made before a list overflow grew the engine's capacities has
+   its list and mesh tiles rebuilt at its positions first
+   (``steppable``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -105,6 +109,12 @@ def card_state() -> str:
     return f"card {out}"
 
 
+def device_peak(dev) -> int:
+    """Bytes of device memory at the peak since the last reset (0 off the
+    card)."""
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -156,6 +166,32 @@ def host_state(st, to_ref) -> dict:
                 vxi=f(st.nhc_vxi))
 
 
+def _shapes(obj) -> list:
+    """The shapes of the tensors in ``obj`` and its dataclass fields."""
+    if torch.is_tensor(obj):
+        return [tuple(obj.shape)]
+    if isinstance(obj, (tuple, list)):
+        return [s for o in obj for s in _shapes(o)]
+    if dataclasses.is_dataclass(obj):
+        return [s for f in dataclasses.fields(obj)
+                for s in _shapes(getattr(obj, f.name))]
+    return []
+
+
+def steppable(eng, st):
+    """``st`` as the engine can step it now: where a list overflow grew
+    the engine's capacities after ``st`` was made (its Verlet list or mesh
+    tiles no longer of the engine's shapes), with them rebuilt at its
+    positions (``Engine.derived_state``), as the engine rebuilds them;
+    otherwise ``st`` itself."""
+    if getattr(st, "nbr", None) is None and getattr(st, "tasg", None) is None:
+        return st
+    nbr, tasg = eng.derived_state(st.x)
+    if _shapes((nbr, tasg)) == _shapes((st.nbr, st.tasg)):
+        return st
+    return dataclasses.replace(st, nbr=nbr, tasg=tasg)
+
+
 def program_answers(state, after, after2, row) -> dict:
     """A sample's answers as the program gave them: at the state, the
     printed row (or None) and the states one and two steps on."""
@@ -197,9 +233,35 @@ def count_pairs(x, ele, box, periodic, cutoff, cut_coulsq) -> tuple:
     return pairs, ele_pairs
 
 
-def shapes(deck, cut_coulsq, x) -> dict:
+def program_sizes(eng, st) -> dict:
+    """The sizes of what the program hands its list and mesh kernels at
+    state ``st``, read off its own tensors as its launch counters are: the
+    block list's blocks, atoms per block and union width (K1), the PPPM
+    mesh and its order, and on a tiled mesh its tiles, their extent, the
+    patch border and the slots per tile (K2a, K3).  Empty where the
+    program has neither."""
+    from lammps_user_conp2_tpu_torch.ops import pppm
+    out = {}
+    nbr = getattr(st, "nbr", None)
+    if getattr(nbr, "bun", None) is not None:
+        out.update(list_blocks=int(nbr.bun.shape[0]),
+                   union_width=int(nbr.bun.shape[1]),
+                   block_atoms=int(nbr.brows.shape[1]))
+    grid = getattr(eng, "pppm_grid", None)
+    if grid is not None:
+        out.update(mesh=tuple(grid.shape), order=grid.order)
+        n = int(st.x.shape[0])
+        if not pppm._use_dense(grid, n):
+            g = pppm._tile_geometry(grid, n)
+            out.update(tiles=(g.ntx, g.nty, g.ntz), tile=(g.tlx, g.tly, g.tlz),
+                       tile_border=g.hw + g.dm, slot_cap=g.cap)
+    return out
+
+
+def shapes(deck, cut_coulsq, x, sizes=None) -> dict:
     """The cell's sizes that the roofline files read, at positions x (a
-    tensor)."""
+    tensor), with the program's list and mesh ``sizes``
+    (``program_sizes``)."""
     pairs, ele_pairs = count_pairs(x, deck.ele, deck.box, deck.periodic,
                                    deck.cutoff, cut_coulsq)
     width = np.zeros(deck.natoms, int)
@@ -209,12 +271,14 @@ def shapes(deck, cut_coulsq, x) -> dict:
     cl = clusters(deck.shake)
     m = sum(len(a) for a, _, _ in cl)
     return dict(natoms=deck.natoms, ne=int(deck.ele.sum()),
+                charged_elyte=int(((deck.q0 != 0) & ~deck.ele).sum()),
                 ntypes=deck.lj_eps.shape[0] - 1,
                 excl_width=int(width.max()) if deck.excl else 0,
                 pairs=pairs, ele_pairs=ele_pairs, clusters=m,
                 cluster_atoms=max((len(a[0]) for a, _, _ in cl), default=0),
                 cluster_slots=max((len(s) for _, s, _ in cl), default=0),
-                clustered_rows=sum(len(a) * len(a[0]) for a, _, _ in cl))
+                clustered_rows=sum(len(a) * len(a[0]) for a, _, _ in cl),
+                **(sizes or {}))
 
 
 def phase_seconds(eng, st, names, iters=20) -> dict:
@@ -364,6 +428,7 @@ def run_cell(cell: dict, seed: int, seconds: float, with_trace: bool, *,
                 eng, st, chunk, every)
             phases = phase_seconds(eng, st, ("charge_solve", "pair_forces",
                                              "kspace_forces"))
+        sizes = program_sizes(eng, st)
 
         # the samples: the start, the chunk ends drawn, the last; each
         # with the states after one and two more steps
@@ -379,7 +444,7 @@ def run_cell(cell: dict, seed: int, seconds: float, with_trace: bool, *,
         samples = []
         for s, row in chosen:
             hs = host_state(s, to_ref)
-            after, _ = eng.run(s, 1, thermo_every=0)
+            after, _ = eng.run(steppable(eng, s), 1, thermo_every=0)
             ha = host_state(after, to_ref)
             after, _ = eng.run(after, 1, thermo_every=0)
             ha2 = host_state(after, to_ref)
@@ -392,7 +457,10 @@ def run_cell(cell: dict, seed: int, seconds: float, with_trace: bool, *,
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
-        # the reference, from the data file and the deck's settings alone
+        # the reference, from the data file and the deck's settings alone;
+        # its own peak of device memory from here (the program's was read)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
         deck = build_deck(path, config, traffic)
         if not np.array_equal(deck.tag, deck_tags):
@@ -405,7 +473,8 @@ def run_cell(cell: dict, seed: int, seconds: float, with_trace: bool, *,
         values = judge.readings(judged, deck)
         correct, checks = judge.verdict(values, cell["limits"])
         log(f"reference: {len(judged)} samples in "
-            f"{time.perf_counter() - t:.3f} s")
+            f"{time.perf_counter() - t:.3f} s, device memory peak "
+            f"{device_peak(dev)} B")
         if deck.shake:
             res = lambda side: np.max([judge.constraint_residuals(
                 a[k]["x"], a[k]["v"], deck) for _, g, e in judged
@@ -415,15 +484,18 @@ def run_cell(cell: dict, seed: int, seconds: float, with_trace: bool, *,
                 "{:.3e}".format(*res(lambda g, e: g), *res(lambda g, e: e)))
         values_control = None
         if control:
+            t = time.perf_counter()
             ctl = Reference(deck, dev, tf32=True)
             values_control = judge.readings(
                 [(hs, judge.model_answers(ctl, hs), e)
                  for hs, _, e in judged], deck)
+            log(f"control: {time.perf_counter() - t:.3f} s, device memory "
+                f"peak with the reference's {device_peak(dev)} B")
 
         ctx = dict(spans=spans, counters=counters)
         if with_trace:
             sh = shapes(deck, ref.cut_coulsq,
-                        torch.as_tensor(x_last, device=dev))
+                        torch.as_tensor(x_last, device=dev), sizes)
             bounds = {}
             for k, m in roof.items():
                 cost = m.cost(sh)

@@ -2,7 +2,11 @@
 ``fix conp`` with the INV solver, the NORMAL slab or FFIELD, Ewald
 k-space), in plain PyTorch, from a ``Deck`` alone.  Under a PPPM deck it
 computes the exact Ewald sum that the mesh approximates to the deck's
-stated accuracy.
+stated accuracy; where the configuration states the mesh's
+differentiation (``Deck.pppm_diff``, ``kspace_modify diff``), it computes
+PPPM's mesh itself (``reference.pppm``) for the b vector's k-space part,
+the k-space forces and the energy, with A still the exact Ewald sum
+(pppm_conp.cpp:91-101).
 
 It works out everything itself: g_ewald by LAMMPS's PPPM rule (the decks'
 host kspace style), the half-space k-vectors, the A matrix from the direct
@@ -12,13 +16,18 @@ special_bonds 0, harmonic bonds and angles, Ewald, the EW3DC slab term,
 the electrodes' Gaussian correction and self energy), the thermo row, and
 one velocity-Verlet step with Nose-Hoover chains, SHAKE and RATTLE (twelve
 Gauss-Seidel sweeps in fix shake's slot order).  Every sum over k-vectors
-is a direct sum over cos/sin tables in chunks.
+is a direct sum over cos/sin tables in chunks; every pair sum runs over
+blocks of rows, so that no tensor grows with N^2 (the exclusions are
+set per block from ``Deck.excl``, and each block's pair terms computed for
+the atoms in the cells next to its rows alone, then summed over every
+column as the sweep over all atoms summed them).
 
 ``Reference(deck, device)`` computes in float64.  ``Reference(deck,
 device, tf32=True)`` is the control: the same steps in float32 with every
 k-space product's operands rounded to TF32 (10 mantissa bits), as the
-card's tensor cores round them when TF32 is switched on; the set-up stays
-float64, as the configuration states it.
+card's tensor cores round them when TF32 is switched on (on the mesh: the
+assignment's, the influence function's and the read-back's products); the
+set-up stays float64, as the configuration states it.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from .deck import BOLTZ, EVSCALE, FTM2V, MVV2E, QE2F, QQR2E, Deck
+from .pppm import Mesh, tf32_round
 
 # Abramowitz & Stegun 7.1.26, the constants of fix_conp.cpp:53-60, and
 # its argument clamp
@@ -39,6 +49,12 @@ A1, A2, A3, A4, A5 = (0.254829592, -0.284496736, 1.421413741, -1.453152027,
 ERFC_MAX = 5.8
 SHAKE_SWEEPS = 12
 KCHUNK = 4096
+# rows of the pair sweep's blocks, and the elements (rows x N) of a block
+# of electrode rows against every atom
+ROWS = 512
+ROW_ELEMS = 1 << 24
+# the pair sweep's cells are at least this many cutoffs wide
+CELL_MARGIN = 1.001
 
 # Deserno & Holm's ik error coefficients at order 5 (LAMMPS pppm.cpp acons)
 ACONS5 = (1.0 / 23232.0, 7601.0 / 13628160.0, 143.0 / 69120.0,
@@ -59,9 +75,10 @@ def _factorable(n):
     return n == 1
 
 
-def g_ewald_pppm(box, acc, natoms, q2, cutoff) -> float:
-    """LAMMPS pppm.cpp set_grid_global and adjust_gewald (order 5, the
-    physical box)."""
+def pppm_grid(box, acc, natoms, q2, cutoff) -> tuple:
+    """(g_ewald, [nx, ny, nz]) by LAMMPS pppm.cpp set_grid_global and
+    adjust_gewald (order 5, the physical box): the mesh that the first
+    estimate of g_ewald asks for, then g_ewald adjusted to it."""
     xprd, yprd, zprd = box
     g = acc * math.sqrt(natoms * cutoff * xprd * yprd * zprd) / (2.0 * q2)
     g = ((1.35 - 0.15 * math.log(acc)) / cutoff if g >= 1.0
@@ -87,7 +104,7 @@ def g_ewald_pppm(box, acc, natoms, q2, cutoff) -> float:
         g -= f / ((diff(g + 1e-6) - f) / 1e-6)
         if abs(diff(g)) < 1e-5:
             break
-    return g
+    return g, ns
 
 
 def kvectors(box, acc, natoms, q2, g, slab):
@@ -120,10 +137,27 @@ def kvectors(box, acc, natoms, q2, g, slab):
     return kc, ug, vol
 
 
-def tf32_round(t):
-    """t with its mantissa rounded to TF32's 10 bits (round half even)."""
-    m, e = torch.frexp(t)
-    return torch.ldexp(torch.round(m * 2048.0) / 2048.0, e)
+def _to_columns(t, cols, n):
+    """t (rows, len(cols), ...) placed at columns ``cols`` of a zero
+    (rows, n, ...) tensor (t itself where cols are all n): a sum over the
+    columns then adds what the sweep over every atom added, in its
+    order."""
+    if cols.shape[0] == n:
+        return t
+    out = t.new_zeros((t.shape[0], n) + t.shape[2:])
+    out[:, cols] = t
+    return out
+
+
+def slab_mesh(dims, slab) -> tuple:
+    """The mesh over the slab-extended box: nz scaled by the slab factor
+    and raised to the next size of factors 2, 3 and 5."""
+    nx, ny, nz = dims
+    if slab:
+        nz = int(round(nz * slab))
+        while not _factorable(nz):
+            nz += 1
+    return nx, ny, nz
 
 
 def erfc_as(x):
@@ -191,9 +225,15 @@ class Reference:
         d = deck
         q2 = float((d.q0 ** 2).sum()) * QQR2E
         acc = d.accuracy * QQR2E
-        self.g = g_ewald_pppm(d.box, acc, d.natoms, q2, d.cutoff)
+        self.g, dims = pppm_grid(d.box, acc, d.natoms, q2, d.cutoff)
         kv, ug, self.volume = kvectors(d.box, acc, d.natoms, q2, self.g,
                                        d.slab)
+        self.mesh = None
+        if d.pppm_diff:
+            zs = d.box[2] * (d.slab or 1.0)
+            self.mesh = Mesh((d.box[0], d.box[1], zs), d.box_lo, self.g,
+                             slab_mesh(dims, d.slab), d.pppm_diff, self.dev,
+                             self.dtype, tf32=tf32)
         self.cut_coulsq = min(d.cutoff ** 2, (ERFC_MAX / self.g) ** 2)
         f64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                         device=self.dev)
@@ -215,12 +255,10 @@ class Reference:
         self.lj = [t(48 * d.lj_eps * s6 * s6), t(24 * d.lj_eps * s6),
                    t(4 * d.lj_eps * s6 * s6), t(4 * d.lj_eps * s6)]
         n = d.natoms
-        sp = torch.ones((n, n), dtype=self.dtype, device=self.dev)
-        if d.excl:
-            ex = torch.as_tensor(np.asarray(d.excl), device=self.dev)
-            sp[ex[:, 0], ex[:, 1]] = 0.0
-            sp[ex[:, 1], ex[:, 0]] = 0.0
-        self.special = sp
+        # each excluded pair both ways round, (row, column)
+        ex = np.asarray(d.excl, np.int64).reshape(-1, 2)
+        self.excl = torch.as_tensor(np.concatenate([ex, ex[:, ::-1]]),
+                                    device=self.dev)
         # SHAKE clusters: connected constraints, slots in build order
         self.clusters = []
         for atoms, slots, d2 in clusters(d.shake):
@@ -314,7 +352,10 @@ class Reference:
 
     def kspace(self, x, q):
         """(energy, forces) of the Ewald sum without qqr2e: E = sum_half ug
-        |S|^2, F_j = 2 q_j sum ug k (sin_j Re S - cos_j Im S)."""
+        |S|^2, F_j = 2 q_j sum ug k (sin_j Re S - cos_j Im S); or of the
+        mesh, where the deck states it."""
+        if self.mesh is not None:
+            return self.mesh.energy_forces(x, q)
         sr, si = self._sfac(x, q)
         e = torch.sum(self.ug * (sr * sr + si * si))
         f = torch.zeros_like(x)
@@ -331,21 +372,25 @@ class Reference:
         b from the electrolyte, then q_ele = A^-1 b + V A^-1 d."""
         d = self.deck
         qe = torch.where(self.elyte, q, torch.zeros_like(q))
-        sr, si = self._sfac(x, qe)
         xe = x[self.ele_idx]
-        b = torch.zeros(xe.shape[0], dtype=self.dtype, device=self.dev)
-        for k0 in range(0, self.kv.shape[0], KCHUNK):
-            sl = slice(k0, k0 + KCHUNK)
-            c, s = self._tables(xe, sl)
-            w = 2.0 * self.ug[sl]
-            b -= self._mm(c, (w * sr[sl])[:, None])[:, 0] + self._mm(
-                s, (w * si[sl])[:, None])[:, 0]
-        r = self._dist(xe, x)
-        m = self.elyte[None, :] & (r * r < self.cut_coulsq)
-        rs = torch.where(m, r, torch.ones_like(r))
-        pot = erfcr(self.g, rs) - erfcr(d.eta, rs)
-        b -= torch.sum(torch.where(m, pot, torch.zeros_like(r)) * qe[None, :],
-                       dim=1)
+        if self.mesh is not None:
+            b = -self.mesh.potential(x, qe, xe)
+        else:
+            sr, si = self._sfac(x, qe)
+            b = torch.zeros(xe.shape[0], dtype=self.dtype, device=self.dev)
+            for k0 in range(0, self.kv.shape[0], KCHUNK):
+                sl = slice(k0, k0 + KCHUNK)
+                c, s = self._tables(xe, sl)
+                w = 2.0 * self.ug[sl]
+                b -= self._mm(c, (w * sr[sl])[:, None])[:, 0] + self._mm(
+                    s, (w * si[sl])[:, None])[:, 0]
+        for e0 in self._ele_blocks(x.shape[0]):
+            r = self._dist(xe[e0], x)
+            m = self.elyte[None, :] & (r * r < self.cut_coulsq)
+            rs = torch.where(m, r, torch.ones_like(r))
+            pot = erfcr(self.g, rs) - erfcr(d.eta, rs)
+            b[e0] -= torch.sum(torch.where(m, pot, torch.zeros_like(r))
+                               * qe[None, :], dim=1)
         if d.slab:
             b -= xe[:, 2] * (4.0 * math.pi / self.volume) * torch.sum(
                 qe * x[:, 2])
@@ -363,16 +408,17 @@ class Reference:
         n = x.shape[0]
         f = torch.zeros_like(x)
         evdwl = ecoul = torch.zeros((), dtype=self.dtype, device=self.dev)
-        cols = torch.arange(n, device=self.dev)
-        for i0 in range(0, n, 512):
-            rows = cols[i0:i0 + 512]
-            dx = self._mi(x[rows, None, :] - x[None, :, :])
+        cell, ncell = self._cells(x)
+        for i0 in range(0, n, ROWS):
+            rows = torch.arange(i0, min(i0 + ROWS, n), device=self.dev)
+            cols = self._reach(cell, ncell, rows)
+            dx = self._mi(x[rows, None, :] - x[None, cols, :])
             rsq = (dx * dx).sum(-1)
             on = (rsq < d.cutoff ** 2) & (rows[:, None] != cols[None, :])
             r2 = torch.where(on, rsq, torch.ones_like(rsq))
             r = torch.sqrt(r2)
-            sp = self.special[rows]
-            tij = (self.typ[rows, None], self.typ[None, :])
+            sp = self._special(i0, rows.shape[0], cols)
+            tij = (self.typ[rows, None], self.typ[None, cols])
             r6 = 1.0 / (r2 * r2 * r2)
             lj = on & (sp > 0.0)
             zero = torch.zeros_like(r2)
@@ -382,14 +428,15 @@ class Reference:
                                              - self.lj[3][tij]), zero)
             gr = self.g * r
             erfc = erfc_as(gr)
-            pre = QQR2E * q[rows, None] * q[None, :] / r
+            pre = QQR2E * q[rows, None] * q[None, cols] / r
             fc = pre * (erfc + EWALD_F * gr * torch.exp(-gr * gr)) - (
                 1.0 - sp) * pre
             ec = pre * erfc - (1.0 - sp) * pre
             fpair = flj + torch.where(on, fc, zero) / r2
-            f[rows] = (fpair[..., None] * dx).sum(1)
-            evdwl = evdwl + 0.5 * elj.sum()
-            ecoul = ecoul + 0.5 * torch.where(on, ec, zero).sum()
+            wide = lambda t: _to_columns(t, cols, n)
+            f[rows] = wide(fpair[..., None] * dx).sum(1)
+            evdwl = evdwl + 0.5 * wide(elj).sum()
+            ecoul = ecoul + 0.5 * wide(torch.where(on, ec, zero)).sum()
         pe = evdwl + ecoul
         fb, eb = self._bonded(x)
         f, pe = f + fb, pe + eb
@@ -404,24 +451,87 @@ class Reference:
             pe = pe + QQR2E * 2.0 * math.pi / self.volume * mz * mz
             f[:, 2] += -QQR2E * 4.0 * math.pi / self.volume * q * mz
         # the electrodes' Gaussian correction on electrode-electrolyte pairs
-        xe = x[self.ele_idx]
-        dx = self._mi(xe[:, None, :] - x[None, :, :])
-        rsq = (dx * dx).sum(-1)
-        m = self.elyte[None, :] & (rsq < d.cutoff ** 2)
-        r = torch.sqrt(torch.where(m, rsq, torch.ones_like(rsq)))
-        pre = QQR2E * q[self.ele_idx, None] * q[None, :]
-        zero = torch.zeros_like(rsq)
-        fpair = torch.where(m, -pre * ferfcr(d.eta, r), zero) / (r * r)
-        fe = (fpair[..., None] * dx)
-        f = f - fe.sum(0)
-        f[self.ele_idx] += fe.sum(1)
-        pe = pe + torch.where(m, -pre * erfcr(d.eta, r), zero).sum()
+        for e0 in self._ele_blocks(n):
+            ei = self.ele_idx[e0]
+            dx = self._mi(x[ei][:, None, :] - x[None, :, :])
+            rsq = (dx * dx).sum(-1)
+            m = self.elyte[None, :] & (rsq < d.cutoff ** 2)
+            r = torch.sqrt(torch.where(m, rsq, torch.ones_like(rsq)))
+            pre = QQR2E * q[ei, None] * q[None, :]
+            zero = torch.zeros_like(rsq)
+            fpair = torch.where(m, -pre * ferfcr(d.eta, r), zero) / (r * r)
+            fe = (fpair[..., None] * dx)
+            f = f - fe.sum(0)
+            f[ei] += fe.sum(1)
+            pe = pe + torch.where(m, -pre * erfcr(d.eta, r), zero).sum()
         pe = pe + QQR2E * d.self_fac * math.sqrt(2.0 / math.pi) * d.eta * (
             q[self.ele_idx] ** 2).sum()
         if d.ffield:
             # the external field -V/Lz along z: F = qe2f q E
             f[:, 2] += QE2F * q * (-d.volts / d.box[2])
         return f, pe
+
+    def _special(self, i0, rows, cols):
+        """(rows, len(cols)) special_bonds factors of rows i0.. against the
+        atoms ``cols`` (ascending): 0 on the deck's excluded pairs, 1
+        elsewhere."""
+        sp = torch.ones((rows, cols.shape[0]), dtype=self.dtype,
+                        device=self.dev)
+        e = self.excl
+        e = e[(e[:, 0] >= i0) & (e[:, 0] < i0 + rows)]
+        at = torch.full((self.deck.natoms,), -1, dtype=torch.int64,
+                        device=self.dev)
+        at[cols] = torch.arange(cols.shape[0], device=self.dev)
+        j = at[e[:, 1]]
+        sp[e[j >= 0, 0] - i0, j[j >= 0]] = 0.0
+        return sp
+
+    def _cells(self, x):
+        """(each atom's cell, cells per axis): a grid of cells wider than
+        the cutoff, periodic axes wrapped, the others clamped to the box's
+        cells (which keeps atoms within the cutoff in neighbouring
+        cells)."""
+        d = self.deck
+        cell = torch.zeros(x.shape[0], dtype=torch.int64, device=self.dev)
+        ncell = []
+        for a in range(3):
+            nc = max(1, int(d.box[a] // (d.cutoff * CELL_MARGIN)))
+            u = (x[:, a].to(torch.float64) - d.box_lo[a]) / d.box[a]
+            if d.periodic[a]:
+                u = u - torch.floor(u)
+            c = torch.clamp(torch.floor(u * nc), 0, nc - 1).to(torch.int64)
+            cell = cell * nc + c
+            ncell.append(nc)
+        return cell, ncell
+
+    def _reach(self, cell, ncell, rows):
+        """The atoms (ascending) in the cells next to those of ``rows``: a
+        superset of every atom within the cutoff of one of them."""
+        d = self.deck
+        own = torch.unique(cell[rows])
+        per = [own // (ncell[1] * ncell[2]), (own // ncell[2]) % ncell[1],
+               own % ncell[2]]
+        near = torch.zeros(math.prod(ncell), dtype=torch.bool,
+                           device=self.dev)
+        for off in np.ndindex(3, 3, 3):
+            flat = torch.zeros_like(own)
+            ok = torch.ones_like(own, dtype=torch.bool)
+            for a in range(3):
+                c = per[a] + (off[a] - 1)
+                if d.periodic[a]:
+                    c = torch.remainder(c, ncell[a])
+                else:
+                    ok &= (c >= 0) & (c < ncell[a])
+                flat = flat * ncell[a] + c
+            near[flat[ok]] = True
+        return torch.nonzero(near[cell]).squeeze(1)
+
+    def _ele_blocks(self, n):
+        """Slices of the electrode rows, each block at most ``ROW_ELEMS``
+        elements against n atoms."""
+        step = max(1, ROW_ELEMS // n)
+        return [slice(e0, e0 + step)
+                for e0 in range(0, self.ele_idx.shape[0], step)]
 
     def _bonded(self, x):
         """Harmonic bonds K (r - r0)^2 and angles K (theta - theta0)^2."""

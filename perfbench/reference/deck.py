@@ -126,6 +126,7 @@ class Deck:
     volts: float
     ffield: bool                 # FFIELD: the z-ramp d vector and field
     self_fac: float              # the Gaussian self energy's factor
+    pppm_diff: str = None        # the mesh's kspace_modify diff, or None
 
     @property
     def natoms(self) -> int:
@@ -264,16 +265,25 @@ def build_deck(data_path: str, config: dict, traffic: dict) -> Deck:
     dk = config["deck"]
     tr = traffic["trial_settings"]
     ehgo = tr.get("ehgo")
-    if (tr["mode"] != "CONP" or tr["solver"] != "INV"
+    diff = dk.get("pppm_diff")
+    # the solvers differ in how they reach A^-1 b: the reference computes
+    # it exactly under each, and the cell's limits bound the iteration's
+    # tolerance
+    if (tr["mode"] != "CONP"
+            or tr["solver"] not in ("INV", "CG", "CG_MATFREE")
             or tr["ff"] not in ("NORMAL", "FFIELD")
             or tr["kspace"] not in ("EWALD", "PPPM")
             or tr["pairmode"] not in ("ETA", "EHGO")
             or tr.get("nevery", 1) != 1
-            or (tr["pairmode"] == "EHGO" and not _ehgo_is_eta(ehgo, dk))):
+            or (tr["pairmode"] == "EHGO" and not _ehgo_is_eta(ehgo, dk))
+            or (diff is not None
+                and (tr["kspace"] != "PPPM" or diff not in ("ik", "ad")))):
         raise NotImplementedError(
-            "the reference covers CONP with INV every step, the NORMAL slab "
-            "or FFIELD, Ewald (PPPM's exact sum), ETA and EHGO reducing to "
-            f"ETA's widths, not {tr}")
+            "the reference covers CONP with INV, CG or CG_MATFREE every "
+            "step, the NORMAL slab or FFIELD, Ewald (PPPM's exact sum, or "
+            "its mesh with diff ik or ad where the configuration states "
+            "pppm_diff), ETA and EHGO reducing to ETA's widths, not "
+            f"{tr} with pppm_diff {diff!r}")
     d = read_data(data_path)
     eps, sig = _tables(d, dk["mix"], dk.get("pair_coeffs", []))
     ff = _stated(dk.get("force_field", {}), d, dk["mix"], eps, sig)
@@ -304,4 +314,4 @@ def build_deck(data_path: str, config: dict, traffic: dict) -> Deck:
         dt=float(dk["dt"]), slab=float(tr["slab"] or 0.0),
         eta=float(dk["eta"]), volts=float(dk["volts"]),
         ffield=tr["ff"] == "FFIELD",
-        self_fac=1.0 if tr["pairmode"] == "EHGO" else 0.5)
+        self_fac=1.0 if tr["pairmode"] == "EHGO" else 0.5, pppm_diff=diff)

@@ -8,7 +8,9 @@ on one chip.  Every fault on the dilute cell; the state left unchanged
 and the closing kick left out on the il cells too, which compare no
 velocities: the charges and forces after the first step catch the one,
 those after the second step (whose positions carry the velocities after
-the first) the other."""
+the first) the other.  The integrator's faults are planted on the
+kernel's entry with stage sequences the kernel runs, so that they run on
+the card too."""
 
 import time
 
@@ -36,7 +38,8 @@ def test_sound_run_is_correct():
 @pytest.mark.parametrize("cell,fault", [
     ("dilute0", "unchanged"), ("dilute0", "half_forces"),
     ("dilute0", "altered_charge"), ("dilute0", "no_closing_kick"),
-    ("il0", "unchanged"), ("il0", "no_closing_kick"), ("il4", "unchanged")])
+    ("dilute0", "no_closing_thermostat"), ("il0", "unchanged"),
+    ("il0", "no_closing_kick"), ("il4", "unchanged")])
 def test_fault_is_not_correct(cell, fault):
     undo = faults.plant(fault)
     try:
@@ -45,3 +48,37 @@ def test_fault_is_not_correct(cell, fault):
         undo()
     failed = [name for name, v, lim in out["checks"] if not v <= lim]
     assert not out["correct"] and failed, out["checks"]
+
+
+@pytest.mark.parametrize("fault,dropped", [("no_closing_kick", "kick"),
+                                           ("no_closing_thermostat", "nhc")])
+def test_integrator_faults_pass_the_kernel_its_stages(fault, dropped):
+    """Each stage sequence the engine hands K10's entry (the first half;
+    the second half without SHAKE, and its two pieces around RATTLE) goes
+    on whole in the first half, and in the second without the stage the
+    fault leaves out: always one of the sequences the kernel runs
+    (``integrate_kernel.STAGES``), or, where nothing is left, the input
+    back."""
+    from lammps_user_conp2_tpu_torch.models import md
+    from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel
+    seen = []
+    inner = md.integrate_half
+    md.integrate_half = lambda itg, v, f, x, xi, vxi, stages: (
+        seen.append(stages) or (v, x, xi, vxi))
+    undo = faults.plant(fault)
+    try:
+        for stages in integrate_kernel.STAGES:
+            before = len(seen)
+            out = md.integrate_half("itg", "v", "f", "x", "xi", "vxi",
+                                    stages)
+            if stages[0] == "nhc" and stages != ("nhc",):
+                assert seen[before:] == [stages]
+            elif stages == (dropped,):
+                assert seen[before:] == [] and out == ("v", "x", "xi", "vxi")
+            else:
+                assert seen[before:] == [tuple(x for x in stages
+                                               if x != dropped)]
+    finally:
+        undo()
+        md.integrate_half = inner
+    assert set(seen) <= set(integrate_kernel.STAGES)
