@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 44-46    # or 45: those phases alone
     python3 chip_smoke.py --phases 47-50    # with 41-43: this slice's
+    python3 chip_smoke.py --phases 51       # the dense mesh's stencils
 
 Drives the port's paths (nine main paths through
 ``lammps_user_conp2_tpu_torch``: setup_conp -> build_engine -> init_state ->
@@ -47,11 +48,13 @@ z-binned mesh):
      to their plain version, K1's work items and K2a's kept atoms per tile
      and staging passes printed; K1's and K2a's host and device times;
      K10's split form (two launches per call) on the cell's integrator as
-     in phase 11 (``ms_100k``, ``bound_ms_100k`` in the kernels line);
+     in phase 11 (``ms_100k``, ``bound_ms_100k`` in the kernels line); the
+     dense mesh's stencil kernels at the electrodes' z planes (phase 51's
+     sites: their spread and b's readout, ``ms_100k``, ``bound_ms_100k``);
   8. the main path: 10 warm-up and 100 timed steps from positions near the
-     walls; K1, K2a and K3 must have launched every step and the Verlet
-     list must have been rebuilt in the timed window; finite energy,
-     neutral electrodes;
+     walls; K1, K2a, K3 and the two stencil kernels (the electrodes'
+     planes) must have launched every step and the Verlet list must have
+     been rebuilt in the timed window; finite energy, neutral electrodes;
   9. 3 steps on the card (float32) against 3 steps on the CPU (float64,
      plain path, per-atom Verlet list) with phase 5's bounds.
 
@@ -84,8 +87,9 @@ mid-size path with SHAKE/RATTLE, K7 and K8):
      and the bound by bytes;
  12. the main path: 11 warm-up and 100 timed steps; K4, K5, K7, K8 and
      K10 must have launched every step (111 times, K10 333; K4 and K5 once
-     more in init_state); finite energy, neutral electrodes; the angles' 1-3
-     distances within ShakeConfig.tol (1e-4) and the bonds within twice
+     more in init_state), the stencil kernels never; finite energy,
+     neutral electrodes; the angles' 1-3 distances within
+     ShakeConfig.tol (1e-4) and the bonds within twice
      the residual of the float64 reference at the same step (IL_F64_BONDS);
  13. 11 steps on the card (float32) against 11 steps on the CPU (float64,
      plain path): phase 5's bounds over the first 3, and at step 11, where
@@ -193,8 +197,9 @@ CUDA float64 tensors, ``ops/kernels/build.kernel_route``):
      within F64_CARD_REL, printed per cell; no hand kernel launches.
 
 The decks' charge and field modes on the phase-10 file (dense path, z
-periodic, K4, K5, K7 and K8 every step; each main path 111 steps, a graph
-phase of DECK_GRAPH_PAIRS pairs, 3 steps against float64 on the CPU):
+periodic, K4, K5, K7, K8 and the dense mesh's two stencil kernels every
+step; each main path 111 steps, a graph phase of DECK_GRAPH_PAIRS pairs, 3
+steps against float64 on the CPU):
 
  27. ``cond`` trial 4 (COND, FFIELD, PPPM, the feedback field), the fix
      scalar held to SCALAR_REL (as in phases 28 and 29); trials 1 and 3
@@ -229,9 +234,10 @@ host syncs per step):
      steps, K4 once per step, K5 once per solve step and never on a skip
      step;
  32. the 100k cell with a float64 solve under a float32 engine, INV and
-     CG_MATFREE: K1, K2a and K3 once per step each, K10 four times (its
-     split form), and no hand kernel in the float64 solve; INV against phase 26's float64 run within
-     MIXED_F64_GAP, CG_MATFREE against the mixed INV run within
+     CG_MATFREE: K1, K2a, K3 and the stencil spread (the electrodes'
+     planes) once per step each, K10 four times (its split form), and no
+     hand kernel in the float64 solve; INV against phase 26's float64 run
+     within MIXED_F64_GAP, CG_MATFREE against the mixed INV run within
      CG_TOL_GAP (and CG_INV_GAP at CG_TIGHT_TOL);
  33. the mid-size cell under CG_MATFREE with mobile electrodes (every
      atom thermostatted, the electrodes given velocities): 3 steps in
@@ -351,8 +357,9 @@ and the capacitance:
      the doubled cells too; the cross-mode relations of JAX
      tests/test_modes.py:27-49 on the card's charges at x0 (FFIELD's qleft
      and each half's = the slab's, to DILUTE_MODE_TOL); trial 0's main run
-     (K4 and K5 every step, ``launches_dilute``), their bounds at its
-     shapes and its graph phase (47b); then ``python -m
+     (K4 and K5 every step, ``launches_dilute``; the stencil kernels
+     never), their bounds at its shapes and its graph phase (47b); then
+     ``python -m
      lammps_user_conp2_tpu_torch run-suite dilute --f32`` in its own
      process (trial 1 equal to trial 0 as printed);
  48. (run with phases 42-43) ``ShardedEngine.run`` as CUDA graphs, the
@@ -377,8 +384,22 @@ and the capacitance:
      dilute 0 --steps CAP_STEPS`` on the card (graphed): its static value
      to CAP_STATIC_REL, its fluctuation estimate finite and positive.
 
+The dense mesh's stencil kernels (phase 51, ``ops/kernels/
+mesh_stencil.py``):
+
+ 51. il_onelayer trial 4 on the phase-10 file (mesh 30 x 32 x 80, Ne
+     2,496, the electrodes' z planes): each mesh call of its step (the
+     electrolyte's spread, the electrodes' spread onto their planes, b's
+     readout from the planes, the ik forces' readout) and the ad readout
+     against the dense plain version on the card (KERNEL_TOL), one CUDA
+     kernel per call, two launches bit-identical, event and device ms
+     beside the bound and the plain version's event and device ms.  Their
+     launches on the main runs (phase 8, phases 27-29, 30-40) and their
+     device ms per launch replayed (the graph phases) are the kernels
+     line's, as every hand kernel's (KERNEL_IDS).
+
 ``python3 chip_smoke.py --phases 47-50`` runs phases 41-43 and 47-50 alone
-(no contract line).
+(no contract line); ``--phases 51`` phase 51 alone.
 
 The kernels line's K4 entry carries the tile path's numbers per cell
 (``launches_tile``, ``ms_tile``, ``device_ms_tile``, ``plain_ms_tile``,
@@ -523,26 +544,48 @@ def host_ms(fn, reps=50) -> float:
     return t
 
 
+def marked_trace(fn, reps, tries=5, want=1) -> list:
+    """The CUDA kernel records of ``reps`` calls of ``fn`` in a
+    torch.profiler trace.  The profiler can lose kernel records, never add
+    them, and loses them at a trace's start (single-call traces came back
+    empty five times running once the script had taken many traces, K9 in
+    phase 24 and K8 in phase 11; a ten-call trace of K10's split form held
+    17 of its 20 in five traces running): each trace runs ``reps`` calls,
+    a marker kernel (``torch.cuda._sleep``) and the ``reps`` calls whose
+    records it returns, those that start after the marker's; a trace with
+    fewer than ``want`` of them is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(MARK_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        mark = [e.time_range.start for e in ev if MARK_KERNEL in e.name]
+        ev = [e for e in ev if mark and e.time_range.start > mark[0]
+              and MARK_KERNEL not in e.name]
+        if len(ev) >= want:
+            break
+    return ev
+
+
 def device_ms(fn, parts, reps=20, tag=None) -> float:
     """Device time per call of the CUDA kernels whose names contain one of
-    ``parts`` (torch.profiler over ``reps`` calls): per part, the median
+    ``parts`` (``marked_trace`` of ``reps`` calls): per part, the median
     record times the records per call, rounded (the profiler can drop
     records, which a plain sum over ``reps`` would read as a faster
     kernel); with ``tag``, each part's share and record count is
     printed."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     rec = {p: [] for p in parts}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            for p in parts:
-                if p in e.name:
-                    rec[p].append(e.time_range.elapsed_us() / 1e3)
+    for e in marked_trace(fn, reps):
+        for p in parts:
+            if p in e.name:
+                rec[p].append(e.time_range.elapsed_us() / 1e3)
     per = {p: float(np.median(t)) * max(1, round(len(t) / reps)) if t
            else 0.0 for p, t in rec.items()}
     if tag:
@@ -564,6 +607,8 @@ KERNEL_IDS = {
     "rattle_velocities": ("K8", "rattle_velocities"),
     "window_gather": ("K9", "window_gather"),
     "integrate_half": ("K10", "integrate_half"),
+    "mesh_spread": ("mesh_spread", "mesh_spread"),
+    "mesh_gather": ("mesh_gather", "mesh_gather"),
 }
 # the CUDA kernels of each redesigned wrapper, for ``device_ms``
 K4_PARTS = ("pair_schedule", "pair_sweep", "pair_reduce")
@@ -580,6 +625,15 @@ K7_PARTS = ("shake_rows_kernel", "shake_kernel")
 K8_PARTS = ("rattle_rows_kernel", "rattle_kernel")
 K10_PARTS = ("integrate_half_kernel", "integrate_sums_kernel",
              "integrate_apply_kernel")
+# ``marked_trace``'s marker between the calls it lets the profiler lose
+# and those it counts: ``torch.cuda._sleep``'s kernel, a few cycles
+MARK_KERNEL = "spin_kernel"
+MARK_CYCLES = 1000
+# the dense mesh's stencil kernels: their counters, and the CUDA kernel of
+# each wrapper
+MESH_COUNTERS = ("mesh_spread", "mesh_gather")
+MESH_PARTS = {"mesh_spread": ("stencil_spread_kernel",),
+              "mesh_gather": ("stencil_readout_kernel",)}
 
 
 def compare(name, got, ref, tol=KERNEL_TOL):
@@ -843,6 +897,8 @@ def main() -> int:
     native_phase(card, results, files)
     capacitance_phase(card, dev, results, {"dilute": files["dilute"],
                                            "il_onelayer": il_file})
+    # phase 51: the dense mesh's stencil kernels
+    mesh_stencil_phase(card, dev, results, il_file)
     # each kernel's launches on those main runs, by cell, and on phases
     # 35-40, by phase
     for name, (_, counter) in KERNEL_IDS.items():
@@ -868,7 +924,11 @@ def main() -> int:
         "rattle_velocities": pallas + "shake_kernel.py:207",
         "window_gather": "tools/exp_vmem_gather.py:46",
         "integrate_half": "none: the JAX package's integrator is XLA ops "
-                          "(models/integrate.py)"}
+                          "(models/integrate.py)",
+        "mesh_spread": "none: the JAX package's dense spread, "
+                       "spread_zplanes are XLA ops (ops/pppm.py)",
+        "mesh_gather": "none: the JAX package's dense gather, gather3, "
+                       "gather_zplanes, gather3_ad are XLA ops (ops/pppm.py)"}
     csrc = "lammps_user_conp2_tpu_torch/csrc/"
     source = {
         "pair_forces_conp": csrc + "pair_kernel.cu",
@@ -881,7 +941,9 @@ def main() -> int:
         "shake_positions": csrc + "shake_kernel.cu",
         "rattle_velocities": csrc + "shake_kernel.cu",
         "window_gather": csrc + "vmem_gather.cu",
-        "integrate_half": csrc + "integrate.cu"}
+        "integrate_half": csrc + "integrate.cu",
+        "mesh_spread": csrc + "mesh_stencil.cu",
+        "mesh_gather": csrc + "mesh_stencil.cu"}
     for name in ("block_pair_conp", "integrate_half"):
         r100k = results[name + "_100k"]
         results[name].update(
@@ -939,7 +1001,7 @@ def main() -> int:
             "bound_ms_tile", "bound_by_tile", "max_rel_err_tile",
             "live_items_tile", "pair_cap_tile", "side_buffer_bytes_tile",
             "tested_pairs_tile", "inrange_pairs_tile", "launches_dilute",
-            "launches_sharded_graphed")
+            "launches_sharded_graphed", "sites")
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=results[name]["abs"],
@@ -969,6 +1031,7 @@ def production_path(card, dev, results):
     from lammps_user_conp2_tpu_torch.ops import pppm
     from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
     from lammps_user_conp2_tpu_torch.ops.kernels import build
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as kms
     from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
     from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
     from lammps_user_conp2_tpu_torch.step_breakdown_large import large_cell
@@ -1098,10 +1161,40 @@ def production_path(card, dev, results):
     report("phase 7", results, ("block_pair_100k", "block_pair_conp_100k",
                                 "spread_mesh", "gather3"), card)
     k10_phase("phase 7", eng, results, card, key="integrate_half_100k")
+    # the stencil kernels at this cell's electrode planes: their re-spread
+    # in the forces and b's readout (phase 51's kernels)
+    if conp.ele_zplanes is None:
+        raise AssertionError("phase 7: the electrodes have no z planes")
+    rng = np.random.default_rng(7)
+    xe = conp.ele_rows(torch.as_tensor(system.x0, dtype=torch.float32,
+                                       device=dev))
+    qe = torch.as_tensor(0.05 * rng.standard_normal(conp.ne),
+                         dtype=torch.float32, device=dev)
+    zpi = conp.ele_zpinv
+    up = torch.as_tensor(rng.standard_normal(
+        (grid.nx, grid.ny, len(conp.ele_zplanes))), dtype=torch.float32,
+        device=dev)
+    print(f"phase 7: the electrodes' {conp.ne} rows on "
+          f"{len(conp.ele_zplanes)} z planes of the {grid.shape} mesh")
+    mesh_sites("phase 7", {
+        "mesh_spread": {"electrode_planes_100k": (
+            lambda: pppm.spread_zplanes(grid, xe, qe, zpi),
+            lambda: pppm._spread_zplanes_dense(grid, xe, qe, zpi),
+            (xe, qe), conp.ne * SPREAD_FLOPS)},
+        "mesh_gather": {"b_planes_100k": (
+            lambda: pppm.gather_zplanes(grid, up, xe, zpi, scale=-1.0),
+            lambda: -pppm._gather_zplanes_dense(grid, up, xe, zpi),
+            (up, xe), conp.ne * GATHER_FLOPS // 3)}}, card, results)
+    for name, site in (("mesh_spread", "electrode_planes_100k"),
+                       ("mesh_gather", "b_planes_100k")):
+        r = results[name]["sites"][site]
+        results[name].update(ms_100k=r["ms"], device_ms_100k=r["device_ms"],
+                             bound_ms_100k=r["bound_ms"])
 
     # ---- phase 8: the main path on the card
     counters = {"block_pair_100k": k1.launches, "spread_mesh": k2.launches,
-                "gather3": k3.launches}
+                "gather3": k3.launches, "mesh_spread": kms.spread_launches,
+                "mesh_gather": kms.gather_launches}
     r0 = eng.rebuilds
     _, _, _, launches = main_run("phase 8", eng, dict(x0=x_near), 10, 100,
                                  counters, conp.ne, card)
@@ -1114,7 +1207,8 @@ def production_path(card, dev, results):
     # ---- phase 9: card (float32) against CPU (float64, plain path)
     card_vs_cpu("phase 9", eng, system, md, cfg, F64_STEPS, x0=x_near,
                 cell="100k")
-    return {k: launches[k] for k in ("spread_mesh", "gather3")}
+    return {k: launches[k] for k in ("spread_mesh", "gather3", "mesh_spread",
+                                     "mesh_gather")}
 
 
 def il_path(card, dev, results):
@@ -1128,6 +1222,7 @@ def il_path(card, dev, results):
                                                           constraint_residuals)
     from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
     from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as kms
     from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
     from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
     from lammps_user_conp2_tpu_torch.ops.kernels.zorder import z_perm
@@ -1282,12 +1377,15 @@ def il_path(card, dev, results):
     k10_phase("phase 11", eng, results, card)
 
     # ---- phase 12: the main path on the card
+    # the factored Ewald sum: the dense mesh's stencil kernels never run
     counters = {"pair_forces_conp": k4.launches, "b_realspace": k5.launches,
                 "shake_positions": k78.shake_launches,
                 "rattle_velocities": k78.rattle_launches,
-                "integrate_half": ik.launches}
+                "integrate_half": ik.launches,
+                "mesh_spread": kms.spread_launches,
+                "mesh_gather": kms.gather_launches}
     st, _, _, launches = main_run("phase 12", eng, {}, 11, 100, counters,
-                                  conp.ne, card)
+                                  conp.ne, card, never=MESH_COUNTERS)
     graph_phase("phase 12b", "il", eng, {}, card)
     res = constraint_residuals(cons, st.x, **kw)
     print(f"phase 12: constraint residual per slot (bond 1, bond 2, 1-3) "
@@ -1392,27 +1490,15 @@ def k10_phase(tag, eng, results, card, key="integrate_half"):
 
 
 def kernels_per_call(name, fn, reps=10, per=1) -> int:
-    """CUDA kernels per call in a torch.profiler trace of ``reps`` calls;
-    raises unless there are exactly ``per`` per call.  The profiler can
-    lose kernel records, never add them: a trace with fewer than ``reps``
-    x ``per`` is taken again, up to five times (single-call traces came
-    back empty five times running once the script had taken many traces,
-    K9 in phase 24 and K8 in phase 11; a ten-call trace of K10's split
-    form held 17 of its 20)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, 6):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type.name == "CUDA"]
-        if len(names) >= reps * per:
-            break
-    print(f"    {name}: {len(names)} CUDA kernel(s) in {reps} call(s), "
-          f"trace {attempt}: " + ", ".join(sorted({n[:60] for n in names})))
+    """CUDA kernels per call in a ``marked_trace`` of ``reps`` calls
+    (taken again while it holds fewer than ``reps`` x ``per``); raises
+    unless there are exactly ``per`` per call."""
+    names = [e.name for e in marked_trace(fn, reps, want=reps * per)]
+    counts = {}
+    for n in names:
+        counts[n[:60]] = counts.get(n[:60], 0) + 1
+    print(f"    {name}: {len(names)} CUDA kernel(s) in {reps} call(s): "
+          + ", ".join(f"{n} x{c}" for n, c in sorted(counts.items())))
     if len(names) != reps * per:
         raise AssertionError(f"{name}: {len(names)} kernels in {reps} "
                              f"calls, not {per} per call")
@@ -2164,7 +2250,7 @@ def f64_path(card, dev):
 
 
 DECK_COUNTERS = ("pair_forces_conp", "b_realspace", "shake_positions",
-                 "rattle_velocities")
+                 "rattle_velocities", "mesh_spread", "mesh_gather")
 
 
 def _deck_engine(tag, deck, n, path, dev, **cfg_kw):
@@ -2203,13 +2289,16 @@ def _deck_main(tag, cell, deck, n, path, dev, card):
     CPU float64 with the fix scalar; returns (system, md, cfg, conp, eng,
     launches, final card state of the agreement run)."""
     from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as kms
     from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
     from lammps_user_conp2_tpu_torch.ops.kernels import shake_kernel as k78
     system, md, cfg, conp, eng = _deck_engine(tag, deck, n, path, dev)
     deck_bounds(tag, cell, system, md, conp, eng, card)
     counters = dict(zip(DECK_COUNTERS, (k4.launches, k5.launches,
                                         k78.shake_launches,
-                                        k78.rattle_launches)))
+                                        k78.rattle_launches,
+                                        kms.spread_launches,
+                                        kms.gather_launches)))
     _, th, _, launches = main_run(tag, eng, {}, 11, 100, counters, conp.ne,
                                   card)
     print(f"{tag}: fix scalar f_e {float(th['f_e'][-1]):.6g}, qright "
@@ -2442,16 +2531,9 @@ SOLVE_LAUNCHES = {}
 
 def device_ms_all(fn, reps=10) -> float:
     """Device time per call of every CUDA kernel ``fn`` launches
-    (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type.name == "CUDA") / 1e3 / reps
+    (``marked_trace``)."""
+    return sum(e.time_range.elapsed_us() for e in marked_trace(fn, reps)
+               ) / 1e3 / reps
 
 
 def _launch_counts() -> dict:
@@ -2701,8 +2783,10 @@ def mixed_path(card, dev, results):
         moved = _moved(before)
         cell = "100k_mixed_" + solver.lower().replace(" ", "_")
         SOLVE_LAUNCHES[cell] = moved
+        # the electrodes' re-spread onto their planes in the float32
+        # forces: the stencil spread (b's readout is in the float64 solve)
         want = {n: F64_STEPS for n in ("block_pair", "spread_mesh",
-                                       "gather3")}
+                                       "gather3", "mesh_spread")}
         # K10's split form at this cell's rows: two launches per half step
         want["integrate_half"] = 4 * F64_STEPS
         if moved != want:
@@ -4100,6 +4184,7 @@ def dilute_phase(card, dev, results):
     from lammps_user_conp2_tpu_torch.models.conp import setup_conp
     from lammps_user_conp2_tpu_torch.models.md import build_engine
     from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k5
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as kms
     from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
     tag = "phase 47"
     t0 = time.perf_counter()
@@ -4137,9 +4222,11 @@ def dilute_phase(card, dev, results):
         if n == 0:
             deck_bounds(tag, "dilute0", system, md, conp, eng, card)
             counters = {"pair_forces_conp": k4.launches,
-                        "b_realspace": k5.launches}
+                        "b_realspace": k5.launches,
+                        "mesh_spread": kms.spread_launches,
+                        "mesh_gather": kms.gather_launches}
             *_, launches = main_run(tag, eng, {}, 10, 100, counters, conp.ne,
-                                    card)
+                                    card, never=MESH_COUNTERS)
             graph_phase(tag + "b", "dilute0", eng, {}, card)
         del eng, conp
     slab = halves[0][0][0]
@@ -4313,6 +4400,132 @@ def capacitance_phase(card, dev, results, files):
                                   seconds=time.perf_counter() - t0)
 
 
+def mesh_sites(tag, sites, card, results):
+    """The dense mesh's stencil kernels (``ops/kernels/mesh_stencil.py``)
+    at call sites of a cell: ``sites`` maps the kernel's name to {site:
+    (the routed call, its dense plain version, the tensors read, the
+    operations)}.  Each site: one launch per call (the counter and the
+    profiler: one CUDA kernel per call), within KERNEL_TOL of the plain
+    version, two launches bit-identical; the kernel's ms between events
+    and its device ms, its bound (inputs and output once at 3.35 TB/s, or
+    the operations), the plain version's ms and device ms.  Fills
+    results[name]["sites"][site] and the worst errors."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as kms
+    counters = {"mesh_spread": kms.spread_launches,
+                "mesh_gather": kms.gather_launches}
+    for name, per_site in sites.items():
+        r = results.setdefault(name, {})
+        for site, (kern, plain, inputs, flops) in per_site.items():
+            n0 = counters[name].count
+            got, again = kern(), kern()
+            ref = plain()
+            torch.cuda.synchronize()
+            if counters[name].count != n0 + 2:
+                raise AssertionError(f"{tag}: {name} {site}: the kernel did "
+                                     "not launch once per call")
+            rel, err = compare(f"{tag}: {name} {site}", [got], [ref])
+            same_bits(f"{tag}: {name} {site}", [got], [again])
+            row = dict(rel=rel, abs=err, ms=median_ms(kern),
+                       device_ms=device_ms(kern, MESH_PARTS[name]),
+                       kernels_per_call=kernels_per_call(
+                           f"{tag}: {name} {site}", kern),
+                       plain_ms=median_ms(plain),
+                       plain_device_ms=device_ms_all(plain),
+                       **bound(inputs, got, flops))
+            r.setdefault("sites", {})[site] = row
+            r["rel"] = max(r.get("rel", 0.0), rel)
+            r["abs"] = max(r.get("abs", 0.0), err)
+            print(f"{tag}: {name} {site}: event {row['ms']:.4f} ms, device "
+                  f"{row['device_ms']:.4f}, bound {row['bound_ms']:.6f} "
+                  f"({row['bound_by']}); plain {row['plain_ms']:.4f} ms, "
+                  f"device {row['plain_device_ms']:.4f}  [{card}]")
+
+
+def mesh_stencil_phase(card, dev, results, path):
+    """Phase 51: the dense mesh's stencil spread and readout at il_onelayer
+    trial 4 on the 3,776-atom file (mesh 30 x 32 x 80, Ne 2,496, the
+    deck's z planes), from its initial state (``mesh_sites``): each call of
+    the step (the electrolyte's spread, the electrodes' spread onto their
+    planes, b's readout from the planes with its sign, the ik forces'
+    readout of three fields with the charges) and the ad readout, which no
+    cell runs.  Their launches on the main runs and their device ms per
+    launch replayed come from the deck cells (phases 27-29), the 100k cell
+    (phase 8) and phases 30-40 (KERNEL_IDS); phase 7 adds the 100k cell's
+    planes as sites."""
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.models.md import build_engine
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    tag = "phase 51"
+    system, md, cfg = workloads.il_onelayer(4, data_path=path)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    eng = build_engine(system, md, conp, dtype=torch.float32, device=dev)
+    st = eng.init_state()
+    grid = eng.pppm_grid
+    x, q = st.x, st.q
+    q_el = torch.where(conp.elyte_t, q, torch.zeros_like(q))
+    xe, qe = conp.ele_rows(x), conp.ele_rows(q)
+    zpi = conp.ele_zpinv
+    rhok = P.spread_rhok(grid, x, q_el)
+    up = P.u_on_zplanes(grid, rhok, conp.ele_zplanes)
+    _, ef = P.pppm_energy_efield_from_k(grid, rhok)
+    _, um = P.pppm_energy_u_from_k(grid, rhok)
+    nel = int((q_el != 0).sum())
+    print(f"{tag}: il_onelayer trial 4, {x.shape[0]} atoms ({nel} "
+          f"charged in the electrolyte spread), Ne {xe.shape[0]}, mesh "
+          f"{grid.shape}, {len(conp.ele_zplanes)} z planes  [{card}]")
+    mesh_sites(tag, {
+        "mesh_spread": {
+            "electrolyte": (lambda: P.spread(grid, x, q_el),
+                            lambda: P._spread_dense(grid, x, q_el),
+                            (x, q_el), nel * SPREAD_FLOPS),
+            "electrode_planes": (
+                lambda: P.spread_zplanes(grid, xe, qe, zpi),
+                lambda: P._spread_zplanes_dense(grid, xe, qe, zpi),
+                (xe, qe), xe.shape[0] * SPREAD_FLOPS)},
+        "mesh_gather": {
+            "b_planes": (
+                lambda: P.gather_zplanes(grid, up, xe, zpi, scale=-1.0),
+                lambda: -P._gather_zplanes_dense(grid, up, xe, zpi),
+                (up, xe), xe.shape[0] * GATHER_FLOPS // 3),
+            "ik_forces": (
+                lambda: P.gather3(grid, ef, x, scale=q),
+                lambda: q[:, None] * P._gather3_dense(grid, ef, x),
+                (ef, x, q), x.shape[0] * GATHER_FLOPS),
+            "ad_forces": (lambda: P.gather3_ad(grid, um, x),
+                          lambda: P._gather3_ad_dense(grid, um, x),
+                          (um, x), x.shape[0] * GATHER_FLOPS)},
+    }, card, results)
+    # the kernels line's own columns: il4's step sites
+    for name, site in (("mesh_spread", "electrolyte"),
+                       ("mesh_gather", "ik_forces")):
+        r = results[name]
+        r.update({k: r["sites"][site][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "kernels_per_call")})
+
+
+def mesh_phase_only() -> int:
+    """Phase 51 alone, on the 3,776-atom il file; prints its numbers as
+    one JSON line and no contract line: the whole run is ``main``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.ops.kernels import build
+    t0 = time.perf_counter()
+    build.load_library()
+    card = gpu_line()
+    print(f"phase 51 alone: card {card}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    il_file = workloads.write_il_data(os.path.join(OUT_DIR, "il_3776.data"))
+    results = {}
+    mesh_stencil_phase(card, torch.device("cuda:0"), results, il_file)
+    print(json.dumps(results, default=str))
+    print(f"phase 51 alone: {time.perf_counter() - t0:.1f} s  [{card}]")
+    return 0
+
+
 def new_phases_only() -> int:
     """Phases 41-43 and 47-50 (this slice's paths: the sharded step eager
     and graphed, the dilute deck, the host library, the capacitance), with
@@ -4394,7 +4607,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phases"]:
         if sys.argv[2:] == ["47-50"]:
             sys.exit(new_phases_only())
+        if sys.argv[2:] == ["51"]:
+            sys.exit(mesh_phase_only())
         if sys.argv[2:] not in (["44-46"], ["45"]):
-            sys.exit("chip_smoke: --phases takes 44-46, 45 or 47-50")
+            sys.exit("chip_smoke: --phases takes 44-46, 45, 47-50 or 51")
         sys.exit(pair_paths_only(sys.argv[2]))
     sys.exit(main())

@@ -386,12 +386,13 @@ class ConpSolver(nn.Module):
             # small z-DFT matmul and P plane FFTs, no full inverse FFT
             grid = self.pppm_grid
             up = pppm_ops.u_on_zplanes(grid, kcache[0], self.ele_zplanes)
-            b = -pppm_ops.gather_zplanes(grid, up, xe, self.ele_zpinv)
+            b = pppm_ops.gather_zplanes(grid, up, xe, self.ele_zpinv,
+                                        scale=-1.0)
         elif self.pppm_grid is not None:
             # rough, z-extended or mobile electrodes: the full potential
             # mesh and the stencil readout (tiled above the dense bound)
             u = pppm_ops.poisson_u_from_k(self.pppm_grid, kcache[0])
-            b = -pppm_ops.gather(self.pppm_grid, u, xe)
+            b = pppm_ops.gather(self.pppm_grid, u, xe, scale=-1.0)
         elif kcache is not None:
             tabs, sr, si, zsort = kcache
             (pr, pi), (zr, zi) = tabs

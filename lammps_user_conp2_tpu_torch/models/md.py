@@ -315,10 +315,9 @@ class Engine(nn.Module):
             else:
                 ek, umesh = pppm_ops.pppm_energy_u_from_k(grid, rhok)
                 e3 = pppm_ops.gather3_ad(grid, umesh, x)
-        else:
-            ek, efield = pppm_ops.pppm_energy_efield_from_k(grid, rhok)
-            e3 = pppm_ops.gather3(grid, efield, x, slots=slots)
-        return ek, q[:, None] * e3
+            return ek, q[:, None] * e3
+        ek, efield = pppm_ops.pppm_energy_efield_from_k(grid, rhok)
+        return ek, pppm_ops.gather3(grid, efield, x, slots=slots, scale=q)
 
     def _kspace(self, x, q, kcache, tasg):
         """(ek, fk) of k-space without the qqr2e prefactor: the mesh, or

@@ -148,6 +148,13 @@ def load_library() -> ctypes.CDLL:
     lib.conp2_spread_tiles_f32.restype = I
     lib.conp2_gather3_f32.argtypes = [P] * 3 + [I] * 8 + [P, P]
     lib.conp2_gather3_f32.restype = I
+    lib.conp2_stencil_spread_f32.argtypes = [P] * 5 + [I] * 6 + [F] * 6 + [
+        P, P]
+    lib.conp2_stencil_spread_f32.restype = I
+    lib.conp2_stencil_readout_f32.argtypes = (
+        [P] * 3 + [I] * 5 + [P] * 2 + [F] + [P] * 2 + [I] * 6 + [F] * 9
+        + [P] * 2)
+    lib.conp2_stencil_readout_f32.restype = I
     lib.conp2_shake_positions_f32.argtypes = (
         [P] * 4 + [I] * 5 + [F] + [F] * 3 + [I] * 3 + [P] * 3)
     lib.conp2_shake_positions_f32.restype = I

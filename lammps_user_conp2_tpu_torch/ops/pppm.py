@@ -6,8 +6,11 @@ The JAX package's ``ops/pppm.py`` in PyTorch:
     pppm.cpp set_grid_global / adjust_gewald; the optimised influence
     function (Hockney-Eastwood, LAMMPS compute_gf_ik) is built once in
     float64 with explicit Brillouin sums (``compute_greens``);
-  * small meshes take the dense path: per-axis weight matrices and
-    matmuls (``spread``, ``gather``, ``gather3``, ``gather3_ad``);
+  * small meshes take the dense path (``spread``, ``gather``, ``gather3``,
+    ``gather3_ad``): on the card in float32 the stencil spread and readout
+    kernels (``ops/kernels/mesh_stencil.py``), one launch per call; on the
+    CPU and in float64 the JAX package's per-axis weight matrices and
+    matmuls (``_spread_dense`` and the rest), their plain versions;
   * large meshes take the tiled z-binned path of the production cell:
     atoms binned into 3-D mesh tiles (``tile_assign``, refreshed per step
     by ``refresh_tile_slots``), the charge spread straight into the
@@ -18,7 +21,8 @@ The JAX package's ``ops/pppm.py`` in PyTorch:
     ``ops/kernels/pppm_gather.py``, ``gather3_ad_zbin``);
   * electrodes that sit on a few z planes take the z-plane transforms
     (``spread_zplanes``, ``rhok_from_zplanes``, ``u_on_zplanes``,
-    ``gather_zplanes``).
+    ``gather_zplanes``), the spread and the readout through the same
+    kernels on the card.
 
 ``torch.fft`` takes the place of the JAX package's exact-phase xy DFT
 matmuls (``_xy_fft2``/``_xy_ifft2``) and of its dense z DFT (``rfft3``/
@@ -48,7 +52,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .kernels import pppm_gather, pppm_spread
+from .kernels import build, mesh_stencil, pppm_gather, pppm_spread
 
 # Deserno & Holm ik-differentiation error coefficients (LAMMPS pppm.cpp acons)
 ACONS = np.zeros((8, 7))
@@ -1040,30 +1044,63 @@ def _wxy(WX, WY):
     return (WX[:, :, None] * WY[:, None, :]).reshape(WX.shape[0], -1)
 
 
+def _scaled(out, scale):
+    """``out`` times ``scale``: None, a number, or (N,), one per row."""
+    if scale is None:
+        return out
+    if isinstance(scale, torch.Tensor) and out.dim() == 2:
+        return scale[:, None] * out
+    return scale * out
+
+
 def spread(grid: PPPMGrid, x, q, slots: TileSlots = None):
-    """Charges onto the mesh (LAMMPS make_rho): (nx, ny, nz); the tiled
-    path above the dense bound."""
+    """Charges onto the mesh (LAMMPS make_rho): (nx, ny, nz); the stencil
+    spread kernel for CUDA float32 tensors, the tiled path above the dense
+    bound."""
     if not _use_dense(grid, x.shape[0]):
         return spread_tiled(grid, x, q, slots=slots)
+    if build.kernel_route("mesh_spread", x):
+        return mesh_stencil.spread(grid, x, q)
+    return _spread_dense(grid, x, q)
+
+
+def _spread_dense(grid: PPPMGrid, x, q):
+    """``spread``'s plain version: the weight matrices' product."""
     WX, WY, WZ = _axis_weight_matrices(grid, x)
     rho = _wxy(WX, WY).T @ (q[:, None] * WZ)
     return rho.reshape(grid.nx, grid.ny, grid.nz)
 
 
-def gather(grid: PPPMGrid, brick, x, slots: TileSlots = None):
-    """Stencil readout of a mesh field at atom positions: (N,)."""
+def gather(grid: PPPMGrid, brick, x, slots: TileSlots = None, scale=None):
+    """Stencil readout of a mesh field at atom positions: (N,), times
+    ``scale`` where given (a number, or (N,))."""
     if not _use_dense(grid, x.shape[0]):
-        return gather_tiled(grid, [brick], x, slots=slots)[0]
+        return _scaled(gather_tiled(grid, [brick], x, slots=slots)[0], scale)
+    if build.kernel_route("mesh_gather", x):
+        return mesh_stencil.gather(grid, [brick], x, scale=scale)[:, 0]
+    return _scaled(_gather_dense(grid, brick, x), scale)
+
+
+def _gather_dense(grid: PPPMGrid, brick, x):
+    """``gather``'s plain version."""
     WX, WY, WZ = _axis_weight_matrices(grid, x)
     t = WZ @ brick.reshape(grid.nx * grid.ny, grid.nz).T
     return torch.sum(_wxy(WX, WY) * t, dim=1)
 
 
-def gather3(grid: PPPMGrid, bricks, x, slots: TileSlots = None):
-    """Three mesh fields at once (the ik force path): (N, 3)."""
+def gather3(grid: PPPMGrid, bricks, x, slots: TileSlots = None, scale=None):
+    """Three mesh fields at once (the ik force path): (N, 3), times
+    ``scale`` (N,) per row where given (the charges: q E)."""
     if not _use_dense(grid, x.shape[0]):
-        return torch.stack(gather_tiled(grid, list(bricks), x, slots=slots),
-                           dim=1)
+        return _scaled(torch.stack(gather_tiled(grid, list(bricks), x,
+                                                slots=slots), dim=1), scale)
+    if build.kernel_route("mesh_gather", x):
+        return mesh_stencil.gather(grid, list(bricks), x, scale=scale)
+    return _scaled(_gather3_dense(grid, bricks, x), scale)
+
+
+def _gather3_dense(grid: PPPMGrid, bricks, x):
+    """``gather3``'s plain version."""
     WX, WY, WZ = _axis_weight_matrices(grid, x)
     wxy = _wxy(WX, WY)
     return torch.stack([torch.sum(
@@ -1078,6 +1115,13 @@ def gather3_ad(grid: PPPMGrid, u, x):
     ad forces through the z-binned ``gather3_ad_zbin`` on a tiled mesh."""
     if not _use_dense(grid, x.shape[0]):
         return gather3_ad_tiled(grid, u, x)
+    if build.kernel_route("mesh_gather", x):
+        return mesh_stencil.gather(grid, [u], x, ad=True)
+    return _gather3_ad_dense(grid, u, x)
+
+
+def _gather3_ad_dense(grid: PPPMGrid, u, x):
+    """``gather3_ad``'s plain version."""
     (ix, iy, iz), (wx, wy, wz), (dxx, dxy, dxz), _, _ = _stencil_full(grid, x)
     cf = _coeffs(grid, x.dtype, x.device)
     mk = _weight_matrix
@@ -1212,7 +1256,15 @@ def _xy_weights(grid: PPPMGrid, x):
 
 def spread_zplanes(grid: PPPMGrid, x, q, zp_inv):
     """Spread charges that live on the z-plane set: (nx, ny, P).  NaN if any
-    stencil node falls outside the set."""
+    stencil node falls outside the set.  The stencil spread kernel for CUDA
+    float32 tensors."""
+    if build.kernel_route("mesh_spread", x):
+        return mesh_stencil.spread(grid, x, q, zp_inv=zp_inv)
+    return _spread_zplanes_dense(grid, x, q, zp_inv)
+
+
+def _spread_zplanes_dense(grid: PPPMGrid, x, q, zp_inv):
+    """``spread_zplanes``' plain version."""
     WZ, bad = _zplane_wz(grid, x, zp_inv)
     rho = (_xy_weights(grid, x).T @ (q[:, None] * WZ)).reshape(
         grid.nx, grid.ny, -1)
@@ -1257,9 +1309,18 @@ def u_on_zplanes(grid: PPPMGrid, rhok, zp):
     return u * (grid.nx * grid.ny * grid.nz / grid.volume)
 
 
-def gather_zplanes(grid: PPPMGrid, u_planes, x, zp_inv):
+def gather_zplanes(grid: PPPMGrid, u_planes, x, zp_inv, scale=None):
     """Stencil readout of a z-plane-restricted mesh (NaN if a stencil node
-    leaves the plane set)."""
+    leaves the plane set), times ``scale`` where given (a number, or (N,));
+    the stencil readout kernel for CUDA float32 tensors."""
+    if build.kernel_route("mesh_gather", x):
+        return mesh_stencil.gather(grid, [u_planes], x, scale=scale,
+                                   zp_inv=zp_inv)[:, 0]
+    return _scaled(_gather_zplanes_dense(grid, u_planes, x, zp_inv), scale)
+
+
+def _gather_zplanes_dense(grid: PPPMGrid, u_planes, x, zp_inv):
+    """``gather_zplanes``' plain version."""
     WZ, bad = _zplane_wz(grid, x, zp_inv)
     t = WZ @ u_planes.reshape(grid.nx * grid.ny, WZ.shape[1]).T
     return _nan_where(bad, torch.sum(_xy_weights(grid, x) * t, dim=1))

@@ -463,11 +463,11 @@ class ShardedEngine(Engine):
             else:
                 ek, umesh = pppm_ops.pppm_energy_u_from_k(grid, rhok)
                 e3 = pppm_ops.gather3_ad(grid, umesh, xi)
-        else:
-            ek, efield = pppm_ops.pppm_energy_efield_from_k(grid, rhok)
-            e3 = pppm_ops.gather3(self.rank_grid if self.tiled else grid,
-                                  efield, xi, slots=slots)
-        return ek, self.comm.all_gather_rows(qi[:, None] * e3, lay.n)
+            return ek, self.comm.all_gather_rows(qi[:, None] * e3, lay.n)
+        ek, efield = pppm_ops.pppm_energy_efield_from_k(grid, rhok)
+        fk = pppm_ops.gather3(self.rank_grid if self.tiled else grid, efield,
+                              xi, slots=slots, scale=qi)
+        return ek, self.comm.all_gather_rows(fk, lay.n)
 
     # ------------------------------------------------------- correction
     def _correction(self, x, q, kcache, nbr):
@@ -532,10 +532,11 @@ class ShardedEngine(Engine):
             xe_l = x[self.eidx]
             if conp.ele_zplanes is not None:
                 up = pppm_ops.u_on_zplanes(grid, kcache[0], conp.ele_zplanes)
-                b_l = -pppm_ops.gather_zplanes(grid, up, xe_l, conp.ele_zpinv)
+                b_l = pppm_ops.gather_zplanes(grid, up, xe_l,
+                                              conp.ele_zpinv, scale=-1.0)
             else:
                 u = pppm_ops.poisson_u_from_k(grid, kcache[0])
-                b_l = -pppm_ops.gather(grid, u, xe_l)
+                b_l = pppm_ops.gather(grid, u, xe_l, scale=-1.0)
             b = comm.all_gather_rows(torch.where(self.evalid, b_l, zero), ne)
         else:
             kx, ky, ug = self.kshard

@@ -44,7 +44,8 @@ CELL = dict(n_elyte=6144, nele_side=24, lz=60.0, lxy=50.0)
 BONDED = dict(n_pairs=1329, sheets=1, nx=27, ny=16)
 # the CUDA kernels of each hand kernel, by name: K1, K2a, K7 and K8 both
 # as redesigned and in their first design, so that a profile of either
-# version sums the same function (K6 kept its kernel names)
+# version sums the same function (K6 kept its kernel names); the dense
+# mesh's stencil kernels under their counters' names
 KERNEL_PARTS = {
     "K1": ("block_pair_kernel", "block_pack", "block_sweep",
            "block_force_reduce", "block_pair_reduce"),
@@ -60,6 +61,8 @@ KERNEL_PARTS = {
     "K9": ("window_gather_kernel",),
     "K10": ("integrate_half_kernel", "integrate_sums_kernel",
             "integrate_apply_kernel"),
+    "mesh_spread": ("stencil_spread_kernel",),
+    "mesh_gather": ("stencil_readout_kernel",),
 }
 
 

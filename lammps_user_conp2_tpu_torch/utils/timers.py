@@ -255,8 +255,8 @@ def phases(engine, state) -> dict:
             out["pppm_fft"] = lambda: pppm_ops.pppm_energy_efield_from_k(
                 grid, rhok)
             ef = pppm_ops.pppm_energy_efield_from_k(grid, rhok)[1]
-            out["pppm_gather"] = lambda: pppm_ops.gather3(grid, ef, x,
-                                                          slots=slots)
+            out["pppm_gather"] = lambda: pppm_ops.gather3(
+                grid, ef, x, slots=slots, scale=q)
         out["kspace_forces"] = lambda: eng._pppm(x, q, kcache, tasg)
     elif kcache is not None:
         tabs, sre, sie, _ = kcache

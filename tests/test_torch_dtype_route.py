@@ -8,7 +8,9 @@
   ``elyte_order``; K6 ``conp_correction``, ``corr_orders``; K1
   ``block_pair``, ``pack_rows``; K2a ``spread_mesh``; K2b
   ``spread_tiles``; K3 ``gather3``; K7 ``shake_positions``; K8
-  ``rattle_velocities``; K9 ``window_gather``; K10 ``integrate_half``),
+  ``rattle_velocities``; K9 ``window_gather``; K10 ``integrate_half``;
+  the dense mesh's stencil kernels ``mesh_spread`` and ``mesh_gather``,
+  through ``ops/pppm.py`` ``spread`` and ``gather3``),
   float64 inputs on the CPU:
   the wrapper consults the rule with the tensor it dispatches on; where
   the rule says CUDA float64, it returns its plain version's result bit
@@ -19,6 +21,7 @@
 import dataclasses
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,6 +33,7 @@ from lammps_user_conp2_tpu_torch.ops.kernels import block_pair as k1
 from lammps_user_conp2_tpu_torch.ops.kernels import build
 from lammps_user_conp2_tpu_torch.ops.kernels import ele_rows_kernel as k56
 from lammps_user_conp2_tpu_torch.ops.kernels import integrate_kernel as ik
+from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as kms
 from lammps_user_conp2_tpu_torch.ops.kernels import pair_kernel as k4
 from lammps_user_conp2_tpu_torch.ops.kernels import pppm_gather as k3
 from lammps_user_conp2_tpu_torch.ops.kernels import pppm_spread as k2
@@ -100,6 +104,13 @@ def cells(tmp_path_factory):
     eng = build_engine(system, md, setup_conp(system, md, cfg, **SOLVE64),
                        **CPU64)
     out["il"] = (system, md, eng)
+    rng = np.random.default_rng(11)
+    grid = P.setup_pppm(box=(10.0, 11.0, 30.0), box_lo=(0.0, 0.0, 0.0),
+                        accuracy_abs=1e-4, natoms=50, q2=1.0, cutoff=5.0,
+                        g_ewald=0.3, grid=(8, 9, 20))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    out["mesh"] = (grid, t(rng.uniform(0, 10, (50, 3))), t(rng.normal(
+        size=50)), [t(rng.normal(size=grid.shape)) for _ in range(3)])
     return out
 
 
@@ -138,6 +149,7 @@ def _calls(cells):
     chain = torch.full((len(itg.thermostats), itg.thermostats[0].tchain),
                        0.01, dtype=torch.float64)
     iargs = (itg, v, 3.0 * v, xo, chain, 2.0 * chain, ("nhc", "kick", "drift"))
+    mg, mx, mq, mf = cells["mesh"]
     return {
         "pair_forces": (k4.launches, lambda: k4.pair_forces(
             x, q, eng.type_idx, eng.tables, None, conp_fuse=fuse,
@@ -184,13 +196,19 @@ def _calls(cells):
                           lambda: k9.window_gather_plain(win, idx, 3)),
         "integrate_half": (ik.launches, lambda: ik.integrate_half(*iargs),
                            lambda: ik.integrate_half_plain(*iargs)),
+        "mesh_spread": (kms.spread_launches, lambda: P.spread(mg, mx, mq),
+                        lambda: P._spread_dense(mg, mx, mq)),
+        "mesh_gather": (kms.gather_launches, lambda: P.gather3(
+            mg, mf, mx, scale=mq), lambda: mq[:, None] * P._gather3_dense(
+            mg, mf, mx)),
     }
 
 
 WRAPPERS = ["pair_forces", "tile_schedule", "b_realspace", "elyte_order",
             "conp_correction", "corr_orders", "block_pair", "pack_rows",
             "spread_mesh", "spread_tiles", "gather3", "shake_positions",
-            "rattle_velocities", "window_gather", "integrate_half"]
+            "rattle_velocities", "window_gather", "integrate_half",
+            "mesh_spread", "mesh_gather"]
 
 
 def _flat(out):

@@ -353,12 +353,12 @@ def test_large_engine_launches_kernels(cuda, monkeypatch):
     assert np.isfinite(float(st.energy))
 
 
-def _il_cell(cuda, directory, **md_kw):
+def _il_cell(cuda, directory, n=0, **md_kw):
     import dataclasses
     from lammps_user_conp2_tpu_torch import workloads
     from lammps_user_conp2_tpu_torch.models.conp import setup_conp
     from lammps_user_conp2_tpu_torch.models.md import build_engine
-    system, md, cfg = il_small(workloads, il_small_file(directory))
+    system, md, cfg = il_small(workloads, il_small_file(directory), n=n)
     md = dataclasses.replace(md, **md_kw)
     conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=cuda)
     eng = build_engine(system, md, conp, dtype=torch.float32, device=cuda)
@@ -886,6 +886,9 @@ def _graph_cell(cuda, cell, tmp_path, monkeypatch):
     if cell == "il_tile":
         system, md, eng = _il_cell(cuda, tmp_path, pair_path="tile")
         return eng, {}
+    if cell == "il4":
+        system, md, eng = _il_cell(cuda, tmp_path, n=4)
+        return eng, {}
     system, md, eng = _il_cell(cuda, tmp_path,
                                use_pallas_pair=(cell != "unfused"))
     if cell == "unfused":
@@ -906,7 +909,7 @@ def _same(a, b):
 
 @pytest.mark.parametrize("cell", ["mid", "tiled", "il", "bonded", "unfused",
                                   "fullmesh", "mid_cg_nevery2", "mid_mixed",
-                                  "cell", "tile", "il_tile", "dilute"])
+                                  "cell", "tile", "il_tile", "dilute", "il4"])
 def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
                                           monkeypatch):
     """``Engine.run`` replays CUDA graphs: 20 replayed steps equal 20 eager
@@ -915,7 +918,8 @@ def test_graphed_run_matches_eager_on_card(cuda, cell, tmp_path,
     list's correction sum in a fixed order), the thermo rows included; the
     cells include S2 under CG solving every second step (the CG blocks and
     the skip variant replayed), S2 with a float64 solve under a float32
-    engine, and the dilute deck (K10's second half in one launch)."""
+    engine, the dilute deck (K10's second half in one launch) and the il
+    deck's trial 4 (the dense mesh's stencil kernels)."""
     eng, kw = _graph_cell(cuda, cell, tmp_path, monkeypatch)
     st0 = eng.init_state(**kw)
     e1 = _steps(eng, st0, 20)
@@ -1590,3 +1594,154 @@ def test_integrate_layer_launches_on_card(cuda, cell, per_step, kernels,
         if names:
             break
     assert len(names) == kernels, names
+
+
+# ------------------------------------------------- the dense mesh's stencils
+MESH_SITES = ["spread", "spread_zplanes", "gather", "gather3",
+              "gather_zplanes", "gather3_ad"]
+
+
+@pytest.fixture(scope="module")
+def mesh_cases(tmp_path_factory):
+    """Per mesh, (grid, x, q with zero electrode rows, xe, qe, zp_inv,
+    three fields, the potential on the planes), float32 on the card:
+    il_onelayer trial 4 on the 3,776-atom file (mesh 30 x 32 x 80, Ne
+    2,496, the deck's plane set) at its start with random electrode
+    charges; and a coarse mesh (3 x 4 x 16, order 5) with 300 atoms in and
+    a little outside its box."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lammps_user_conp2_tpu_torch import workloads
+    from lammps_user_conp2_tpu_torch.models.conp import setup_conp
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(24)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                  device=dev)
+    out = {}
+    path = workloads.write_il_data(str(tmp_path_factory.mktemp("il4")
+                                       / "il.data"))
+    system, md, cfg = workloads.il_onelayer(4, data_path=path)
+    conp = setup_conp(system, md, cfg, solve_dtype=torch.float32, device=dev)
+    grid = conp.pppm_grid
+    assert grid.shape == (30, 32, 80) and conp.ne == 2496
+    q = system.q0.copy()
+    q[system.ele_mask] = 0.0
+    xe = system.x0[system.ele_mask]
+    qe = 0.05 * rng.standard_normal(len(xe))
+    cases = {"il4": (grid, system.x0, q, xe, qe, conp.ele_zpinv)}
+    box = (6.0, 7.0, 30.0)
+    cgrid = P.setup_pppm(box=box, box_lo=(0.0, 0.0, 0.0), accuracy_abs=1e-4,
+                         natoms=300, q2=1.0, cutoff=5.0, g_ewald=0.3,
+                         grid=(3, 4, 16))
+    x = rng.uniform(-0.05, 1.05, size=(300, 3)) * np.asarray(box)
+    cq = rng.normal(size=300)
+    cq[::3] = 0.0
+    cxe = rng.uniform(0, 1, size=(60, 3)) * np.asarray(box)
+    cxe[:, 2] = np.where(np.arange(60) % 2 == 0, 3.0, 27.0)
+    cases["coarse"] = (cgrid, x, cq, cxe, rng.normal(size=60),
+                       P.zplane_inverse(cgrid, P.electrode_zplanes(cgrid,
+                                                                   cxe)))
+    for name, (g, x, q, xe, qe, zpi) in cases.items():
+        npl = int((zpi >= 0).sum())
+        out[name] = (g, t(x), t(q), t(xe), t(qe), zpi,
+                     [t(rng.normal(size=g.shape)) for _ in range(3)],
+                     t(rng.normal(size=(g.nx, g.ny, npl))))
+    return out
+
+
+def _mesh_calls(case):
+    """site -> (the routed call, its dense plain version, its counter)."""
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as ms
+    g, x, q, xe, qe, zpi, f3, up = case
+    sp, ga = ms.spread_launches, ms.gather_launches
+    return {
+        "spread": (lambda: P.spread(g, x, q),
+                   lambda: P._spread_dense(g, x, q), sp),
+        "spread_zplanes": (lambda: P.spread_zplanes(g, xe, qe, zpi),
+                           lambda: P._spread_zplanes_dense(g, xe, qe, zpi),
+                           sp),
+        "gather": (lambda: P.gather(g, f3[0], x),
+                   lambda: P._gather_dense(g, f3[0], x), ga),
+        "gather3": (lambda: P.gather3(g, f3, x, scale=q),
+                    lambda: q[:, None] * P._gather3_dense(g, f3, x), ga),
+        "gather_zplanes": (lambda: P.gather_zplanes(g, up, xe, zpi,
+                                                    scale=-1.0),
+                           lambda: -P._gather_zplanes_dense(g, up, xe, zpi),
+                           ga),
+        "gather3_ad": (lambda: P.gather3_ad(g, f3[0], x),
+                       lambda: P._gather3_ad_dense(g, f3[0], x), ga),
+    }
+
+
+@pytest.mark.parametrize("site", MESH_SITES)
+@pytest.mark.parametrize("mesh", ["il4", "coarse"])
+def test_mesh_stencil_matches_plain_on_card(cuda, mesh_cases, mesh, site):
+    """Each dense-mesh function on the card launches its stencil kernel
+    once per call, within TOL of its dense plain version in float32 (the
+    sums differ in order only), two launches bit-identical, no
+    (N, nx*ny) weight matrix formed (``_wxy`` not called)."""
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    call, plain, counter = _mesh_calls(mesh_cases[mesh])[site]
+    ref = plain()
+    n0 = counter.count
+    wxy = P._wxy
+    try:
+        P._wxy = None
+        got, again = call(), call()
+    finally:
+        P._wxy = wxy
+    torch.cuda.synchronize()
+    assert counter.count == n0 + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, ref) <= TOL, _rel(got, ref)
+
+
+@pytest.mark.parametrize("mesh", ["il4", "coarse"])
+def test_mesh_stencil_off_planes_nan_on_card(cuda, mesh_cases, mesh):
+    """A stencil node off the plane set makes the kernels' whole output
+    NaN, as the dense versions' (decided on the card: no host read)."""
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    g, x, q, xe, qe, zpi, f3, up = mesh_cases[mesh]
+    far = xe.clone()
+    far[0, 2] = 0.5 * g.zprd_grid
+    P.gather_zplanes(g, up, xe, zpi)     # the slot tables on the card
+    P.spread_zplanes(g, xe, qe, zpi)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rho = P.spread_zplanes(g, far, qe, zpi)
+        b = P.gather_zplanes(g, up, far, zpi, scale=-1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isnan(rho).all()) and bool(torch.isnan(b).all())
+    assert bool(torch.isnan(P._spread_zplanes_dense(g, far, qe, zpi)).all())
+
+
+@pytest.mark.parametrize("trial,per_step", [(4, 2), (0, 0)])
+def test_mesh_kernels_in_graphed_step_on_card(cuda, tmp_path, monkeypatch,
+                                              trial, per_step):
+    """il_onelayer trial 4 (PPPM on a dense mesh, electrodes on z planes)
+    spreads twice and reads twice per graphed step through the stencil
+    kernels (the electrolyte and the electrodes; b and the ik forces), and
+    forms no dense weight matrix; trial 0 (the factored Ewald sum) never
+    launches them."""
+    from lammps_user_conp2_tpu_torch.ops import pppm as P
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as ms
+
+    def dense(*args):
+        raise AssertionError("a dense weight matrix on the card")
+
+    system, md, eng = _il_cell(cuda, tmp_path, n=trial)
+    monkeypatch.setattr(P, "_weight_matrix", dense)
+    monkeypatch.setattr(P, "_wxy", dense)
+    st = eng.init_state()
+    ms.spread_launches.reset()
+    ms.gather_launches.reset()
+    st, _ = eng.run(st, 5, thermo_every=0)
+    torch.cuda.synchronize()
+    assert ms.spread_launches.count == 5 * per_step
+    assert ms.gather_launches.count == 5 * per_step
+    assert np.isfinite(float(st.energy))

@@ -312,3 +312,92 @@ def test_weight_matrix_adds_each_stencil_column(m):
     np.add.at(ref, (np.arange(n)[:, None], i), w)
     got = TP._weight_matrix(m, torch.from_numpy(i), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-15, atol=1e-15)
+
+
+# the dense functions' route off the card: il_onelayer's 30 x 32 x 80 mesh
+# at 3,776 atoms, a coarse mesh with two axes shorter than the order, an
+# even order and orders 2 and 7 (mesh, order, box, atoms)
+ROUTE_MESHES = {
+    "il4": ((30, 32, 80), 5, (31.98, 34.08, 125.38), 3776),
+    "coarse": ((3, 4, 16), 5, (6.0, 7.0, 30.0), 300),
+    "even4": ((12, 10, 24), 4, (14.0, 12.0, 40.0), 400),
+    "order2": ((8, 9, 20), 2, (10.0, 11.0, 30.0), 300),
+    "order7": ((16, 14, 30), 7, (15.0, 13.0, 40.0), 400),
+}
+ROUTED = ["spread", "spread_zplanes", "gather", "gather3", "gather_zplanes",
+          "gather3_ad"]
+
+
+@pytest.fixture(scope="module", params=list(ROUTE_MESHES))
+def route_case(request):
+    """(grid, x, q, xe, qe, zp_inv, three fields, a potential on the
+    planes), float64 on the CPU: atoms in and a little outside the box,
+    every third charge zero (the electrolyte spread's electrode rows); the
+    electrodes two layers near either wall."""
+    shape, order, box, n = ROUTE_MESHES[request.param]
+    grid = TP.setup_pppm(box=box, box_lo=(0.0, 0.0, 0.0), accuracy_abs=1e-4,
+                         natoms=100, q2=1.0, cutoff=6.0, order=order,
+                         g_ewald=0.3, grid=shape)
+    rng = np.random.default_rng(24)
+    x = rng.uniform(-0.05, 1.05, size=(n, 3)) * np.asarray(box)
+    q = rng.normal(size=n)
+    q[::3] = 0.0
+    ne = max(n // 6, 20)
+    xe = rng.uniform(0, 1, size=(ne, 3)) * np.asarray(box)
+    xe[:, 2] = np.where(np.arange(ne) % 2 == 0, 0.1 * box[2], 0.9 * box[2])
+    zpi = TP.zplane_inverse(grid, TP.electrode_zplanes(grid, xe))
+    t = lambda a: _tt(a, torch.float64)
+    npl = int((zpi >= 0).sum())
+    return (grid, t(x), t(q), t(xe), t(rng.normal(size=ne)), zpi,
+            [t(rng.normal(size=shape)) for _ in range(3)],
+            t(rng.normal(size=(shape[0], shape[1], npl))))
+
+
+@pytest.mark.parametrize("site", ROUTED)
+def test_dense_functions_take_plain_route_off_card(route_case, site):
+    """On the CPU each dense-path function is its weight-matrix plain
+    version, bit for bit, and launches no stencil kernel."""
+    from lammps_user_conp2_tpu_torch.ops.kernels import mesh_stencil as ms
+    g, x, q, xe, qe, zpi, f3, up = route_case
+    calls = {
+        "spread": (lambda: TP.spread(g, x, q),
+                   lambda: TP._spread_dense(g, x, q)),
+        "spread_zplanes": (lambda: TP.spread_zplanes(g, xe, qe, zpi),
+                           lambda: TP._spread_zplanes_dense(g, xe, qe, zpi)),
+        "gather": (lambda: TP.gather(g, f3[0], x),
+                   lambda: TP._gather_dense(g, f3[0], x)),
+        "gather3": (lambda: TP.gather3(g, f3, x),
+                    lambda: TP._gather3_dense(g, f3, x)),
+        "gather_zplanes": (lambda: TP.gather_zplanes(g, up, xe, zpi),
+                           lambda: TP._gather_zplanes_dense(g, up, xe, zpi)),
+        "gather3_ad": (lambda: TP.gather3_ad(g, f3[0], x),
+                       lambda: TP._gather3_ad_dense(g, f3[0], x)),
+    }
+    call, plain = calls[site]
+    n0 = ms.spread_launches.count, ms.gather_launches.count
+    got = call()
+    assert (ms.spread_launches.count, ms.gather_launches.count) == n0
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, plain())
+
+
+def test_public_readouts_fold_scale(route_case):
+    """The readouts' ``scale`` on the plain route: the charge per row, or
+    b's sign, exactly as the callers applied them before."""
+    g, x, q, xe, _, zpi, f3, up = route_case
+    assert torch.equal(TP.gather3(g, f3, x, scale=q),
+                       q[:, None] * TP.gather3(g, f3, x))
+    assert torch.equal(TP.gather(g, f3[0], x, scale=-1.0),
+                       -TP.gather(g, f3[0], x))
+    assert torch.equal(TP.gather_zplanes(g, up, xe, zpi, scale=-1.0),
+                       -TP.gather_zplanes(g, up, xe, zpi))
+
+
+def test_off_the_planes_gives_nan(route_case):
+    """A stencil node off the plane set makes the whole spread and readout
+    NaN, on every mesh."""
+    g, _, _, xe, qe, zpi, _, up = route_case
+    far = xe.clone()
+    far[0, 2] = 0.5 * g.zprd_grid     # mid-cell: no plane near it
+    assert torch.isnan(TP.spread_zplanes(g, far, qe, zpi)).all()
+    assert torch.isnan(TP.gather_zplanes(g, up, far, zpi, scale=-1.0)).all()
